@@ -1,0 +1,375 @@
+"""Quickest proof that the PyTorch port runs on an NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Needs one CUDA card and the CUDA toolkit (nvcc). Imports only the port
+(``src/repro_torch``), never JAX. Phases, one line each; any failure ends the
+run with a non-zero exit and no result line:
+
+  1. environment: card name and power limit, torch and nvcc versions, and the
+     build of every kernel from ``src/repro_torch/kernels/csrc`` (nvcc for
+     sm_90a, one process per source, all at once) with ptxas register/spill counts;
+  2. every kernel against its plain PyTorch version on the card, at the serving
+     path's shapes, with its time by CUDA events beside the plain version's;
+  3. qwen2.5-3b at its published width (36 layers, d_model 2048, vocab 152064
+     padded), random weights from a seed with non-zero adapters, served by
+     ``BatchServer`` (4 slots, 8 requests of 64-512 prompt tokens, 32 new tokens
+     each); the launch counters prove the path ran the kernels. The first batch
+     is served again with ``impl="plain"``, in bf16 and in f32, and each of its
+     blocks (prefill and every decode step) is held to its kernel version on the
+     same input; the f32 prefill logits of the two paths are held to each other,
+     beside the plain path's own gap from the CPU (another summation order).
+
+The last two lines are a JSON object of per-kernel measurements and
+``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+if not torch.cuda.is_available():
+    print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU", file=sys.stderr)
+    sys.exit(1)
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+
+import dataclasses  # noqa: E402
+
+import numpy as np  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
+from torch.utils._pytree import tree_leaves, tree_map  # noqa: E402
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.launch.serve import BatchServer, Request  # noqa: E402
+from repro_torch.models import params as prm  # noqa: E402
+from repro_torch.models import transformer as tfm  # noqa: E402
+
+SEED = 0
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM, published
+BF16_FLOPS = 989e12              # dense bf16 tensor cores, published
+FP32_FLOPS = 67e12               # fp32 outside the tensor cores, published
+# The kernel path against the plain path in the served model. This random
+# model (the reference's init) is chaotic over 36 layers: a last-digit change
+# in one block grows to an O(0.1-1) change of the logits even in f32. The
+# witness printed beside it is the plain path on the CPU, which sums in
+# another order (PERF.md). So each block is held to its plain version on the
+# same input, the plain path's activations of the served first batch, in
+# prefill and in decode (rtol of the block output's largest entry: f32
+# summation order; in bf16 a few ulps). The f32 logits of the two whole paths
+# are held by the RMS of their difference, which must stay below half the
+# logits' RMS: a wrong kernel gives about 1.4 RMS (unrelated logits), while
+# the chaos moves a few logits most (the largest gap says less than the RMS).
+# The bf16 logits are only printed: bf16 rounding alone moves them by more
+# than a typical logit (the plain path against f32).
+BLOCK_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -5}
+LOGIT_RMS_FRACTION = 0.5
+# Kernel against plain version: the absolute tolerances of tests/test_kernels.py
+# (adapter 1e-5 f32 / 2e-2 bf16, attention 1e-5 / 3e-2). The bf16 adapter also
+# allows one bf16 ulp of each output (rtol 2**-7): its fp32 sums run in another
+# order, which can move h + up across a bf16 rounding boundary, and among the
+# 4M random values of h [2048, 2048] some exceed 4, where one ulp is 0.031.
+ATOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 3e-2)}  # (adapter, attention)
+ADAPTER_RTOL = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7}
+SOURCES = {
+    "adapter_fused": ("src/repro_torch/kernels/csrc/adapter_fused.cu",
+                      "src/repro/kernels/adapter_fused.py:55"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:86"),
+}
+
+
+def say(phase: str, **fields) -> None:
+    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
+
+
+def card() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.strip().splitlines()
+    return out[torch.cuda.current_device()] if len(out) > 1 else out[0]
+
+
+def cuda_ms(fn, iters: int = 20) -> float:
+    """Mean milliseconds of ``fn`` on the card by CUDA events, after a warm-up."""
+    for _ in range(3):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def in_turns(plain, kernel):
+    """Times of (kernel, plain), measured plain, kernel, kernel, plain."""
+    p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), cuda_ms(plain)
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+# ---------------------------------------------------------------- phase 1
+def phase_environment(name_limit: str) -> None:
+    nvcc = subprocess.run([build.nvcc(), "--version"], capture_output=True, text=True,
+                          check=True, timeout=60).stdout.strip().splitlines()[-1]
+    say("env", card=repr(name_limit), torch=torch.__version__, cuda=torch.version.cuda,
+        nvcc=repr(nvcc), sms=torch.cuda.get_device_properties(0).multi_processor_count)
+    t0 = time.perf_counter()
+    build.build()
+    say("build", seconds=f"{time.perf_counter() - t0:.2f}",
+        dir=os.path.relpath(build.BUILD_DIR, os.path.dirname(os.path.abspath(__file__))))
+    for name, rec in build.LOG.items():
+        for line in rec["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                say("ptxas", kernel=name, info=repr(line.strip().removeprefix("ptxas info    : ")))
+
+
+# ---------------------------------------------------------------- phase 2
+def adapter_case(T, dtype, act, gen, record=None):
+    D, m = 2048, 64
+    h = torch.randn(T, D, generator=gen, device="cuda").to(dtype)
+    wd = (0.05 * torch.randn(D, m, generator=gen, device="cuda")).to(dtype)
+    wu = (0.05 * torch.randn(m, D, generator=gen, device="cuda")).to(dtype)
+    got = ops.adapter_fused(h, wd, wu, activation=act)
+    want = ops.adapter_fused(h, wd, wu, activation=act, impl="plain")
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    tol = ATOL[dtype][0]
+    excess = (diff - tol - ADAPTER_RTOL[dtype] * want.float().abs()).max().item()
+    ms, plain_ms = in_turns(lambda: ops.adapter_fused(h, wd, wu, activation=act, impl="plain"),
+                            lambda: ops.adapter_fused(h, wd, wu, activation=act))
+    say("adapter_fused", T=T, D=D, m=m, dtype=str(dtype).removeprefix("torch."), act=act,
+        max_abs_err=f"{err:.3g}", atol=tol, rtol=ADAPTER_RTOL[dtype], ms=f"{ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}")
+    if not excess <= 0:
+        raise AssertionError(f"adapter_fused disagrees with its plain version: max error "
+                             f"{err}, {excess} beyond atol {tol} + rtol {ADAPTER_RTOL[dtype]}")
+    if record is not None:
+        size = h.element_size()
+        nbytes = 2 * T * D * size + 2 * D * m * wd.element_size()
+        # down-projection on h's type; the up-projection has an fp32 left operand
+        down_rate = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+        t_ops = 2 * T * D * m / down_rate + 2 * T * D * m / FP32_FLOPS
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        record.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                      bound_ms=1e3 * max(t_ops, t_bytes),
+                      bound_by="operations" if t_ops > t_bytes else "bytes",
+                      library_ms=None, shape=f"h[{T},{D}] m={m} {act} bf16")
+
+
+def attention_case(S, window, dtype, gen, record=None):
+    B, H, K, hd = 4, 16, 2, 128
+    q = torch.randn(B, S, H, hd, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(B, S, K, hd, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(B, S, K, hd, generator=gen, device="cuda").to(dtype)
+    got = ops.flash_attention(q, k, v, window=window)
+    want = ops.flash_attention(q, k, v, window=window, impl="plain")
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = ATOL[dtype][1]
+    ms, plain_ms = in_turns(lambda: ops.flash_attention(q, k, v, window=window, impl="plain"),
+                            lambda: ops.flash_attention(q, k, v, window=window))
+    # yardstick only: one PyTorch call computing the same function (never used by the port)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if window is None:
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                      enable_gqa=True)
+    else:
+        i = torch.arange(S, device="cuda")
+        mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                      enable_gqa=True)
+    lib_err = (sdpa().transpose(1, 2).float() - want.float()).abs().max().item()
+    library_ms = cuda_ms(sdpa)
+    say("flash_attention", B=B, H=H, K=K, hd=hd, S=S, window=window,
+        dtype=str(dtype).removeprefix("torch."), max_abs_err=f"{err:.3g}", tol=tol,
+        ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
+        library_err=f"{lib_err:.3g}")
+    if not err <= tol:
+        raise AssertionError(f"flash_attention disagrees with its plain version: {err} > {tol}")
+    if record is not None:
+        i = torch.arange(S)
+        seen = i[None, :] <= i[:, None]
+        if window is not None:
+            seen &= (i[:, None] - i[None, :]) < window
+        pairs = int(seen.sum())                       # (query, key) pairs this mask needs
+        t_ops = 4 * B * H * hd * pairs / BF16_FLOPS
+        t_bytes = 2 * (q.numel() + k.numel()) * q.element_size() / HBM_BYTES_PER_S
+        record.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                      bound_ms=1e3 * max(t_ops, t_bytes),
+                      bound_by="operations" if t_ops > t_bytes else "bytes",
+                      library_ms=library_ms,
+                      shape=f"q[{B},{S},{H},{hd}] kv[{B},{S},{K},{hd}] causal bf16")
+
+
+def phase_kernels(records) -> None:
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    bf16, f32 = torch.bfloat16, torch.float32
+    adapter_case(4, bf16, "gelu", gen)                     # decode: T = batch
+    adapter_case(2048, bf16, "gelu", gen, records["adapter_fused"])   # prefill 4 x 512
+    adapter_case(2048, bf16, "relu", gen)
+    adapter_case(2048, bf16, "silu", gen)
+    adapter_case(2048, f32, "gelu", gen)
+    attention_case(512, None, bf16, gen, records["flash_attention"])
+    for S, window, dtype in ((300, None, bf16), (512, 128, bf16), (300, 128, bf16),
+                             (512, None, f32), (300, 128, f32)):
+        attention_case(S, window, dtype, gen)
+
+
+# ---------------------------------------------------------------- phase 3
+def phase_serve(records, name_limit: str) -> None:
+    cfg = get_config("qwen2.5-3b")
+    cfg = dataclasses.replace(cfg, adapter=dataclasses.replace(cfg.adapter,
+                                                                zero_init_up=False))
+    t0 = time.perf_counter()
+    params = prm.materialize(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    say("materialize", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+        vocab=cfg.padded_vocab, params=n_params, seconds=f"{time.perf_counter() - t0:.2f}")
+
+    rng = np.random.default_rng(SEED)
+    max_new, slots = 32, 4
+    lens = rng.integers(64, 513, size=8)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)) for n in lens]
+    horizon = 512 + max_new + 8
+    requests = lambda: [Request(i, p, max_new) for i, p in enumerate(prompts)]
+
+    BatchServer(cfg, params, slots=slots, horizon=horizon, device="cuda").run(
+        requests()[:slots], log=lambda *a: None)           # warm-up: cuBLAS, allocator
+
+    server = BatchServer(cfg, params, slots=slots, horizon=horizon, device="cuda")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    results = server.run(requests(), log=lambda *a: None)
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+
+    n_batches = len(server.batches)
+    if sorted(results) != list(range(8)) or any(len(v) != max_new for v in results.values()):
+        raise AssertionError(f"not every request got {max_new} tokens")
+    want = {"adapter_fused": cfg.n_layers * (1 + (max_new - 1)) * n_batches,
+            "flash_attention": cfg.n_layers * n_batches}
+    if launches != want:
+        raise AssertionError(f"launch counters {launches} != expected {want}")
+    for name, n in launches.items():
+        records[name]["launches"] = n
+
+    prefill_ms = [1e3 * b["prefill_s"] for b in server.batches]
+    decode_ms = [1e3 * b["decode_s"] / b["decode_steps"] for b in server.batches]
+    tokens = sum(len(v) for v in results.values())
+    say("serve", requests=len(results), batches=n_batches, prompt_lens=list(map(int, lens)),
+        new_tokens=tokens, launches=json.dumps(launches).replace(" ", ""))
+    say("serve_time", prefill_ms=[f"{x:.2f}" for x in prefill_ms],
+        decode_ms_per_step=[f"{x:.3f}" for x in decode_ms],
+        tokens_per_s=f"{tokens / wall:.1f}", wall_s=f"{wall:.3f}", card=repr(name_limit))
+
+    V = cfg.vocab_size                                  # the pad logits are -1e30
+    first = requests()[:slots]
+    plain, plain_results, gaps16 = _plain_run(cfg, params, first, horizon)
+    k16 = server.batches[0]["prefill_logits"][:, :V].float()
+    p16 = plain.batches[0]["prefill_logits"][:, :V].float()
+    if not torch.isfinite(k16).all() or k16.shape != (slots, V):
+        raise AssertionError(f"prefill logits: shape {tuple(k16.shape)} or non-finite values")
+
+    # the same weights in f32 (bf16 -> f32 is exact): prefill and one decode step
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = tree_map(lambda t: t.float(), params)
+    two = [Request(r.rid, r.prompt, 2) for r in first]
+    kernel32 = BatchServer(cfg32, params32, slots=slots, horizon=horizon, device="cuda")
+    kernel32.run(two, log=lambda *a: None)
+    plain32, _, gaps32 = _plain_run(cfg32, params32, two, horizon)
+    k32 = kernel32.batches[0]["prefill_logits"][:, :V].float()
+    p32 = plain32.batches[0]["prefill_logits"][:, :V].float()
+    # witness of the chaos: the plain path on the CPU sums in another order
+    params_cpu = tree_map(lambda t: t.cpu(), params32)
+    del params32
+    t0 = time.perf_counter()
+    cpu32 = BatchServer(cfg32, params_cpu, slots=slots, horizon=horizon, impl="plain",
+                        device="cpu")
+    cpu32.run([Request(r.rid, r.prompt, 1) for r in first], log=lambda *a: None)
+    c32 = cpu32.batches[0]["prefill_logits"][:, :V].float().to("cuda")
+    cpu_s = time.perf_counter() - t0
+    del params_cpu
+
+    gap = lambda a, b: (a - b).abs().max().item()
+    rms = lambda x: x.square().mean().sqrt().item()
+    say("blocks_vs_plain", **{f"{dt}_{mode}": f"{g:.3g}" for dt, gaps in
+                              (("f32", gaps32), ("bf16", gaps16)) for mode, g in gaps.items()},
+        f32_rtol=BLOCK_RTOL[torch.float32], bf16_rtol=BLOCK_RTOL[torch.bfloat16])
+    say("prefill_logits", f32_kernel_vs_plain_rms=f"{rms(k32 - p32):.4g}",
+        f32_plain_vs_cpu_plain_rms=f"{rms(p32 - c32):.4g}",
+        tol=f"{LOGIT_RMS_FRACTION * rms(p32):.4g}", rms_logit=f"{rms(p32):.4g}",
+        f32_kernel_vs_plain_max=f"{gap(k32, p32):.4g}",
+        f32_plain_vs_cpu_plain_max=f"{gap(p32, c32):.4g}", max_abs_logit=f"{p32.abs().max().item():.4g}",
+        bf16_kernel_vs_plain=f"{gap(k16, p16):.4g}", bf16_plain_vs_f32=f"{gap(p16, p32):.4g}",
+        same_argmax=f"{int((k16.argmax(-1) == p16.argmax(-1)).sum())}/{slots}",
+        same_tokens=f"{sum(results[i] == plain_results[i] for i in plain_results)}/{slots}",
+        cpu_s=f"{cpu_s:.1f}")
+    for dtype, gaps in ((torch.float32, gaps32), (torch.bfloat16, gaps16)):
+        if set(gaps) != {"prefill", "step"}:
+            raise AssertionError(f"the block check saw modes {sorted(gaps)}")
+        for mode, g in gaps.items():
+            if not g <= BLOCK_RTOL[dtype]:
+                raise AssertionError(f"a {dtype} {mode} block differs from its plain version "
+                                     f"by {g} of its output (rtol {BLOCK_RTOL[dtype]})")
+    if not rms(k32 - p32) <= LOGIT_RMS_FRACTION * rms(p32):
+        raise AssertionError(f"f32 prefill logits: kernel path {rms(k32 - p32)} (RMS) from "
+                             f"the plain path, beyond {LOGIT_RMS_FRACTION} x their RMS "
+                             f"{rms(p32)}")
+
+
+def _plain_run(cfg, params, requests, horizon):
+    """Serve ``requests`` (one batch) with ``impl="plain"`` on the card. Every
+    block also runs its kernel version on the same input and a copy of its
+    cache. Returns the server, its results and, per block mode, the worst gap
+    between the two relative to the block output's largest entry."""
+    gaps = {}
+    real = tfm.apply_block
+
+    def both(kind, cfg, p, h, ctx, cache=None):
+        twin = None if cache is None else {k: v.clone() for k, v in cache.items()}
+        hk, _ = real(kind, cfg, p, h, dataclasses.replace(ctx, impl="kernel"), twin)
+        out = real(kind, cfg, p, h, ctx, cache)
+        g = ((hk.float() - out[0].float()).abs().max() / out[0].float().abs().max()).item()
+        gaps[ctx.mode] = max(gaps.get(ctx.mode, 0.0), g)
+        return out
+
+    server = BatchServer(cfg, params, slots=len(requests), horizon=horizon, impl="plain",
+                         device="cuda")
+    tfm.apply_block = both
+    try:
+        results = server.run(requests, log=lambda *a: None)
+    finally:
+        tfm.apply_block = real
+    return server, results, gaps
+
+
+def main() -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False     # f32 plain versions in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    name_limit = card()
+    print(name_limit, flush=True)
+    phase_environment(name_limit)
+    records = {name: {"name": name, "route": "cuda", "source": src, "replaces": rep}
+               for name, (src, rep) in SOURCES.items()}
+    phase_kernels(records)
+    phase_serve(records, name_limit)
+    print(json.dumps({"kernels": list(records.values())}), flush=True)
+    print(name_limit, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

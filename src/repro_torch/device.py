@@ -1,0 +1,22 @@
+"""The device rule of the port's entry points.
+
+``BatchServer``, ``materialize`` and the serve CLI run on ``cuda`` unless the
+caller asks for the CPU. Without a card they raise instead of falling back.
+"""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+
+def resolve(device: Optional[Union[str, torch.device]] = None) -> torch.device:
+    """``None`` means ``cuda``; a CUDA device without a card is an error."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; the port runs on the GPU unless it "
+            "is given device='cpu'")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev

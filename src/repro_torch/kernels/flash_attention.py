@@ -1,0 +1,61 @@
+"""Launcher of the flash-attention CUDA kernel (``csrc/flash_attention.cu``).
+
+The port of the reference's Pallas ``kernels/flash_attention.py``, in the
+model's layout: q [B, Sq, H, hd], k and v [B, Sk, K, hd], query head n reading
+KV head n // (H // K). It takes CUDA tensors only; ``kernels.ops.flash_attention``
+is the public entry, which sends a CPU tensor to the plain version in
+``kernels/ref.py``.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build
+
+NAME = "flash_attention"
+HEAD_DIMS = (64, 128)
+DTYPES = (torch.bfloat16, torch.float32)
+
+
+def _lib():
+    so = build.lib(NAME)
+    fn = so.flash_attention_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                       + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return so
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
+    """Causal (end-aligned), optionally windowed GQA attention; returns [B, Sq, H, hd]."""
+    if q.device.type != "cuda":
+        raise ValueError("flash_attention kernel takes CUDA tensors")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}: "
+                         f"expected [B, S, H, hd] and [B, S, K, hd]")
+    B, Sq, H, hd = q.shape
+    Bk, Sk, K, hdk = k.shape
+    if Bk != B or hdk != hd or H % K:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not match")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel takes head_dim in {HEAD_DIMS}, got {hd}")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q, k, v must share one dtype of {DTYPES}")
+    for t in (q, k, v):
+        if t.device != q.device or t.stride(-1) != 1:
+            raise ValueError("q, k, v must lie on one device with a unit last stride")
+    if window is not None and window <= 0:
+        raise ValueError(f"window must be positive, got {window}")
+    out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    err = _lib().flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        B, H, K, Sq, Sk, hd, int(q.dtype == torch.bfloat16), *strides,
+        int(causal), window or 0, torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(NAME, err)
+    return out

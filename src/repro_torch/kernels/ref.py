@@ -1,0 +1,56 @@
+"""Plain PyTorch versions of the port's kernels (the reference's ``kernels/ref.py``).
+
+The CPU path of every kernel wrapper, and the version each CUDA kernel is held
+against on the card.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -1e30
+
+
+def act(name: str, x: torch.Tensor) -> torch.Tensor:
+    """The adapter activations; gelu is the tanh form (``jax.nn.gelu``'s default)."""
+    if name == "gelu":
+        return F.gelu(x, approximate="tanh")
+    if name == "relu":
+        return torch.relu(x)
+    if name == "silu":
+        return F.silu(x)
+    raise ValueError(f"unknown activation {name!r}")
+
+
+def adapter_fused(h: torch.Tensor, w_down: torch.Tensor, w_up: torch.Tensor, *,
+                  activation: str = "gelu") -> torch.Tensor:
+    """h [..., D]; eq. (1): h + act(h @ Wd) @ Wu, fp32 internals."""
+    mid = act(activation, h.float() @ w_down.float())
+    return h + (mid @ w_up.float()).to(h.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
+    """q [B, Sq, H, hd]; k, v [B, Sk, K, hd] with H = K * group (query head n
+    reads KV head n // group). fp32 scores and softmax; the causal mask aligns
+    the last query with the last key; fully masked rows give 0.
+    """
+    B, Sq, H, hd = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    G = H // K
+    qg = q.reshape(B, Sq, K, G, hd).float()
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) * (1.0 / math.sqrt(hd))
+    qi = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
+    ki = torch.arange(Sk, device=q.device)[None, :]
+    m = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        m &= ki <= qi
+    if window is not None:
+        m &= (qi - ki) < window
+    s = s.masked_fill(~m, NEG_INF)
+    p = torch.softmax(s, dim=-1).masked_fill(~m, 0.0)
+    out = torch.einsum("bkgqs,bskh->bqkgh", p.to(v.dtype), v)
+    return out.reshape(B, Sq, H, hd)

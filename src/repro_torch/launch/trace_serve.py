@@ -1,0 +1,83 @@
+"""Where serving time goes: one prefill and a few decode steps under torch.profiler.
+
+At the serving path's shapes: qwen2.5-3b at its published width (random
+weights from seed 0, non-zero adapters), a batch of 4 prompts of 512 tokens,
+then 4 decode steps. For prefill and for decode it prints the host wall time
+without the profiler (taken before the profiler first runs), the device time
+summed over kernels (traced), the device's idle share of the unprofiled wall
+time, the kernel launches, and the kernels that took the most device time.
+
+    PYTHONPATH=src python -m repro_torch.launch.trace_serve
+
+It needs a CUDA card: the numbers are device metrics.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch import device as dev_rule
+from repro_torch.configs import get_config
+from repro_torch.models import params as prm
+from repro_torch.models import transformer as tfm
+
+ARCH, BATCH, PROMPT_LEN, STEPS, TOP, SEED = "qwen2.5-3b", 4, 512, 4, 12, 0
+
+
+def _wall_ms(fn, device: torch.device) -> float:
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize(device)
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def _traced(fn, device: torch.device, label: str, wall_ms: float) -> None:
+    """Profile ``fn``; ``wall_ms`` is its wall time measured before any profiling."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        traced_wall_ms = _wall_ms(fn, device)
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    launches = sum(e.count for e in events)
+    print(f"[{label}] wall_ms={wall_ms:.3f} traced_wall_ms={traced_wall_ms:.3f} "
+          f"device_ms={device_ms:.3f} idle_share={1 - device_ms / wall_ms:.3f} "
+          f"kernel_launches={launches}")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:TOP]:
+        print(f"[{label}]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
+              f"{e.key[:90]}")
+
+
+def main() -> None:
+    device = dev_rule.resolve("cuda")
+    cfg = get_config(ARCH)
+    cfg = dataclasses.replace(cfg, adapter=dataclasses.replace(cfg.adapter, zero_init_up=False))
+    params = prm.materialize(cfg, seed=SEED, device=device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    tokens = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT_LEN), generator=gen, device=device)
+    horizon = PROMPT_LEN + 2 * STEPS + 8
+    state = {}
+
+    def prefill():
+        state["logits"], state["cache"] = tfm.prefill(params, tokens, cfg, seq_len=horizon)
+
+    def decode():
+        for _ in range(STEPS):
+            cur = torch.argmax(state["logits"], -1)[:, None]
+            state["logits"], state["cache"] = tfm.decode_step(params, cur, state["cache"], cfg)
+
+    with torch.inference_mode():
+        prefill()                                   # warm-up: kernel build, cuBLAS
+        decode()
+        print(f"[trace] arch={cfg.name} layers={cfg.n_layers} batch={BATCH} "
+              f"prompt_len={PROMPT_LEN} decode_steps={STEPS} device={device}")
+        # wall times before the profiler first runs, then the traced runs
+        walls = [_wall_ms(prefill, device), _wall_ms(decode, device)]
+        _traced(prefill, device, "prefill", walls[0])
+        _traced(decode, device, "decode", walls[1])
+
+
+if __name__ == "__main__":
+    main()

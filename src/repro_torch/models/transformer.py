@@ -1,0 +1,118 @@
+"""Dense decoder for serving: embed, blocks, head; prefill and decode.
+
+Parameters follow ``models/params.py`` (one dict per layer). The functions
+mirror the reference's ``models/transformer.py``: ``forward`` is its inference
+forward over a full sequence (no unfreeze ``boundary``, which belongs to
+training), ``prefill`` runs a prompt and fills a KV cache by gathers, and
+``decode_step`` adds one token per row.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import kvcache
+from repro_torch.models.blocks import BlockCtx, apply_block, norm
+
+
+def _check(cfg: ModelConfig) -> None:
+    if any(kind != "dense" for kind, _ in cfg.pattern) or cfg.enc_dec or cfg.frontend:
+        raise NotImplementedError(
+            f"{cfg.name}: only dense decoders are ported yet "
+            f"(ROADMAP.md Queue 1, 'The other block kinds')")
+    if not cfg.rope:
+        raise NotImplementedError(f"{cfg.name}: learned positions are not ported yet")
+
+
+def embed(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
+    return params["embed"]["tok"][tokens]
+
+
+def head(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tensor:
+    logits = norm(cfg, params["final_norm"], h) @ params["head"]["w"]
+    if cfg.head_out is None and cfg.padded_vocab > cfg.vocab_size:
+        # the vocab is padded; pad logits never win
+        ids = torch.arange(cfg.padded_vocab, device=logits.device)
+        logits = logits + torch.where(ids < cfg.vocab_size, 0.0, -1e30).to(logits.dtype)
+    return logits
+
+
+def _run(cfg: ModelConfig, params, h: torch.Tensor, ctx: BlockCtx, caches=None):
+    new_caches = []
+    for i, layer in enumerate(params["blocks"]):
+        h, nc = apply_block("dense", cfg, layer, h, ctx,
+                            None if caches is None else caches[i])
+        new_caches.append(nc)
+    return h, new_caches
+
+
+def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
+            impl: str = "kernel") -> torch.Tensor:
+    """Logits [B, S, V] of a full sequence (inference only)."""
+    _check(cfg)
+    B, S = tokens.shape
+    pos = torch.arange(S, device=tokens.device).expand(B, S)
+    ctx = BlockCtx(cfg=cfg, mode="seq", positions=pos, impl=impl)
+    h, _ = _run(cfg, params, embed(cfg, params, tokens), ctx)
+    return head(cfg, params, h)
+
+
+def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, *,
+            seq_len: Optional[int] = None, impl: str = "kernel",
+            ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Run the prompt; return (last-token logits [B, V], filled cache).
+
+    ``seq_len``: the decode horizon the cache must support (>= prompt length).
+    Every row has positions 0..S-1 (the server left-pads with token 0 and
+    attends to the pads, as the reference does).
+    """
+    _check(cfg)
+    B, S = tokens.shape
+    dev = tokens.device
+    seq_len = seq_len or S
+    cache = kvcache.init_cache(cfg, B, seq_len, device=dev)
+    pos = torch.arange(S, device=dev).expand(B, S)
+
+    # for each cache slot, the last prompt position landing in it (ring
+    # buffer), or -1 if unwritten: a deterministic gather-fill
+    ck = kvcache.cache_len(cfg, seq_len)
+    ns = kvcache.n_sink(cfg)
+    if (cfg.sliding_window is None or ck >= seq_len) and S > ck:
+        raise ValueError(f"prompt ({S}) exceeds the cache horizon ({ck}); raise seq_len")
+    slots = torch.arange(ck, device=dev)
+    if cfg.sliding_window is not None and ck < seq_len:
+        w = ck - ns
+        cand = torch.where(slots < ns, slots,
+                           slots + w * (torch.clamp(S - 1 - slots, min=0) // w))
+    else:
+        cand = slots
+    fill_pos = torch.where(cand < S, cand, -1)
+    cache["pos"] = fill_pos[None].expand(B, ck).clone()
+    cache["next"] = torch.full((B,), S, dtype=torch.int64, device=dev)
+
+    ctx = BlockCtx(cfg=cfg, mode="prefill", positions=pos, impl=impl,
+                   cache_positions=cache["pos"],
+                   write_slots=torch.where(fill_pos < 0, 0, fill_pos)[None].expand(B, ck))
+    h, cache["layers"] = _run(cfg, params, embed(cfg, params, tokens), ctx, cache["layers"])
+    logits = head(cfg, params, h[:, -1:])[:, 0]
+    return logits, cache
+
+
+def decode_step(params, token: torch.Tensor, cache: Dict[str, Any], cfg: ModelConfig, *,
+                impl: str = "kernel") -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One decode step. token [B, 1]. Returns (logits [B, V], the cache).
+
+    The cache is updated in place (the reference donates it to the step).
+    """
+    pos = cache["next"][:, None]                                  # [B, 1]
+    ck = cache["pos"].shape[1]
+    seq_len_equiv = ck if cfg.sliding_window is None else cfg.max_seq_len
+    slot = torch.clamp(kvcache.write_slot(cfg, pos, seq_len_equiv), max=ck - 1)
+    cache["pos"].scatter_(1, slot, pos)
+    ctx = BlockCtx(cfg=cfg, mode="step", positions=pos, impl=impl,
+                   cache_positions=cache["pos"], write_slots=slot)
+    h, cache["layers"] = _run(cfg, params, embed(cfg, params, token), ctx, cache["layers"])
+    cache["next"] += 1
+    return head(cfg, params, h)[:, 0], cache

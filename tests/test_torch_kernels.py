@@ -1,0 +1,151 @@
+"""The port's kernels against the JAX package's, at reduced qwen2.5-3b shapes.
+
+On the CPU the port's wrappers run their plain versions (``kernels/ref.py``);
+these are held against the Pallas kernels in interpret mode and against
+``repro.kernels.ref`` / ``repro.models.blocks._attend`` on the same inputs,
+made with numpy from a seed. The CUDA kernels themselves are held against the
+plain versions by ``tests/test_torch_gpu.py`` and ``chip_smoke.py`` on the card.
+
+Tolerances are the reference's own (tests/test_kernels.py): adapter 1e-5 in
+f32 and 2e-2 in bf16 (one bf16 ulp of an O(1) residual stream), attention
+1e-5 in f32 and 3e-2 in bf16 (the port keeps fp32 probabilities where the
+Pallas kernel does; the jnp references round them to bf16 before PV).
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.kernels import adapter_fused as jax_af  # noqa: E402
+from repro.kernels import flash_attention as jax_fa  # noqa: E402
+from repro.kernels import ref as jax_ref  # noqa: E402
+from repro.models import blocks as jax_blocks  # noqa: E402
+from repro_torch.kernels import adapter_fused as torch_af  # noqa: E402
+from repro_torch.kernels import flash_attention as torch_fa  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+
+ATOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 3e-2)}   # (adapter, attention)
+
+
+def _pair(x: np.ndarray, dtype: str):
+    """The same values as a JAX array and a torch tensor (bf16 rounded alike)."""
+    t = torch.from_numpy(x).to(getattr(torch, dtype))
+    return jnp.asarray(x).astype(getattr(jnp, dtype)), t
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("T", [4, 256, 300])            # decode rows, one tile, ragged
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("act", ["gelu", "relu", "silu"])
+def test_adapter_fused_matches_jax(T, dtype, act):
+    D, m = 256, 16
+    rng = np.random.default_rng(T)
+    h_j, h_t = _pair(rng.standard_normal((T, D), np.float32), dtype)
+    wd_j, wd_t = _pair(0.05 * rng.standard_normal((D, m), np.float32), dtype)
+    wu_j, wu_t = _pair(0.05 * rng.standard_normal((m, D), np.float32), dtype)
+    got = ops.adapter_fused(h_t, wd_t, wu_t, activation=act)
+    assert got.dtype == h_t.dtype and got.shape == h_t.shape
+    atol = ATOL[dtype][0]
+    pallas = jax_af.adapter_fused(h_j, wd_j, wu_j, activation=act, interpret=True)
+    np.testing.assert_allclose(_np(got), _np(pallas), atol=atol)
+    np.testing.assert_allclose(_np(got), _np(jax_ref.adapter_fused(h_j, wd_j, wu_j,
+                                                                   activation=act)), atol=atol)
+
+
+def test_adapter_fused_flattens_leading_dims_and_counts_no_cpu_launch():
+    rng = np.random.default_rng(1)
+    h = torch.from_numpy(rng.standard_normal((2, 3, 64), np.float32))
+    wd = torch.from_numpy(0.1 * rng.standard_normal((64, 16), np.float32))
+    wu = torch.from_numpy(0.1 * rng.standard_normal((16, 64), np.float32))
+    ops.reset_launches()
+    out = ops.adapter_fused(h, wd, wu)
+    want = ref.adapter_fused(h.reshape(-1, 64), wd, wu).reshape(h.shape)
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
+    assert ops.LAUNCHES == {"adapter_fused": 0, "flash_attention": 0}
+
+
+def _heads_first(x):
+    """[B, S, H, hd] -> the Pallas kernel's [B*H, S, hd]."""
+    B, S, H, hd = x.shape
+    return jnp.transpose(x, (0, 2, 1, 3)).reshape(B * H, S, hd)
+
+
+@pytest.mark.parametrize("S,window", [(128, None), (128, 32), (192, 128)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_attention_matches_pallas(S, window, dtype):
+    B, H, K, hd = 2, 4, 2, 64                      # GQA group 2, reduced qwen head_dim
+    rng = np.random.default_rng(S + (window or 0))
+    q_j, q_t = _pair(rng.standard_normal((B, S, H, hd), np.float32), dtype)
+    k_j, k_t = _pair(rng.standard_normal((B, S, K, hd), np.float32), dtype)
+    v_j, v_t = _pair(rng.standard_normal((B, S, K, hd), np.float32), dtype)
+    got = ops.flash_attention(q_t, k_t, v_t, window=window)
+    assert got.dtype == q_t.dtype and got.shape == q_t.shape
+    # the Pallas kernel takes batch-major heads; KV head n // group within a row
+    pallas = jax_fa.flash_attention(_heads_first(q_j), _heads_first(k_j), _heads_first(v_j),
+                                    group=H // K, window=window, block_q=64, block_k=64,
+                                    interpret=True)
+    pallas = np.transpose(_np(pallas).reshape(B, H, S, hd), (0, 2, 1, 3))
+    np.testing.assert_allclose(_np(got), pallas, atol=ATOL[dtype][1])
+
+
+@pytest.mark.parametrize("Sq,Sk,window", [(100, 100, None), (100, 100, 48), (37, 100, None)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_attention_ragged_matches_jax_ref(Sq, Sk, window, dtype):
+    """Ragged lengths (any S, as left-padded prompts give) and end alignment."""
+    H, K, hd = 4, 2, 64
+    G = H // K
+    rng = np.random.default_rng(Sq * Sk)
+    q_j, q_t = _pair(rng.standard_normal((1, Sq, H, hd), np.float32), dtype)
+    k_j, k_t = _pair(rng.standard_normal((1, Sk, K, hd), np.float32), dtype)
+    v_j, v_t = _pair(rng.standard_normal((1, Sk, K, hd), np.float32), dtype)
+    got = _np(ops.flash_attention(q_t, k_t, v_t, window=window))
+    for n in range(H):
+        want = jax_ref.flash_attention(q_j[:, :, n], k_j[:, :, n // G], v_j[:, :, n // G],
+                                       window=window)
+        np.testing.assert_allclose(got[0, :, n], _np(want[0]), atol=ATOL[dtype][1])
+
+
+@pytest.mark.parametrize("S,window", [(160, None), (160, 128), (33, 128)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_attention_is_prefill_attend(S, window, dtype):
+    """The port's prefill attention equals the reference's ``_attend`` with
+    q_pos = k_pos = 0..S-1, the call the reference's prefill makes."""
+    B, H, K, hd = 2, 4, 2, 64
+    rng = np.random.default_rng(S)
+    q_j, q_t = _pair(rng.standard_normal((B, S, H, hd), np.float32), dtype)
+    k_j, k_t = _pair(rng.standard_normal((B, S, K, hd), np.float32), dtype)
+    v_j, v_t = _pair(rng.standard_normal((B, S, K, hd), np.float32), dtype)
+    pos = jnp.broadcast_to(jnp.arange(S, dtype=jnp.int32)[None], (B, S))
+    want = jax_blocks._attend(q_j, k_j, v_j, pos, pos, causal=True, window=window,
+                              n_sink=0, q_chunk=S)
+    got = ops.flash_attention(q_t, k_t, v_t, window=window)
+    np.testing.assert_allclose(_np(got), _np(want), atol=ATOL[dtype][1])
+
+
+def test_fully_masked_rows_give_zero():
+    """Sq > Sk end-aligned: the first Sq - Sk queries see no key."""
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.standard_normal((1, 8, 2, 64), np.float32))
+    k = torch.from_numpy(rng.standard_normal((1, 4, 1, 64), np.float32))
+    out = ops.flash_attention(q, k, k)
+    assert torch.all(out[:, :4] == 0) and torch.all(out[:, 4:].abs().sum(-1) > 0)
+
+
+def test_kernel_launchers_take_cuda_tensors_only():
+    """No silent fallback: the launchers refuse a CPU tensor instead of computing."""
+    h = torch.zeros(4, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        torch_af.adapter_fused(h, torch.zeros(64, 16), torch.zeros(16, 64))
+    q = torch.zeros(1, 8, 2, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        torch_fa.flash_attention(q, q[:, :, :1], q[:, :, :1])
+    with pytest.raises(ValueError, match="impl"):
+        ops.adapter_fused(h, torch.zeros(64, 16), torch.zeros(16, 64), impl="jnp")
