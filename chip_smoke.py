@@ -18,13 +18,22 @@ run with a non-zero exit and no result line:
      is served again with ``impl="plain"``, in bf16 and in f32, and each of its
      blocks (prefill and every decode step) is held to its kernel version on the
      same input; the f32 prefill logits of the two paths are held to each other,
-     beside the plain path's own gap from the CPU (another summation order).
+     beside the plain path's own gap from the CPU (another summation order);
+  4. rwkv6-7b at its published width (32 layers, d_model 4096, 64 heads of 64,
+     vocab 65536), random weights from the seed with non-zero adapters, served
+     by ``BatchServer`` as in phase 3 (qwen2.5-3b is freed first); the counters
+     show ``rwkv_scan`` once per layer per batch (prefill) and ``adapter_fused``
+     once per layer per step. The first batch is served again with
+     ``impl="plain"`` in bf16 and f32, and each block and its new cache are
+     held to their kernel version on the same input, and the f32 prefill
+     logits of the two paths to each other, as in phase 3 (no CPU witness).
 
-The last two lines are a JSON object of per-kernel measurements and
-``{"ok": true, "device": {...}}``.
+The last three lines are a JSON object of per-kernel measurements, the card's
+name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -77,12 +86,20 @@ LOGIT_RMS_FRACTION = 0.5
 # 4M random values of h [2048, 2048] some exceed 4, where one ulp is 0.031.
 ATOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 3e-2)}  # (adapter, attention)
 ADAPTER_RTOL = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7}
+# rwkv_scan against its plain version: relative to the largest entry of each
+# output. Both sum fp32 products in their own order along a serial recurrence,
+# and at the served model's scale (r, k, v of std ~8, decays near 1) the state
+# and the outputs reach 1e3-1e5, where an absolute tolerance says nothing.
+SCAN_RTOL = 1e-4
 SOURCES = {
     "adapter_fused": ("src/repro_torch/kernels/csrc/adapter_fused.cu",
                       "src/repro/kernels/adapter_fused.py:55"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:86"),
+    "rwkv_scan": ("src/repro_torch/kernels/csrc/rwkv_scan.cu",
+                  "src/repro/kernels/rwkv_scan.py:86"),
 }
+CARD = ""                        # nvidia-smi's name and power limit, beside every time
 
 
 def say(phase: str, **fields) -> None:
@@ -117,10 +134,10 @@ def in_turns(plain, kernel):
 
 
 # ---------------------------------------------------------------- phase 1
-def phase_environment(name_limit: str) -> None:
+def phase_environment() -> None:
     nvcc = subprocess.run([build.nvcc(), "--version"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip().splitlines()[-1]
-    say("env", card=repr(name_limit), torch=torch.__version__, cuda=torch.version.cuda,
+    say("env", card=repr(CARD), torch=torch.__version__, cuda=torch.version.cuda,
         nvcc=repr(nvcc), sms=torch.cuda.get_device_properties(0).multi_processor_count)
     t0 = time.perf_counter()
     build.build()
@@ -133,8 +150,8 @@ def phase_environment(name_limit: str) -> None:
 
 
 # ---------------------------------------------------------------- phase 2
-def adapter_case(T, dtype, act, gen, record=None):
-    D, m = 2048, 64
+def adapter_case(T, dtype, act, gen, record=None, D=2048):
+    m = 64
     h = torch.randn(T, D, generator=gen, device="cuda").to(dtype)
     wd = (0.05 * torch.randn(D, m, generator=gen, device="cuda")).to(dtype)
     wu = (0.05 * torch.randn(m, D, generator=gen, device="cuda")).to(dtype)
@@ -147,23 +164,60 @@ def adapter_case(T, dtype, act, gen, record=None):
     excess = (diff - tol - ADAPTER_RTOL[dtype] * want.float().abs()).max().item()
     ms, plain_ms = in_turns(lambda: ops.adapter_fused(h, wd, wu, activation=act, impl="plain"),
                             lambda: ops.adapter_fused(h, wd, wu, activation=act))
-    say("adapter_fused", T=T, D=D, m=m, dtype=str(dtype).removeprefix("torch."), act=act,
-        max_abs_err=f"{err:.3g}", atol=tol, rtol=ADAPTER_RTOL[dtype], ms=f"{ms:.4f}",
-        plain_ms=f"{plain_ms:.4f}")
+    size = h.element_size()
+    nbytes = 2 * T * D * size + 2 * D * m * wd.element_size()
+    # down-projection on h's type; the up-projection has an fp32 left operand
+    down_rate = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+    t_ops = 2 * T * D * m / down_rate + 2 * T * D * m / FP32_FLOPS
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    bound_ms = 1e3 * max(t_ops, t_bytes)
+    dt = str(dtype).removeprefix("torch.")
+    say("adapter_fused", T=T, D=D, m=m, dtype=dt, act=act, max_abs_err=f"{err:.3g}",
+        atol=tol, rtol=ADAPTER_RTOL[dtype], ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        bound_ms=f"{bound_ms:.5f}", card=repr(CARD))
     if not excess <= 0:
         raise AssertionError(f"adapter_fused disagrees with its plain version: max error "
                              f"{err}, {excess} beyond atol {tol} + rtol {ADAPTER_RTOL[dtype]}")
     if record is not None:
-        size = h.element_size()
-        nbytes = 2 * T * D * size + 2 * D * m * wd.element_size()
-        # down-projection on h's type; the up-projection has an fp32 left operand
-        down_rate = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
-        t_ops = 2 * T * D * m / down_rate + 2 * T * D * m / FP32_FLOPS
-        t_bytes = nbytes / HBM_BYTES_PER_S
-        record.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                      bound_ms=1e3 * max(t_ops, t_bytes),
+        record.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                       bound_by="operations" if t_ops > t_bytes else "bytes",
-                      library_ms=None, shape=f"h[{T},{D}] m={m} {act} bf16")
+                      library_ms=None, shape=f"h[{T},{D}] m={m} {act} {dt}")
+
+
+def rwkv_case(N, S, hd, gen, state=False, record=None):
+    """At the served model's scale: r, k, v of std 8, log decays -exp(x) with
+    x uniform in the decay prior's (-6, -0.5), u of std 0.5."""
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    r, k, v = 8 * rnd(N, S, hd), 8 * rnd(N, S, hd), 8 * rnd(N, S, hd)
+    lw = -torch.exp(-6.0 + 5.5 * torch.rand(N, S, hd, generator=gen, device="cuda"))
+    u = 0.5 * rnd(N, 1, hd)
+    s0 = 100 * rnd(N, hd, hd) if state else torch.zeros(N, hd, hd, device="cuda")
+    out, sT = ops.rwkv_scan(r, k, v, lw, u, s0)
+    want, wT = ops.rwkv_scan(r, k, v, lw, u, s0, impl="plain")
+    torch.cuda.synchronize()
+    errs = [(a - b).abs().max().item() / b.abs().max().item() for a, b in ((out, want), (sT, wT))]
+    ms, plain_ms = in_turns(lambda: ops.rwkv_scan(r, k, v, lw, u, s0, impl="plain"),
+                            lambda: ops.rwkv_scan(r, k, v, lw, u, s0))
+    # each input read once, each output written once; the recurrence's 5 hd^2
+    # fp32 flops per step (r.S, and the decayed rank-one state update)
+    nbytes = 4 * (5 * N * S * hd + N * hd + 2 * N * hd * hd)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 5 * N * S * hd * hd / FP32_FLOPS
+    bound_ms = 1e3 * max(t_ops, t_bytes)
+    say("rwkv_scan", N=N, S=S, hd=hd, state0="random" if state else "zero",
+        rel_err_out=f"{errs[0]:.3g}", rel_err_state=f"{errs[1]:.3g}", rtol=SCAN_RTOL,
+        max_abs_out=f"{want.abs().max().item():.4g}", ms=f"{ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.5f}", mbytes=f"{nbytes / 1e6:.1f}",
+        card=repr(CARD))
+    if not max(errs) <= SCAN_RTOL:
+        raise AssertionError(f"rwkv_scan disagrees with its plain version: {errs} of the "
+                             f"largest entries (rtol {SCAN_RTOL})")
+    if record is not None:
+        record.update(max_abs_err=max((out - want).abs().max().item(),
+                                      (sT - wT).abs().max().item()),
+                      max_rel_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                      bound_by="operations" if t_ops > t_bytes else "bytes",
+                      library_ms=None, shape=f"r/k/v/lw[{N},{S},{hd}] f32")
 
 
 def attention_case(S, window, dtype, gen, record=None):
@@ -193,7 +247,7 @@ def attention_case(S, window, dtype, gen, record=None):
     say("flash_attention", B=B, H=H, K=K, hd=hd, S=S, window=window,
         dtype=str(dtype).removeprefix("torch."), max_abs_err=f"{err:.3g}", tol=tol,
         ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
-        library_err=f"{lib_err:.3g}")
+        library_err=f"{lib_err:.3g}", card=repr(CARD))
     if not err <= tol:
         raise AssertionError(f"flash_attention disagrees with its plain version: {err} > {tol}")
     if record is not None:
@@ -223,11 +277,27 @@ def phase_kernels(records) -> None:
     for S, window, dtype in ((300, None, bf16), (512, 128, bf16), (300, 128, bf16),
                              (512, None, f32), (300, 128, f32)):
         attention_case(S, window, dtype, gen)
+    # rwkv6-7b's width: the f32 h tile does not fit in shared memory
+    for T in (4, 2048):
+        for dtype in (bf16, f32):
+            adapter_case(T, dtype, "gelu", gen, D=4096)
+    # rwkv6-7b prefill: N = 4 rows x 64 heads, the served prompt lengths
+    rwkv_case(256, 512, 64, gen, record=records["rwkv_scan"])
+    rwkv_case(256, 445, 64, gen)
+    rwkv_case(256, 202, 64, gen, state=True)
+    rwkv_case(64, 300, 32, gen, state=True)
 
 
-# ---------------------------------------------------------------- phase 3
-def phase_serve(records, name_limit: str) -> None:
-    cfg = get_config("qwen2.5-3b")
+# ---------------------------------------------------------------- phases 3 and 4
+def count_launches(records, arch: str, launches) -> None:
+    """Add one main path's launch counts to the kernel records."""
+    for name, n in launches.items():
+        records[name]["launches"] = records[name].get("launches", 0) + n
+        records[name].setdefault("launches_by_path", {})[arch] = n
+
+
+def phase_serve(arch: str, records, cpu_witness: bool) -> None:
+    cfg = get_config(arch)
     cfg = dataclasses.replace(cfg, adapter=dataclasses.replace(cfg.adapter,
                                                                 zero_init_up=False))
     t0 = time.perf_counter()
@@ -235,7 +305,8 @@ def phase_serve(records, name_limit: str) -> None:
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(params))
     say("materialize", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
-        vocab=cfg.padded_vocab, params=n_params, seconds=f"{time.perf_counter() - t0:.2f}")
+        vocab=cfg.padded_vocab, params=n_params, seconds=f"{time.perf_counter() - t0:.2f}",
+        gib_on_card=f"{torch.cuda.memory_allocated() / 2**30:.2f}")
 
     rng = np.random.default_rng(SEED)
     max_new, slots = 32, 4
@@ -257,21 +328,26 @@ def phase_serve(records, name_limit: str) -> None:
     n_batches = len(server.batches)
     if sorted(results) != list(range(8)) or any(len(v) != max_new for v in results.values()):
         raise AssertionError(f"not every request got {max_new} tokens")
-    want = {"adapter_fused": cfg.n_layers * (1 + (max_new - 1)) * n_batches,
-            "flash_attention": cfg.n_layers * n_batches}
+    # adapter: every layer, every step; the sequence kernel of each block kind:
+    # every layer, once per batch (prefill)
+    kinds = {kind for kind, _ in cfg.pattern}
+    per_prefill = cfg.n_layers * n_batches
+    want = {"adapter_fused": cfg.n_layers * max_new * n_batches,
+            "flash_attention": per_prefill if "dense" in kinds else 0,
+            "rwkv_scan": per_prefill if "rwkv" in kinds else 0}
     if launches != want:
         raise AssertionError(f"launch counters {launches} != expected {want}")
-    for name, n in launches.items():
-        records[name]["launches"] = n
+    count_launches(records, cfg.name, launches)
 
     prefill_ms = [1e3 * b["prefill_s"] for b in server.batches]
     decode_ms = [1e3 * b["decode_s"] / b["decode_steps"] for b in server.batches]
     tokens = sum(len(v) for v in results.values())
-    say("serve", requests=len(results), batches=n_batches, prompt_lens=list(map(int, lens)),
-        new_tokens=tokens, launches=json.dumps(launches).replace(" ", ""))
-    say("serve_time", prefill_ms=[f"{x:.2f}" for x in prefill_ms],
+    say("serve", arch=cfg.name, requests=len(results), batches=n_batches,
+        prompt_lens=list(map(int, lens)), new_tokens=tokens,
+        launches=json.dumps(launches).replace(" ", ""))
+    say("serve_time", arch=cfg.name, prefill_ms=[f"{x:.2f}" for x in prefill_ms],
         decode_ms_per_step=[f"{x:.3f}" for x in decode_ms],
-        tokens_per_s=f"{tokens / wall:.1f}", wall_s=f"{wall:.3f}", card=repr(name_limit))
+        tokens_per_s=f"{tokens / wall:.1f}", wall_s=f"{wall:.3f}", card=repr(CARD))
 
     V = cfg.vocab_size                                  # the pad logits are -1e30
     first = requests()[:slots]
@@ -290,58 +366,69 @@ def phase_serve(records, name_limit: str) -> None:
     plain32, _, gaps32 = _plain_run(cfg32, params32, two, horizon)
     k32 = kernel32.batches[0]["prefill_logits"][:, :V].float()
     p32 = plain32.batches[0]["prefill_logits"][:, :V].float()
-    # witness of the chaos: the plain path on the CPU sums in another order
-    params_cpu = tree_map(lambda t: t.cpu(), params32)
-    del params32
-    t0 = time.perf_counter()
-    cpu32 = BatchServer(cfg32, params_cpu, slots=slots, horizon=horizon, impl="plain",
-                        device="cpu")
-    cpu32.run([Request(r.rid, r.prompt, 1) for r in first], log=lambda *a: None)
-    c32 = cpu32.batches[0]["prefill_logits"][:, :V].float().to("cuda")
-    cpu_s = time.perf_counter() - t0
-    del params_cpu
-
     gap = lambda a, b: (a - b).abs().max().item()
     rms = lambda x: x.square().mean().sqrt().item()
-    say("blocks_vs_plain", **{f"{dt}_{mode}": f"{g:.3g}" for dt, gaps in
-                              (("f32", gaps32), ("bf16", gaps16)) for mode, g in gaps.items()},
+    witness = {}
+    if cpu_witness:
+        # witness of the chaos: the plain path on the CPU sums in another order
+        params_cpu = tree_map(lambda t: t.cpu(), params32)
+        del params32
+        t0 = time.perf_counter()
+        cpu32 = BatchServer(cfg32, params_cpu, slots=slots, horizon=horizon, impl="plain",
+                            device="cpu")
+        cpu32.run([Request(r.rid, r.prompt, 1) for r in first], log=lambda *a: None)
+        c32 = cpu32.batches[0]["prefill_logits"][:, :V].float().to("cuda")
+        witness = {"f32_plain_vs_cpu_plain_rms": f"{rms(p32 - c32):.4g}",
+                   "f32_plain_vs_cpu_plain_max": f"{gap(p32, c32):.4g}",
+                   "cpu_s": f"{time.perf_counter() - t0:.1f}"}
+        del params_cpu
+
+    say("blocks_vs_plain", arch=cfg.name,
+        **{f"{dt}_{mode}": f"{g:.3g}" for dt, gaps in
+           (("f32", gaps32), ("bf16", gaps16)) for mode, g in gaps.items()},
         f32_rtol=BLOCK_RTOL[torch.float32], bf16_rtol=BLOCK_RTOL[torch.bfloat16])
-    say("prefill_logits", f32_kernel_vs_plain_rms=f"{rms(k32 - p32):.4g}",
-        f32_plain_vs_cpu_plain_rms=f"{rms(p32 - c32):.4g}",
+    say("prefill_logits", arch=cfg.name, f32_kernel_vs_plain_rms=f"{rms(k32 - p32):.4g}",
         tol=f"{LOGIT_RMS_FRACTION * rms(p32):.4g}", rms_logit=f"{rms(p32):.4g}",
         f32_kernel_vs_plain_max=f"{gap(k32, p32):.4g}",
-        f32_plain_vs_cpu_plain_max=f"{gap(p32, c32):.4g}", max_abs_logit=f"{p32.abs().max().item():.4g}",
+        max_abs_logit=f"{p32.abs().max().item():.4g}",
         bf16_kernel_vs_plain=f"{gap(k16, p16):.4g}", bf16_plain_vs_f32=f"{gap(p16, p32):.4g}",
         same_argmax=f"{int((k16.argmax(-1) == p16.argmax(-1)).sum())}/{slots}",
         same_tokens=f"{sum(results[i] == plain_results[i] for i in plain_results)}/{slots}",
-        cpu_s=f"{cpu_s:.1f}")
+        **witness)
     for dtype, gaps in ((torch.float32, gaps32), (torch.bfloat16, gaps16)):
-        if set(gaps) != {"prefill", "step"}:
+        if set(gaps) != {"prefill", "step", "prefill_cache", "step_cache"}:
             raise AssertionError(f"the block check saw modes {sorted(gaps)}")
         for mode, g in gaps.items():
             if not g <= BLOCK_RTOL[dtype]:
-                raise AssertionError(f"a {dtype} {mode} block differs from its plain version "
-                                     f"by {g} of its output (rtol {BLOCK_RTOL[dtype]})")
+                raise AssertionError(f"a {dtype} {mode} block of {cfg.name} differs from its "
+                                     f"plain version by {g} of its output "
+                                     f"(rtol {BLOCK_RTOL[dtype]})")
     if not rms(k32 - p32) <= LOGIT_RMS_FRACTION * rms(p32):
-        raise AssertionError(f"f32 prefill logits: kernel path {rms(k32 - p32)} (RMS) from "
-                             f"the plain path, beyond {LOGIT_RMS_FRACTION} x their RMS "
-                             f"{rms(p32)}")
+        raise AssertionError(f"{cfg.name} f32 prefill logits: kernel path {rms(k32 - p32)} "
+                             f"(RMS) from the plain path, beyond {LOGIT_RMS_FRACTION} x "
+                             f"their RMS {rms(p32)}")
 
 
 def _plain_run(cfg, params, requests, horizon):
     """Serve ``requests`` (one batch) with ``impl="plain"`` on the card. Every
     block also runs its kernel version on the same input and a copy of its
     cache. Returns the server, its results and, per block mode, the worst gap
-    between the two relative to the block output's largest entry."""
+    between the two relative to the block output's largest entry (and, under
+    "<mode>_cache", the worst over the new cache's leaves)."""
     gaps = {}
     real = tfm.apply_block
 
+    def rel(a, b) -> float:
+        a, b = a.float(), b.float()
+        return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
     def both(kind, cfg, p, h, ctx, cache=None):
         twin = None if cache is None else {k: v.clone() for k, v in cache.items()}
-        hk, _ = real(kind, cfg, p, h, dataclasses.replace(ctx, impl="kernel"), twin)
+        hk, ck = real(kind, cfg, p, h, dataclasses.replace(ctx, impl="kernel"), twin)
         out = real(kind, cfg, p, h, ctx, cache)
-        g = ((hk.float() - out[0].float()).abs().max() / out[0].float().abs().max()).item()
-        gaps[ctx.mode] = max(gaps.get(ctx.mode, 0.0), g)
+        gaps[ctx.mode] = max(gaps.get(ctx.mode, 0.0), rel(hk, out[0]))
+        cg = max(rel(ck[name], leaf) for name, leaf in out[1].items())
+        gaps[f"{ctx.mode}_cache"] = max(gaps.get(f"{ctx.mode}_cache", 0.0), cg)
         return out
 
     server = BatchServer(cfg, params, slots=len(requests), horizon=horizon, impl="plain",
@@ -355,17 +442,22 @@ def _plain_run(cfg, params, requests, horizon):
 
 
 def main() -> None:
+    global CARD
     torch.backends.cuda.matmul.allow_tf32 = False     # f32 plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
-    name_limit = card()
-    print(name_limit, flush=True)
-    phase_environment(name_limit)
+    CARD = card()
+    print(CARD, flush=True)
+    phase_environment()
     records = {name: {"name": name, "route": "cuda", "source": src, "replaces": rep}
                for name, (src, rep) in SOURCES.items()}
     phase_kernels(records)
-    phase_serve(records, name_limit)
+    phase_serve("qwen2.5-3b", records, cpu_witness=True)
+    gc.collect()                                        # free qwen2.5-3b before rwkv6-7b
+    torch.cuda.empty_cache()
+    say("freed", gib_on_card=f"{torch.cuda.memory_allocated() / 2**30:.2f}")
+    phase_serve("rwkv6-7b", records, cpu_witness=False)
     print(json.dumps({"kernels": list(records.values())}), flush=True)
-    print(name_limit, flush=True)
+    print(CARD, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

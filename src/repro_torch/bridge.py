@@ -58,13 +58,23 @@ def stack_layers(layers: List[Dict[str, Any]], repeats: int) -> Dict[str, Any]:
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device="cpu") -> Dict[str, Any]:
-    """The reference's parameter tree (numpy leaves) -> the port's parameters."""
-    if tuple(k for k, _ in cfg.pattern) != ("dense",):
-        raise NotImplementedError(f"{cfg.name}: the port carries dense decoders only")
+    """The reference's parameter tree (numpy leaves) -> the port's parameters.
+
+    Layers come out in the reference's order: for each repeat, each pattern
+    entry's ``count`` layers.
+    """
+    kinds = {k for k, _ in cfg.pattern}
+    if not kinds <= {"dense", "rwkv"} or cfg.enc_dec or cfg.frontend:
+        raise NotImplementedError(f"{cfg.name}: the port carries dense and rwkv decoders only")
     conv = lambda x: to_tensor(x, device)
+    entries = [unstack_layers(e) for e in tree["blocks"]]
+    blocks = []
+    for r in range(cfg.repeats):
+        for entry, (_, count) in zip(entries, cfg.pattern):
+            blocks.extend(tree_map(conv, layer) for layer in entry[r * count:(r + 1) * count])
     return {
-        "embed": {"tok": conv(tree["embed"]["tok"])},
+        "embed": tree_map(conv, dict(tree["embed"])),
         "final_norm": tree_map(conv, tree["final_norm"]),
         "head": tree_map(conv, tree["head"]),
-        "blocks": [tree_map(conv, layer) for layer in unstack_layers(tree["blocks"][0])],
+        "blocks": blocks,
     }

@@ -1,11 +1,12 @@
 """Architecture registry of the port — importing this package registers its configs.
 
 The port registers the architectures whose block kinds it runs: so far the dense
-decoder qwen2.5-3b.
+decoder qwen2.5-3b and the attention-free RWKV-6 rwkv6-7b.
 """
-from repro_torch.configs.base import (AdapterConfig, ModelConfig, get_config,
+from repro_torch.configs.base import (AdapterConfig, ModelConfig, SSMConfig, get_config,
                                       list_configs, register)
 
-from repro_torch.configs import qwen2p5_3b  # noqa: F401  (registration)
+from repro_torch.configs import qwen2p5_3b, rwkv6_7b  # noqa: F401  (registration)
 
-__all__ = ["AdapterConfig", "ModelConfig", "get_config", "list_configs", "register"]
+__all__ = ["AdapterConfig", "ModelConfig", "SSMConfig", "get_config", "list_configs",
+           "register"]

@@ -1,7 +1,7 @@
 """Model configurations for the PyTorch port (a copy of the JAX package's).
 
-The port keeps its own copy of :class:`ModelConfig` and :class:`AdapterConfig` so it
-never imports the JAX package. Field names, defaults and :meth:`ModelConfig.reduced`
+The port keeps its own copy of :class:`ModelConfig`, :class:`AdapterConfig` and
+:class:`SSMConfig` so it never imports the JAX package. Field names, defaults and :meth:`ModelConfig.reduced`
 are the same as the reference's, so a config built on either side describes the
 same model; ``tests/test_torch_*.py`` hold the two together.
 """
@@ -29,6 +29,17 @@ class AdapterConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    """Covers both RWKV-6 and Mamba-style (hymba) recurrences."""
+
+    state_size: int = 16          # mamba N; rwkv uses head_dim x head_dim state
+    head_dim: int = 64            # rwkv head size
+    dt_rank: int = 64             # mamba delta low-rank
+    conv_width: int = 4           # mamba local conv
+    decay_lora: int = 64          # rwkv6 data-dependent decay LoRA dim
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str
@@ -46,8 +57,8 @@ class ModelConfig:
     qkv_bias: bool = False
     sliding_window: Optional[int] = None
     adapter: AdapterConfig = field(default_factory=AdapterConfig)
-    moe: Optional[Any] = None        # MoE / SSM sub-configs: their blocks are not ported
-    ssm: Optional[Any] = None
+    moe: Optional[Any] = None        # the MoE sub-config: its block is not ported
+    ssm: Optional[SSMConfig] = None
     enc_dec: bool = False
     n_enc_layers: int = 0
     enc_is_causal: bool = False
@@ -78,6 +89,8 @@ class ModelConfig:
         for kind, _ in self.pattern:
             if kind not in BLOCK_KINDS:
                 raise ValueError(f"unknown block kind {kind!r}")
+            if kind in ("rwkv", "hymba") and self.ssm is None:
+                raise ValueError(f"{self.name}: ssm pattern without SSMConfig")
 
     @property
     def padded_vocab(self) -> int:

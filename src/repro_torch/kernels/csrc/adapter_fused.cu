@@ -15,7 +15,11 @@
 // What the design does about it: one block per tile of BT = 16 rows keeps the
 // whole [BT, D] h tile in shared memory (64 KB in bf16 at D = 2048), so h is
 // read from device memory once and written once; the [BT, m] intermediate
-// never leaves the SM. The down-projection splits the D reduction over the
+// never leaves the SM. Where the tile does not fit in the 227 KB a block may
+// use (f32 above D = 3312, bf16 above D = 6624: f32 rwkv6-7b at 4096), the
+// block reads its rows from device memory instead, once for the
+// down-projection and once, mostly from L2, for the residual; the wrapper
+// chooses (STAGE) and every width takes the kernel. The down-projection splits the D reduction over the
 // warps and sums their parts in shared memory. With bf16 h and W_down it runs
 // on the tensor cores (wmma 16x16x16, fp32 accumulation: bf16 products are
 // exact in fp32, so only the order of the sum changes); otherwise each thread
@@ -34,8 +38,8 @@
 
 namespace {
 
-constexpr int BT = 16;         // rows of h per block (one wmma tile)
-constexpr int THREADS = 256;
+constexpr int BT = 16;         // rows of h per block (one wmma tile; ROWS in the wrapper)
+constexpr int THREADS = 256;   // THREADS in the wrapper
 constexpr int WARPS = THREADS / 32;
 constexpr int NC = 4;          // output columns per thread in the up-projection
 
@@ -60,26 +64,38 @@ __device__ __forceinline__ float activate(int act, float x) {
   return x / (1.0f + expf(-x));
 }
 
-// TC: down-projection on the tensor cores (bf16 h and W_down, D and m
-// multiples of 16, m <= 128, W_down 32-byte aligned).
-template <typename TE, bool TC>
+// STAGE: the [BT, D] h tile is staged in shared memory; otherwise rows are
+// read from device memory (row indices past T clamp to the last row, whose
+// results are never stored). TC: down-projection on the tensor cores (needs
+// STAGE; bf16 h and W_down, D and m multiples of 16, m <= 128, W_down
+// 32-byte aligned).
+template <typename TE, bool TC, bool STAGE>
 __global__ void __launch_bounds__(THREADS)
 adapter_fused_kernel(const TE* __restrict__ h, const TE* __restrict__ wd,
                      const TE* __restrict__ wu, TE* __restrict__ out, int T, int D,
                      int m, int act, int cols_per_split) {
+  static_assert(STAGE || !TC, "the tensor-core path reads the staged tile");
   extern __shared__ __align__(128) unsigned char smem[];
   float* red = reinterpret_cast<float*>(smem);  // [G][BT][m] partial sums
   float* mid = red + THREADS * BT;              // [BT][m] act(h @ W_down)
-  TE* hs = reinterpret_cast<TE*>(mid + BT * m); // [BT][D] the h tile
+  TE* hs = reinterpret_cast<TE*>(mid + BT * m); // [BT][D] the h tile (STAGE)
   const int tid = threadIdx.x;
   const int rows = min(BT, T - static_cast<int>(blockIdx.x) * BT);
   const long row0 = static_cast<long>(blockIdx.x) * BT;
+  const TE* hrow = h + row0 * D;
+  // h[row0 + t][d] as float, from the staged tile or from device memory
+  auto hv = [&](int t, int d) -> float {
+    if constexpr (STAGE) return to_f(hs[t * D + d]);
+    else return to_f(hrow[static_cast<long>(min(t, rows - 1)) * D + d]);
+  };
 
-  for (int i = tid; i < BT * D; i += THREADS) {
-    const int t = i / D;
-    hs[i] = t < rows ? h[(row0 + t) * D + (i - t * D)] : from_f<TE>(0.0f);
+  if constexpr (STAGE) {
+    for (int i = tid; i < BT * D; i += THREADS) {
+      const int t = i / D;
+      hs[i] = t < rows ? hrow[i] : from_f<TE>(0.0f);
+    }
+    __syncthreads();
   }
-  __syncthreads();
 
   // down-projection into G partial sums red[g][BT][m]
   int G;
@@ -116,7 +132,7 @@ adapter_fused_kernel(const TE* __restrict__ h, const TE* __restrict__ wd,
       for (int d = g; d < D; d += G) {
         const float w = to_f(wd[static_cast<long>(d) * m + j]);
 #pragma unroll
-        for (int t = 0; t < BT; ++t) acc[t] = fmaf(to_f(hs[t * D + d]), w, acc[t]);
+        for (int t = 0; t < BT; ++t) acc[t] = fmaf(hv(t, d), w, acc[t]);
       }
 #pragma unroll
       for (int t = 0; t < BT; ++t) red[(g * BT + t) * m + j] = acc[t];
@@ -167,18 +183,19 @@ adapter_fused_kernel(const TE* __restrict__ h, const TE* __restrict__ wd,
         if (t < rows) {
           // the up-projection is rounded to h's type before the residual add
           const float up = to_f(from_f<TE>(acc[c][t]));
-          out[(row0 + t) * D + d] = from_f<TE>(to_f(hs[t * D + d]) + up);
+          out[(row0 + t) * D + d] = from_f<TE>(hv(t, d) + up);
         }
       }
     }
   }
 }
 
-template <typename TE, bool TC = false>
+template <typename TE, bool TC, bool STAGE>
 int launch(const void* h, const void* wd, const void* wu, void* out, int T, int D,
            int m, int act, int n_split, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (THREADS * BT + BT * m) + sizeof(TE) * BT * D;
-  auto kernel = adapter_fused_kernel<TE, TC>;
+  const size_t smem =
+      sizeof(float) * (THREADS * BT + BT * m) + (STAGE ? sizeof(TE) * BT * D : 0);
+  auto kernel = adapter_fused_kernel<TE, TC, STAGE>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -194,29 +211,29 @@ int launch(const void* h, const void* wd, const void* wu, void* out, int T, int 
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block needs (the wrapper checks the limit).
-long adapter_fused_smem_bytes(int D, int m, int bf16) {
-  return static_cast<long>(sizeof(float)) * (THREADS * BT + BT * m) +
-         static_cast<long>(bf16 ? 2 : 4) * BT * D;
-}
-
-int adapter_fused_rows_per_block(void) { return BT; }
-
 // h [T, D], w_down [D, m], w_up [m, D], out [T, D]; all contiguous on one device,
 // of one dtype. bf16: 1 = bfloat16, 0 = float32. act: 0 gelu, 1 relu, 2 silu.
-// Returns the cudaError_t of the launch (0 = launched).
+// stage: 1 = keep the [16, D] h tile in shared memory (the caller checks that
+// 4 * (256 * 16 + 16 * m) + sizeof(dtype) * 16 * D bytes fit), 0 = read h rows
+// from device memory (4 * (256 * 16 + 16 * m) bytes). Returns the cudaError_t
+// of the launch (0 = launched).
 int adapter_fused_launch(const void* h, const void* w_down, const void* w_up, void* out,
-                         int T, int D, int m, int bf16, int act, int n_split, void* stream) {
+                         int T, int D, int m, int bf16, int act, int stage, int n_split,
+                         void* stream) {
   if (T <= 0) return 0;
   if (m < 1 || m > THREADS || n_split < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool tc = D % 16 == 0 && m % 16 == 0 && m <= 16 * WARPS &&
+  const bool tc = stage && D % 16 == 0 && m % 16 == 0 && m <= 16 * WARPS &&
                   reinterpret_cast<uintptr_t>(w_down) % 32 == 0;
   if (bf16 && tc)
-    return launch<__nv_bfloat16, true>(h, w_down, w_up, out, T, D, m, act, n_split, s);
+    return launch<__nv_bfloat16, true, true>(h, w_down, w_up, out, T, D, m, act, n_split, s);
+  if (bf16 && stage)
+    return launch<__nv_bfloat16, false, true>(h, w_down, w_up, out, T, D, m, act, n_split, s);
   if (bf16)
-    return launch<__nv_bfloat16>(h, w_down, w_up, out, T, D, m, act, n_split, s);
-  return launch<float>(h, w_down, w_up, out, T, D, m, act, n_split, s);
+    return launch<__nv_bfloat16, false, false>(h, w_down, w_up, out, T, D, m, act, n_split, s);
+  if (stage)
+    return launch<float, false, true>(h, w_down, w_up, out, T, D, m, act, n_split, s);
+  return launch<float, false, false>(h, w_down, w_up, out, T, D, m, act, n_split, s);
 }
 
 const char* cuda_error_string(int err) {

@@ -11,16 +11,17 @@ run can show that its path went through the kernels.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import adapter_fused as _af
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import rwkv_scan as _rs
 from repro_torch.kernels import ref
 
 IMPLS = ("kernel", "plain")
-LAUNCHES: Dict[str, int] = {"adapter_fused": 0, "flash_attention": 0}
+LAUNCHES: Dict[str, int] = {"adapter_fused": 0, "flash_attention": 0, "rwkv_scan": 0}
 
 
 def reset_launches() -> None:
@@ -54,4 +55,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return ref.flash_attention(q, k, v, causal=causal, window=window)
     out = _fa.flash_attention(q, k, v, causal=causal, window=window)
     LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def rwkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lw: torch.Tensor,
+              u: torch.Tensor, state0: torch.Tensor, *,
+              impl: str = "kernel") -> Tuple[torch.Tensor, torch.Tensor]:
+    """r, k, v, lw [N, S, hd] fp32; u [N, 1, hd]; state0 [N, hd, hd] -> (out, state)."""
+    if not _use_kernel(r, impl):
+        return ref.rwkv_scan(r, k, v, lw, u, state0)
+    out = _rs.rwkv_scan(r, k, v, lw, u, state0)
+    LAUNCHES["rwkv_scan"] += 1
     return out

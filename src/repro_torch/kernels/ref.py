@@ -6,7 +6,7 @@ against on the card.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -30,6 +30,24 @@ def adapter_fused(h: torch.Tensor, w_down: torch.Tensor, w_up: torch.Tensor, *,
     """h [..., D]; eq. (1): h + act(h @ Wd) @ Wu, fp32 internals."""
     mid = act(activation, h.float() @ w_down.float())
     return h + (mid @ w_up.float()).to(h.dtype)
+
+
+def rwkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lw: torch.Tensor,
+              u: torch.Tensor, state0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential RWKV-6 wkv recurrence (the reference's definitional oracle).
+
+    r, k, v, lw [N, S, hd] fp32 (lw = log decay <= 0); u [N, 1, hd];
+    state0 [N, hd, hd] indexed [k, v]. Returns (out [N, S, hd], state [N, hd, hd]).
+
+        out_t = r_t (S_{t-1} + u o k_t v_t^T);  S_t = e^{lw_t} o S_{t-1} + k_t v_t^T
+    """
+    s = state0
+    outs = []
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, None] * v[:, t, None, :]
+        outs.append(torch.einsum("nk,nkv->nv", r[:, t], s + u[:, 0, :, None] * kv))
+        s = torch.exp(lw[:, t])[:, :, None] * s + kv
+    return torch.stack(outs, dim=1), s
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -1,18 +1,19 @@
 """Where serving time goes: one prefill and a few decode steps under torch.profiler.
 
-At the serving path's shapes: qwen2.5-3b at its published width (random
-weights from seed 0, non-zero adapters), a batch of 4 prompts of 512 tokens,
-then 4 decode steps. For prefill and for decode it prints the host wall time
+At the serving path's shapes: one architecture at its published width
+(qwen2.5-3b by default, or ``--arch rwkv6-7b``; random weights from seed 0,
+non-zero adapters), a batch of 4 prompts of 512 tokens, then 4 decode steps. For prefill and for decode it prints the host wall time
 without the profiler (taken before the profiler first runs), the device time
 summed over kernels (traced), the device's idle share of the unprofiled wall
 time, the kernel launches, and the kernels that took the most device time.
 
-    PYTHONPATH=src python -m repro_torch.launch.trace_serve
+    PYTHONPATH=src python -m repro_torch.launch.trace_serve [--arch rwkv6-7b]
 
 It needs a CUDA card: the numbers are device metrics.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import time
 
@@ -24,7 +25,7 @@ from repro_torch.configs import get_config
 from repro_torch.models import params as prm
 from repro_torch.models import transformer as tfm
 
-ARCH, BATCH, PROMPT_LEN, STEPS, TOP, SEED = "qwen2.5-3b", 4, 512, 4, 12, 0
+BATCH, PROMPT_LEN, STEPS, TOP, SEED = 4, 512, 4, 12, 0
 
 
 def _wall_ms(fn, device: torch.device) -> float:
@@ -50,9 +51,12 @@ def _traced(fn, device: torch.device, label: str, wall_ms: float) -> None:
               f"{e.key[:90]}")
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2.5-3b", help="a port architecture, at full width")
+    args = ap.parse_args(argv)
     device = dev_rule.resolve("cuda")
-    cfg = get_config(ARCH)
+    cfg = get_config(args.arch)
     cfg = dataclasses.replace(cfg, adapter=dataclasses.replace(cfg.adapter, zero_init_up=False))
     params = prm.materialize(cfg, seed=SEED, device=device)
     gen = torch.Generator(device=device).manual_seed(SEED)

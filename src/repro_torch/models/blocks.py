@@ -1,17 +1,24 @@
-"""Forward computation of a dense decoder block, for serving.
+"""Forward computation of the dense and RWKV-6 blocks, for serving.
 
-    new_h, new_cache = apply_block("dense", cfg, params, h, ctx, cache)
+    new_h, new_cache = apply_block(kind, cfg, params, h, ctx, cache)
 
 ``ctx`` is a :class:`BlockCtx`: mode "seq" (a full sequence, no cache),
 "prefill" (a full prompt that also fills the cache) or "step" (one new token
-per row against the cache). Shapes: h [B, S, D]; a layer's cache is
-``{"k", "v"}`` of [B, Ck, K, hd] (see ``models/kvcache.py``).
+per row against the cache). Shapes: h [B, S, D]; a dense layer's cache is
+``{"k", "v"}`` of [B, Ck, K, hd], an rwkv layer's ``{"state", "px_tm",
+"px_cm"}`` (see ``models/kvcache.py``).
 
-"seq" and "prefill" attention run through ``ops.flash_attention`` (every row
-has positions 0..S-1, so the reference's ``_attend`` there is exactly causal
-end-aligned attention); "step" attention against the cache is the plain
-:func:`_attend`, as it is jnp in the reference. Every block ends in the fused
-adapter kernel.
+Dense: "seq" and "prefill" attention run through ``ops.flash_attention``
+(every row has positions 0..S-1, so the reference's ``_attend`` there is
+exactly causal end-aligned attention); "step" attention against the cache is
+the plain :func:`_attend`, as it is jnp in the reference.
+
+RWKV-6: the time mix's wkv recurrence runs through ``ops.rwkv_scan`` for a
+sequence (S > 1); one step (S = 1) is the plain single-step recurrence, as it
+is jnp in the reference. ``impl="plain"`` computes what the reference's jnp
+path computes, :func:`_wkv_chunk` over chunks.
+
+Every block ends in the fused adapter kernel.
 """
 from __future__ import annotations
 
@@ -51,6 +58,11 @@ def norm(cfg: ModelConfig, p, x):
     if cfg.norm != "rmsnorm":
         raise NotImplementedError(f"{cfg.norm} is not ported yet ({_LATER})")
     return rmsnorm(p, x)
+
+
+def _chunk_of(n: int, cap: int) -> int:
+    """Largest divisor of n that is <= cap."""
+    return max(d for d in range(1, min(n, cap) + 1) if n % d == 0)
 
 
 def _ffn_act(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -149,14 +161,153 @@ def attention(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor, ctx
     return y, new_cache
 
 
+# ---------------------------------------------------------------------------
+# RWKV-6 (Finch): data-dependent token shift and decay
+# ---------------------------------------------------------------------------
+
+
+def _token_shift(x: torch.Tensor, prev: Optional[torch.Tensor]) -> torch.Tensor:
+    """x[t-1] (zeros, or the cached ``prev`` [B, D], at t = 0). x: [B, S, D]."""
+    if x.shape[1] == 1:
+        base = torch.zeros_like(x[:, 0]) if prev is None else prev
+        return base[:, None, :]
+    shifted = F.pad(x, (0, 0, 1, 0))[:, :-1]
+    if prev is not None:
+        shifted[:, 0] = prev
+    return shifted
+
+
+def _ddlerp(p, xx: torch.Tensor, sx: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """RWKV-6 data-dependent token-shift mixing -> the (r, k, v, w, g) inputs.
+
+    ``mu[0]`` is the base mix; the LoRA rank is 32 for each of the five.
+    """
+    base = xx + sx * p["mu"][0]
+    lo = torch.tanh(base @ p["tm_w1"]).reshape(*xx.shape[:-1], 5, 32)
+    mws = torch.einsum("bslr,lrd->bsld", lo, p["tm_w2"])                # [B, S, 5, D]
+    return tuple(xx + sx * (p["mu"][i] + mws[:, :, i].to(xx.dtype)) for i in range(5))
+
+
+def _wkv_chunk(state, r, k, v, lw, u):
+    """One chunk of the recurrence in the reference's chunked (matrix) form.
+
+    state [N, hd, hd] fp32; r, k, v [N, L, hd]; lw = log decay (<= 0) [N, L, hd];
+    u [N, 1, hd]. Returns (new_state, out [N, L, hd]).
+    """
+    L = r.shape[1]
+    ca = torch.cumsum(lw, dim=1)                    # inclusive log-decay prefix
+    ca_prev = ca - lw                               # exclusive
+    inter = torch.einsum("nlk,nkv->nlv", r * torch.exp(ca_prev), state)
+    diff = ca_prev[:, :, None, :] - ca[:, None, :, :]                   # [N, L, L, hd]
+    mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=r.device),
+                      diagonal=-1)[None, :, :, None]
+    P = torch.where(mask, torch.exp(diff), 0.0)
+    A = torch.einsum("ntk,ntsk,nsk->nts", r, P, k)
+    intra = torch.einsum("nts,nsv->ntv", A, v)
+    diag = torch.sum(r * u * k, dim=-1, keepdim=True) * v              # current-token bonus
+    decay_all = torch.exp(ca[:, -1])                                    # [N, hd]
+    carry_k = k * torch.exp(ca[:, -1][:, None, :] - ca)
+    new_state = decay_all[:, :, None] * state + torch.einsum("nsk,nsv->nkv", carry_k, v)
+    return new_state, inter + intra + diag
+
+
+def _heads_first(x: torch.Tensor) -> torch.Tensor:
+    """[B, S, H, hd] -> fp32 [B*H, S, hd], contiguous (the kernel's layout)."""
+    B, S, H, hd = x.shape
+    return x.float().transpose(1, 2).reshape(B * H, S, hd).contiguous()
+
+
+def rwkv_time_mix(cfg: ModelConfig, p, x: torch.Tensor,
+                  cache: Optional[Dict[str, torch.Tensor]], impl: str = "kernel",
+                  ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    B, S, D = x.shape
+    hd = cfg.ssm.head_dim
+    H = D // hd
+    prev = cache.get("px_tm") if cache else None
+    sx = _token_shift(x, prev) - x
+    xr, xk, xv, xw, xg = _ddlerp(p, x, sx)
+
+    r = (xr @ p["wr"].reshape(D, D)).reshape(B, S, H, hd)
+    k = (xk @ p["wk"].reshape(D, D)).reshape(B, S, H, hd)
+    v = (xv @ p["wv"].reshape(D, D)).reshape(B, S, H, hd)
+    g = (xg @ p["wg"].reshape(D, D)).reshape(B, S, H, hd)
+    dd = torch.tanh(xw @ p["dd_w1"]) @ p["dd_w2"]                       # [B, S, D]
+    # added in the model dtype, then cast: the reference's order
+    wlog = p["decay_base"].reshape(1, 1, H, hd) + dd.reshape(B, S, H, hd)
+    lw = -torch.exp(wlog.float())                                       # log decay <= 0
+
+    rf, kf, vf, lwf = (_heads_first(t) for t in (r, k, v, lw))
+    uf = p["bonus_u"].float()[None].expand(B, H, hd).reshape(B * H, 1, hd).contiguous()
+    state0 = (cache["state"].reshape(B * H, hd, hd).float() if cache
+              else torch.zeros((B * H, hd, hd), dtype=torch.float32, device=x.device))
+
+    if S == 1:                                      # single-step recurrence
+        kv = kf[:, 0, :, None] * vf[:, 0, None, :]
+        out = torch.einsum("nk,nkv->nv", rf[:, 0], state0 + uf[:, 0, :, None] * kv)[:, None]
+        state = torch.exp(lwf[:, 0])[:, :, None] * state0 + kv
+    elif impl == "kernel":
+        out, state = ops.rwkv_scan(rf, kf, vf, lwf, uf, state0.contiguous())
+    else:
+        if impl != "plain":
+            raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
+        L = _chunk_of(S, 32)
+        state, outs = state0, []
+        for c in range(0, S, L):
+            state, o = _wkv_chunk(state, rf[:, c:c + L], kf[:, c:c + L], vf[:, c:c + L],
+                                  lwf[:, c:c + L], uf)
+            outs.append(o)
+        out = torch.cat(outs, dim=1)
+
+    out = out.reshape(B, H, S, hd).transpose(1, 2)                      # [B, S, H, hd]
+    # per-head group norm (fp32, population variance), then the gate
+    mu = out.mean(dim=-1, keepdim=True)
+    var = out.var(dim=-1, keepdim=True, unbiased=False)
+    out = (out - mu) * torch.rsqrt(var + 1e-5)
+    out = out.reshape(B, S, D) * p["ln_x"]
+    out = out * F.silu(g.float()).reshape(B, S, D)
+    y = out.to(x.dtype) @ p["wo"].reshape(D, D)
+
+    new_cache = None
+    if cache is not None:
+        new_cache = dict(cache)
+        new_cache["state"] = state.reshape(B, H, hd, hd).to(cache["state"].dtype)
+        new_cache["px_tm"] = x[:, -1]
+    return y, new_cache
+
+
+def rwkv_channel_mix(cfg: ModelConfig, p, x: torch.Tensor,
+                     cache: Optional[Dict[str, torch.Tensor]],
+                     ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    prev = cache.get("px_cm") if cache else None
+    sx = _token_shift(x, prev) - x
+    xk = x + sx * p["mu_ck"]
+    xr = x + sx * p["mu_cr"]
+    k = torch.square(torch.relu(xk @ p["wk_c"]))
+    v = k @ p["wv_c"]
+    out = torch.sigmoid((xr @ p["wr_c"]).float()).to(x.dtype) * v
+    new_cache = None
+    if cache is not None:
+        new_cache = dict(cache)
+        new_cache["px_cm"] = x[:, -1]
+    return out, new_cache
+
+
 def apply_block(kind: str, cfg: ModelConfig, p: Dict, h: torch.Tensor, ctx: BlockCtx,
                 cache: Optional[Dict[str, torch.Tensor]] = None,
                 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    if kind != "dense":
+    if kind == "dense":
+        a, new_cache = attention(cfg, p["attn"], norm(cfg, p["ln1"], h), ctx, cache)
+        h = h + a
+        h = h + ffn(cfg, p["ffn"], norm(cfg, p["ln2"], h))
+    elif kind == "rwkv":
+        t, new_cache = rwkv_time_mix(cfg, p["rwkv"], norm(cfg, p["ln1"], h), cache,
+                                     impl=ctx.impl)
+        h = h + t
+        c, cm_cache = rwkv_channel_mix(cfg, p["rwkv"], norm(cfg, p["ln2"], h), new_cache)
+        new_cache = cm_cache if cm_cache is not None else new_cache
+        h = h + c
+    else:
         raise NotImplementedError(f"block kind {kind!r} is not ported yet ({_LATER})")
-    a, new_cache = attention(cfg, p["attn"], norm(cfg, p["ln1"], h), ctx, cache)
-    h = h + a
-    h = h + ffn(cfg, p["ffn"], norm(cfg, p["ln2"], h))
-    # the paper's serial adapter, after the FFN sublayer
+    # the paper's serial adapter, after the FFN / channel-mix sublayer
     h = apply_adapter(p["adapter"], h, activation=cfg.adapter.activation, impl=ctx.impl)
     return h, new_cache

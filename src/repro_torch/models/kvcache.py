@@ -1,17 +1,24 @@
-"""KV caches for serving dense decoders.
+"""KV and recurrent-state caches for serving.
 
-Layout: one ``{"k", "v"}`` entry per layer, each ``[B, Ck, K, hd]``, plus
+Layout: one entry per layer,
+
+  dense : {"k", "v"}, each [B, Ck, K, hd]
+  rwkv  : {"state": [B, H, hd, hd] f32, "px_tm": [B, D], "px_cm": [B, D]}
+
+(``px_*`` hold the last token of the time and channel mixes' normed input,
+which the next token shifts against; prefill writes them at that input's
+dtype), plus
 
   {"pos": [B, Ck] int64  (absolute position held in each slot, -1 = empty),
    "next": [B] int64     (number of tokens in the cache so far)}
 
 Sliding-window archs keep a ring buffer of ``n_sink + window`` slots; full
 attention keeps ``seq_len`` slots. The cache is bf16 by default whatever the
-model's dtype, as in the reference.
+model's dtype, as in the reference. RWKV caches O(1) state only.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import torch
 
@@ -39,14 +46,31 @@ def write_slot(cfg: ModelConfig, pos: torch.Tensor, seq_len: int) -> torch.Tenso
     return torch.where(pos < ns, pos, ns + (pos - ns) % w)
 
 
+def _layer_entry(cfg: ModelConfig, kind: str, batch: int, ck: int, dtype: torch.dtype,
+                 device) -> Dict[str, torch.Tensor]:
+    zeros = lambda *shape, dt=dtype: torch.zeros(shape, dtype=dt, device=device)
+    if kind == "dense":
+        shape = (batch, ck, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": zeros(*shape), "v": zeros(*shape)}
+    if kind == "rwkv":
+        hd = cfg.ssm.head_dim
+        return {"state": zeros(batch, cfg.d_model // hd, hd, hd, dt=torch.float32),
+                "px_tm": zeros(batch, cfg.d_model), "px_cm": zeros(batch, cfg.d_model)}
+    raise NotImplementedError(f"no cache for block kind {kind!r} yet")
+
+
+def layer_kinds(cfg: ModelConfig) -> List[str]:
+    """The block kind of each layer, in order (repeats of the pattern)."""
+    return [kind for _ in range(cfg.repeats) for kind, count in cfg.pattern
+            for _ in range(count)]
+
+
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
                dtype: torch.dtype = torch.bfloat16, device="cpu") -> Dict[str, Any]:
     ck = cache_len(cfg, seq_len)
-    shape = (batch, ck, cfg.n_kv_heads, cfg.head_dim)
     return {
-        "layers": [{"k": torch.zeros(shape, dtype=dtype, device=device),
-                    "v": torch.zeros(shape, dtype=dtype, device=device)}
-                   for _ in range(cfg.n_layers)],
+        "layers": [_layer_entry(cfg, kind, batch, ck, dtype, device)
+                   for kind in layer_kinds(cfg)],
         "pos": torch.full((batch, ck), -1, dtype=torch.int64, device=device),
         "next": torch.zeros((batch,), dtype=torch.int64, device=device),
     }

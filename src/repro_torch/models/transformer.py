@@ -1,10 +1,10 @@
-"""Dense decoder for serving: embed, blocks, head; prefill and decode.
+"""Decoder for serving (dense and RWKV-6 blocks): embed, blocks, head; prefill and decode.
 
 Parameters follow ``models/params.py`` (one dict per layer). The functions
 mirror the reference's ``models/transformer.py``: ``forward`` is its inference
 forward over a full sequence (no unfreeze ``boundary``, which belongs to
-training), ``prefill`` runs a prompt and fills a KV cache by gathers, and
-``decode_step`` adds one token per row.
+training), ``prefill`` runs a prompt and fills the cache (KV by gathers,
+recurrent state by the scan), and ``decode_step`` adds one token per row.
 """
 from __future__ import annotations
 
@@ -18,16 +18,20 @@ from repro_torch.models.blocks import BlockCtx, apply_block, norm
 
 
 def _check(cfg: ModelConfig) -> None:
-    if any(kind != "dense" for kind, _ in cfg.pattern) or cfg.enc_dec or cfg.frontend:
+    if any(kind not in ("dense", "rwkv") for kind, _ in cfg.pattern) or cfg.enc_dec \
+            or cfg.frontend:
         raise NotImplementedError(
-            f"{cfg.name}: only dense decoders are ported yet "
+            f"{cfg.name}: only dense and rwkv decoders are ported yet "
             f"(ROADMAP.md Queue 1, 'The other block kinds')")
-    if not cfg.rope:
-        raise NotImplementedError(f"{cfg.name}: learned positions are not ported yet")
 
 
-def embed(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"]["tok"][tokens]
+def embed(cfg: ModelConfig, params, tokens: torch.Tensor,
+          positions: torch.Tensor) -> torch.Tensor:
+    h = params["embed"]["tok"][tokens]
+    if not cfg.rope and "pos" in params["embed"]:       # learned positions
+        pt = params["embed"]["pos"]
+        h = h + pt[torch.clamp(positions, 0, pt.shape[0] - 1)]
+    return h
 
 
 def head(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tensor:
@@ -41,9 +45,8 @@ def head(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tensor:
 
 def _run(cfg: ModelConfig, params, h: torch.Tensor, ctx: BlockCtx, caches=None):
     new_caches = []
-    for i, layer in enumerate(params["blocks"]):
-        h, nc = apply_block("dense", cfg, layer, h, ctx,
-                            None if caches is None else caches[i])
+    for i, (kind, layer) in enumerate(zip(kvcache.layer_kinds(cfg), params["blocks"])):
+        h, nc = apply_block(kind, cfg, layer, h, ctx, None if caches is None else caches[i])
         new_caches.append(nc)
     return h, new_caches
 
@@ -55,7 +58,7 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     B, S = tokens.shape
     pos = torch.arange(S, device=tokens.device).expand(B, S)
     ctx = BlockCtx(cfg=cfg, mode="seq", positions=pos, impl=impl)
-    h, _ = _run(cfg, params, embed(cfg, params, tokens), ctx)
+    h, _ = _run(cfg, params, embed(cfg, params, tokens, pos), ctx)
     return head(cfg, params, h)
 
 
@@ -95,7 +98,8 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     ctx = BlockCtx(cfg=cfg, mode="prefill", positions=pos, impl=impl,
                    cache_positions=cache["pos"],
                    write_slots=torch.where(fill_pos < 0, 0, fill_pos)[None].expand(B, ck))
-    h, cache["layers"] = _run(cfg, params, embed(cfg, params, tokens), ctx, cache["layers"])
+    h, cache["layers"] = _run(cfg, params, embed(cfg, params, tokens, pos), ctx,
+                              cache["layers"])
     logits = head(cfg, params, h[:, -1:])[:, 0]
     return logits, cache
 
@@ -113,6 +117,7 @@ def decode_step(params, token: torch.Tensor, cache: Dict[str, Any], cfg: ModelCo
     cache["pos"].scatter_(1, slot, pos)
     ctx = BlockCtx(cfg=cfg, mode="step", positions=pos, impl=impl,
                    cache_positions=cache["pos"], write_slots=slot)
-    h, cache["layers"] = _run(cfg, params, embed(cfg, params, token), ctx, cache["layers"])
+    h, cache["layers"] = _run(cfg, params, embed(cfg, params, token, pos), ctx,
+                              cache["layers"])
     cache["next"] += 1
     return head(cfg, params, h)[:, 0], cache

@@ -11,6 +11,11 @@ and 2e-2 in bf16, attention 1e-5 in f32 and 3e-2 in bf16. The bf16 adapter
 also allows one bf16 ulp of each output (rtol 2**-7): its fp32 sums run in
 another order than the plain version's, which can move ``h + up`` across a
 rounding boundary where |h| > 4 and one ulp exceeds 2e-2.
+
+``rwkv_scan`` is held to its plain version relative to the largest entry of
+each output (1e-4): both sum fp32 products in their own order along a serial
+recurrence, and on the served model the outputs reach 1e3 and more, where an
+absolute tolerance says nothing.
 """
 import pytest
 
@@ -19,6 +24,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import ops  # noqa: E402
 
 ATOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 3e-2)}   # (adapter, attention)
+SCAN_RTOL = 1e-4     # rwkv_scan, of the largest entry of each output
 
 
 @pytest.mark.gpu
@@ -44,3 +50,44 @@ def test_cuda_kernels_match_plain_on_card(dtype):
         got = ops.flash_attention(q, k, v, window=window)
         want = ops.flash_attention(q, k, v, window=window, impl="plain")
         torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol_f)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("T", [4, 2048])
+@pytest.mark.parametrize("D", [4096, 4608])
+def test_adapter_fused_wide_models_on_card(D, T, dtype):
+    """rwkv6-7b's and starcoder2-7b's widths: the f32 tile does not fit in
+    shared memory, so the kernel reads h rows from device memory."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(D + T)
+    rnd = lambda *s, scale=1.0: (torch.randn(s, generator=gen, device="cuda") * scale).to(dt)
+    h, wd, wu = rnd(T, D), rnd(D, 64, scale=0.05), rnd(64, D, scale=0.05)
+    got = ops.adapter_fused(h, wd, wu)
+    want = ops.adapter_fused(h, wd, wu, impl="plain")
+    torch.testing.assert_close(got.float(), want.float(), atol=ATOL[dtype][0],
+                               rtol=2.0 ** -7 if dtype == "bfloat16" else 0.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,S,hd,state", [(256, 202, 64, False), (256, 445, 64, True),
+                                          (64, 130, 32, True), (8, 33, 16, True),
+                                          (8, 1, 8, True)])
+def test_rwkv_scan_matches_plain_on_card(N, S, hd, state):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(S)
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    r, k, v = rnd(N, S, hd), rnd(N, S, hd), rnd(N, S, hd)
+    lw = -torch.exp(0.5 * rnd(N, S, hd) - 1.0)
+    u = 0.5 * rnd(N, 1, hd)
+    s0 = 0.1 * rnd(N, hd, hd) if state else torch.zeros(N, hd, hd, device="cuda")
+    ops.reset_launches()
+    out, sT = ops.rwkv_scan(r, k, v, lw, u, s0)
+    assert ops.LAUNCHES["rwkv_scan"] == 1
+    want, wT = ops.rwkv_scan(r, k, v, lw, u, s0, impl="plain")
+    for got_, want_ in ((out, want), (sT, wT)):
+        torch.testing.assert_close(got_, want_, rtol=0,
+                                   atol=SCAN_RTOL * want_.abs().max().item())

@@ -69,7 +69,7 @@ def test_adapter_fused_flattens_leading_dims_and_counts_no_cpu_launch():
     out = ops.adapter_fused(h, wd, wu)
     want = ref.adapter_fused(h.reshape(-1, 64), wd, wu).reshape(h.shape)
     torch.testing.assert_close(out, want, rtol=0, atol=0)
-    assert ops.LAUNCHES == {"adapter_fused": 0, "flash_attention": 0}
+    assert ops.LAUNCHES == {"adapter_fused": 0, "flash_attention": 0, "rwkv_scan": 0}
 
 
 def _heads_first(x):
@@ -149,3 +149,25 @@ def test_kernel_launchers_take_cuda_tensors_only():
         torch_fa.flash_attention(q, q[:, :, :1], q[:, :, :1])
     with pytest.raises(ValueError, match="impl"):
         ops.adapter_fused(h, torch.zeros(64, 16), torch.zeros(16, 64), impl="jnp")
+
+
+@pytest.mark.parametrize("D,dtype,staged", [(2048, torch.bfloat16, True),
+                                            (4096, torch.bfloat16, True),
+                                            (4608, torch.bfloat16, True),
+                                            (3312, torch.float32, True),
+                                            (4096, torch.float32, False),
+                                            (4608, torch.float32, False),
+                                            (5120, torch.float32, False)])
+@pytest.mark.parametrize("T", [4, 2048])
+def test_adapter_fused_launcher_takes_every_model_width(D, dtype, staged, T):
+    """The [16, D] h tile is staged in shared memory where it fits; wider f32
+    (rwkv6-7b at 4096, starcoder2-7b at 4608, llama4 at 5120) reads h rows
+    from device memory instead, so the shape check no longer refuses it. The
+    kernel itself runs only on the card (tests/test_torch_gpu.py)."""
+    meta = lambda *shape: torch.empty(shape, dtype=dtype, device="meta")
+    stage, smem = torch_af.check(meta(T, D), meta(D, 64), meta(64, D), "gelu")
+    assert stage == staged and smem <= torch_af.SMEM_LIMIT
+    assert smem == 4 * (256 * 16 + 16 * 64) + staged * dtype.itemsize * 16 * D
+    with pytest.raises(ValueError, match="CUDA"):
+        torch_af.adapter_fused(torch.zeros(T, D, dtype=dtype), torch.zeros(D, 64, dtype=dtype),
+                               torch.zeros(64, D, dtype=dtype))
