@@ -26,7 +26,17 @@ run with a non-zero exit and no result line:
      once per layer per step. The first batch is served again with
      ``impl="plain"`` in bf16 and f32, and each block and its new cache are
      held to their kernel version on the same input, and the f32 prefill
-     logits of the two paths to each other, as in phase 3 (no CPU witness).
+     logits of the two paths to each other, as in phase 3 (no CPU witness);
+  5. hymba-1.5b at its published width (32 layers, d_model 1600, 25 query over
+     5 KV heads of 64, SSM state 16, window 1024, 128 meta tokens that are
+     also the attention sinks, vocab 32001 padded to 32256), random weights
+     from the seed with non-zero adapters, served by ``BatchServer`` as in
+     phase 3 (rwkv6-7b is freed first; the horizon counts the meta tokens);
+     the counters show ``mamba_scan`` and ``flash_attention`` once per layer
+     per batch (prefill) and ``adapter_fused`` once per layer per step. The
+     first batch is served again with ``impl="plain"`` in bf16 and f32, and
+     each block and its new cache (k, v, ssm, conv) are held to their kernel
+     version on the same input, as in phase 4.
 
 The last three lines are a JSON object of per-kernel measurements, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -86,10 +96,17 @@ LOGIT_RMS_FRACTION = 0.5
 # 4M random values of h [2048, 2048] some exceed 4, where one ulp is 0.031.
 ATOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 3e-2)}  # (adapter, attention)
 ADAPTER_RTOL = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7}
-# rwkv_scan against its plain version: relative to the largest entry of each
-# output. Both sum fp32 products in their own order along a serial recurrence,
-# and at the served model's scale (r, k, v of std ~8, decays near 1) the state
-# and the outputs reach 1e3-1e5, where an absolute tolerance says nothing.
+# hymba-1.5b's attention (hd 64, 5 query heads per KV head) gives bf16 outputs
+# above 4, where one bf16 ulp is 0.031: the plain version rounds the
+# probabilities to bf16 before PV (as the reference's jnp does) and the kernel
+# keeps them in fp32, so the final rounding may land one ulp apart. Its bf16
+# cases also allow one bf16 ulp of each output (rtol 2**-7), as the adapter's.
+HYMBA_ATTENTION_RTOL = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7}
+# rwkv_scan and mamba_scan against their plain versions: relative to the
+# largest entry of each output. Both sum fp32 products in their own order
+# along a serial recurrence, and at the served models' scale (rwkv: r, k, v of
+# std ~8, decays near 1) the state and the outputs reach 1e3-1e5, where an
+# absolute tolerance says nothing.
 SCAN_RTOL = 1e-4
 SOURCES = {
     "adapter_fused": ("src/repro_torch/kernels/csrc/adapter_fused.cu",
@@ -98,6 +115,8 @@ SOURCES = {
                         "src/repro/kernels/flash_attention.py:86"),
     "rwkv_scan": ("src/repro_torch/kernels/csrc/rwkv_scan.cu",
                   "src/repro/kernels/rwkv_scan.py:86"),
+    "mamba_scan": ("src/repro_torch/kernels/csrc/mamba_scan.cu",
+                   "src/repro/kernels/mamba_scan.py:76"),
 }
 CARD = ""                        # nvidia-smi's name and power limit, beside every time
 
@@ -220,49 +239,96 @@ def rwkv_case(N, S, hd, gen, state=False, record=None):
                       library_ms=None, shape=f"r/k/v/lw[{N},{S},{hd}] f32")
 
 
-def attention_case(S, window, dtype, gen, record=None):
-    B, H, K, hd = 4, 16, 2, 128
+def attention_case(S, window, dtype, gen, record=None, heads=(16, 2, 128), n_sink=0,
+                   rtol=None):
+    """Causal prefill attention of 4 rows; ``heads`` = (query heads, KV heads,
+    head_dim): qwen2.5-3b's by default, hymba-1.5b's (25, 5, 64) with sinks.
+    ``rtol`` (of each output, beside the absolute tolerance) defaults to 0.
+    Returns the kernel's ms."""
+    B, (H, K, hd) = 4, heads
     q = torch.randn(B, S, H, hd, generator=gen, device="cuda").to(dtype)
     k = torch.randn(B, S, K, hd, generator=gen, device="cuda").to(dtype)
     v = torch.randn(B, S, K, hd, generator=gen, device="cuda").to(dtype)
-    got = ops.flash_attention(q, k, v, window=window)
-    want = ops.flash_attention(q, k, v, window=window, impl="plain")
+    kw = dict(window=window, n_sink=n_sink)
+    got = ops.flash_attention(q, k, v, **kw)
+    want = ops.flash_attention(q, k, v, impl="plain", **kw)
     torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
-    tol = ATOL[dtype][1]
-    ms, plain_ms = in_turns(lambda: ops.flash_attention(q, k, v, window=window, impl="plain"),
-                            lambda: ops.flash_attention(q, k, v, window=window))
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    tol, rtol = ATOL[dtype][1], rtol or 0.0
+    excess = (diff - tol - rtol * want.float().abs()).max().item()
+    ms, plain_ms = in_turns(lambda: ops.flash_attention(q, k, v, impl="plain", **kw),
+                            lambda: ops.flash_attention(q, k, v, **kw))
+    i = torch.arange(S, device="cuda")
+    seen = i[None, :] <= i[:, None]                   # the (query, key) pairs the mask keeps
+    if window is not None:
+        seen &= (i[:, None] - i[None, :] < window) | (i[None, :] < n_sink)
     # yardstick only: one PyTorch call computing the same function (never used by the port)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     if window is None:
         sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                       enable_gqa=True)
     else:
-        i = torch.arange(S, device="cuda")
-        mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
-        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=seen,
                                                       enable_gqa=True)
     lib_err = (sdpa().transpose(1, 2).float() - want.float()).abs().max().item()
     library_ms = cuda_ms(sdpa)
-    say("flash_attention", B=B, H=H, K=K, hd=hd, S=S, window=window,
-        dtype=str(dtype).removeprefix("torch."), max_abs_err=f"{err:.3g}", tol=tol,
-        ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
-        library_err=f"{lib_err:.3g}", card=repr(CARD))
-    if not err <= tol:
-        raise AssertionError(f"flash_attention disagrees with its plain version: {err} > {tol}")
+    pairs = int(seen.sum())
+    t_ops = 4 * B * H * hd * pairs / (BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
+    t_bytes = 2 * (q.numel() + k.numel()) * q.element_size() / HBM_BYTES_PER_S
+    bound_ms = 1e3 * max(t_ops, t_bytes)
+    dt = str(dtype).removeprefix("torch.")
+    say("flash_attention", B=B, H=H, K=K, hd=hd, S=S, window=window, n_sink=n_sink,
+        dtype=dt, max_abs_err=f"{err:.3g}", tol=tol, rtol=rtol, ms=f"{ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
+        bound_ms=f"{bound_ms:.5f}", library_err=f"{lib_err:.3g}", card=repr(CARD))
+    if not excess <= 0:
+        raise AssertionError(f"flash_attention disagrees with its plain version: max error "
+                             f"{err}, {excess} beyond atol {tol} + rtol {rtol}")
     if record is not None:
-        i = torch.arange(S)
-        seen = i[None, :] <= i[:, None]
-        if window is not None:
-            seen &= (i[:, None] - i[None, :]) < window
-        pairs = int(seen.sum())                       # (query, key) pairs this mask needs
-        t_ops = 4 * B * H * hd * pairs / BF16_FLOPS
-        t_bytes = 2 * (q.numel() + k.numel()) * q.element_size() / HBM_BYTES_PER_S
-        record.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                      bound_ms=1e3 * max(t_ops, t_bytes),
+        record.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                       bound_by="operations" if t_ops > t_bytes else "bytes",
                       library_ms=library_ms,
-                      shape=f"q[{B},{S},{H},{hd}] kv[{B},{S},{K},{hd}] causal bf16")
+                      shape=f"q[{B},{S},{H},{hd}] kv[{B},{S},{K},{hd}] causal {dt}"
+                            + (f" window {window} n_sink {n_sink}" if n_sink else ""))
+    return ms
+
+
+def mamba_case(B, S, D, N, gen, record=None):
+    """At the served model's scale: dt = softplus(x) of unit-normal x (as
+    dt_lr @ dt_proj + dt_bias gives), log_a = dt * A with A = -(1..N) (the
+    arange_log init), b = dt * B * x and c of unit-normal B, x and c."""
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    dt = F.softplus(rnd(B, S, D))[..., None]
+    log_a = (dt * -torch.arange(1, N + 1, device="cuda", dtype=torch.float32)).contiguous()
+    b = (dt * rnd(B, S, 1, N) * rnd(B, S, D, 1)).contiguous()
+    c = rnd(B, S, N)
+    y, sT = ops.mamba_scan(log_a, b, c)
+    want, wT = ops.mamba_scan(log_a, b, c, impl="plain")
+    torch.cuda.synchronize()
+    errs = [(a - w).abs().max().item() / w.abs().max().item() for a, w in ((y, want), (sT, wT))]
+    ms, plain_ms = in_turns(lambda: ops.mamba_scan(log_a, b, c, impl="plain"),
+                            lambda: ops.mamba_scan(log_a, b, c))
+    # log_a and b read once, c read once, y and the state written once; about
+    # four fp32 flops per (b, t, d, n): exp, the fma, the product with c, one add
+    nbytes = 4 * (2 * B * S * D * N + B * S * N + B * S * D + B * D * N)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 4 * B * S * D * N / FP32_FLOPS
+    bound_ms = 1e3 * max(t_ops, t_bytes)
+    say("mamba_scan", B=B, S=S, D=D, N=N, rel_err_y=f"{errs[0]:.3g}",
+        rel_err_state=f"{errs[1]:.3g}", rtol=SCAN_RTOL,
+        max_abs_y=f"{want.abs().max().item():.4g}", ms=f"{ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.5f}", mbytes=f"{nbytes / 1e6:.1f}",
+        card=repr(CARD))
+    if not max(errs) <= SCAN_RTOL:
+        raise AssertionError(f"mamba_scan disagrees with its plain version: {errs} of the "
+                             f"largest entries (rtol {SCAN_RTOL})")
+    if record is not None:
+        record.update(max_abs_err=max((y - want).abs().max().item(),
+                                      (sT - wT).abs().max().item()),
+                      max_rel_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                      bound_by="operations" if t_ops > t_bytes else "bytes",
+                      library_ms=None, shape=f"log_a/b[{B},{S},{D},{N}] f32")
 
 
 def phase_kernels(records) -> None:
@@ -286,6 +352,26 @@ def phase_kernels(records) -> None:
     rwkv_case(256, 445, 64, gen)
     rwkv_case(256, 202, 64, gen, state=True)
     rwkv_case(64, 300, 32, gen, state=True)
+    # hymba-1.5b: the adapter at D = 1600 (decode; prefill 4 x 573), the scan at
+    # trace_serve's prefill (128 meta + 512) and the served batches, and
+    # attention with 128 sinks where they matter (S 2048, window 1024)
+    adapter_case(4, bf16, "gelu", gen, D=1600)
+    adapter_case(2292, bf16, "gelu", gen, D=1600)
+    adapter_case(2292, f32, "gelu", gen, D=1600)
+    mamba_case(4, 640, 1600, 16, gen, record=records["mamba_scan"])
+    mamba_case(4, 573, 1600, 16, gen)
+    mamba_case(4, 330, 1600, 16, gen)
+    mamba_case(2, 37, 256, 8, gen)
+    mamba_case(3, 9, 40, 32, gen)
+    sinks = {}
+    for dtype in (bf16, f32):
+        hymba = dict(heads=(25, 5, 64), rtol=HYMBA_ATTENTION_RTOL[dtype])
+        ms = attention_case(2048, 1024, dtype, gen, n_sink=128, **hymba)
+        sinks[str(dtype).removeprefix("torch.")] = {
+            "ms": ms, "no_sink_ms": attention_case(2048, 1024, dtype, gen, **hymba)}
+        attention_case(573, 1024, dtype, gen, n_sink=128, **hymba)     # served prefill
+        attention_case(300, 128, dtype, gen, n_sink=100, **hymba)      # sinks in a part tile
+    records["flash_attention"]["sinks_S2048_w1024_n128"] = sinks
 
 
 # ---------------------------------------------------------------- phases 3 and 4
@@ -312,7 +398,7 @@ def phase_serve(arch: str, records, cpu_witness: bool) -> None:
     max_new, slots = 32, 4
     lens = rng.integers(64, 513, size=8)
     prompts = [rng.integers(0, cfg.vocab_size, size=int(n)) for n in lens]
-    horizon = 512 + max_new + 8
+    horizon = tfm.n_meta(cfg) + 512 + max_new + 8          # hymba: 128 meta tokens first
     requests = lambda: [Request(i, p, max_new) for i, p in enumerate(prompts)]
 
     BatchServer(cfg, params, slots=slots, horizon=horizon, device="cuda").run(
@@ -328,12 +414,13 @@ def phase_serve(arch: str, records, cpu_witness: bool) -> None:
     n_batches = len(server.batches)
     if sorted(results) != list(range(8)) or any(len(v) != max_new for v in results.values()):
         raise AssertionError(f"not every request got {max_new} tokens")
-    # adapter: every layer, every step; the sequence kernel of each block kind:
+    # adapter: every layer, every step; the sequence kernels of each block kind:
     # every layer, once per batch (prefill)
     kinds = {kind for kind, _ in cfg.pattern}
     per_prefill = cfg.n_layers * n_batches
     want = {"adapter_fused": cfg.n_layers * max_new * n_batches,
-            "flash_attention": per_prefill if "dense" in kinds else 0,
+            "flash_attention": per_prefill if kinds & {"dense", "hymba"} else 0,
+            "mamba_scan": per_prefill if "hymba" in kinds else 0,
             "rwkv_scan": per_prefill if "rwkv" in kinds else 0}
     if launches != want:
         raise AssertionError(f"launch counters {launches} != expected {want}")
@@ -456,6 +543,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     say("freed", gib_on_card=f"{torch.cuda.memory_allocated() / 2**30:.2f}")
     phase_serve("rwkv6-7b", records, cpu_witness=False)
+    gc.collect()                                        # free rwkv6-7b before hymba-1.5b
+    torch.cuda.empty_cache()
+    say("freed", gib_on_card=f"{torch.cuda.memory_allocated() / 2**30:.2f}")
+    phase_serve("hymba-1.5b", records, cpu_witness=False)
     print(json.dumps({"kernels": list(records.values())}), flush=True)
     print(CARD, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -17,11 +17,13 @@ import numpy as np
 import torch
 from torch.utils._pytree import tree_map
 
+from repro_torch import device as dev_rule
 from repro_torch.configs.base import ModelConfig
 
 
-def to_tensor(arr: Any, device="cpu") -> torch.Tensor:
-    """numpy (bf16 included) -> torch tensor on ``device``."""
+def to_tensor(arr: Any, device=None) -> torch.Tensor:
+    """numpy (bf16 included) -> torch tensor on ``device`` (default cuda)."""
+    device = dev_rule.resolve(device)
     arr = np.asarray(arr)
     if not arr.flags.writeable:        # e.g. a view of a JAX array
         arr = arr.copy()
@@ -57,24 +59,30 @@ def stack_layers(layers: List[Dict[str, Any]], repeats: int) -> Dict[str, Any]:
     return rec(layers)
 
 
-def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device="cpu") -> Dict[str, Any]:
-    """The reference's parameter tree (numpy leaves) -> the port's parameters.
+def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device=None) -> Dict[str, Any]:
+    """The reference's parameter tree (numpy leaves) -> the port's parameters,
+    on ``device`` (default cuda).
 
     Layers come out in the reference's order: for each repeat, each pattern
-    entry's ``count`` layers.
+    entry's ``count`` layers. Hymba's top-level ``meta`` leaf comes along.
     """
     kinds = {k for k, _ in cfg.pattern}
-    if not kinds <= {"dense", "rwkv"} or cfg.enc_dec or cfg.frontend:
-        raise NotImplementedError(f"{cfg.name}: the port carries dense and rwkv decoders only")
+    if not kinds <= {"dense", "rwkv", "hymba"} or cfg.enc_dec or cfg.frontend:
+        raise NotImplementedError(
+            f"{cfg.name}: the port carries dense, rwkv and hymba decoders only")
+    device = dev_rule.resolve(device)
     conv = lambda x: to_tensor(x, device)
     entries = [unstack_layers(e) for e in tree["blocks"]]
     blocks = []
     for r in range(cfg.repeats):
         for entry, (_, count) in zip(entries, cfg.pattern):
             blocks.extend(tree_map(conv, layer) for layer in entry[r * count:(r + 1) * count])
-    return {
+    out = {
         "embed": tree_map(conv, dict(tree["embed"])),
         "final_norm": tree_map(conv, tree["final_norm"]),
         "head": tree_map(conv, tree["head"]),
         "blocks": blocks,
     }
+    if "meta" in tree:
+        out["meta"] = conv(tree["meta"])
+    return out

@@ -1,12 +1,13 @@
 """Architecture registry of the port — importing this package registers its configs.
 
-The port registers the architectures whose block kinds it runs: so far the dense
-decoder qwen2.5-3b and the attention-free RWKV-6 rwkv6-7b.
+The port registers the architectures whose block kinds it runs: the dense
+decoder qwen2.5-3b, the attention-free RWKV-6 rwkv6-7b and the hybrid
+(attention + Mamba) hymba-1.5b.
 """
 from repro_torch.configs.base import (AdapterConfig, ModelConfig, SSMConfig, get_config,
                                       list_configs, register)
 
-from repro_torch.configs import qwen2p5_3b, rwkv6_7b  # noqa: F401  (registration)
+from repro_torch.configs import hymba_1p5b, qwen2p5_3b, rwkv6_7b  # noqa: F401  (registration)
 
 __all__ = ["AdapterConfig", "ModelConfig", "SSMConfig", "get_config", "list_configs",
            "register"]

@@ -1,9 +1,12 @@
-// Flash attention forward: causal (end-aligned), optional sliding window, GQA.
+// Flash attention forward: causal (end-aligned), optional sliding window with
+// attention sinks, GQA.
 //
 // Replaces: the Pallas TPU kernel src/repro/kernels/flash_attention.py
 //           (flash_attention / _kernel, pallas_call at line 86). In the port it
-//           computes the prefill attention of every dense block, the function
-//           the reference's blocks._attend computes there.
+//           computes the prefill attention of every dense and hymba block, the
+//           function the reference's blocks._attend computes there; with a
+//           window, the first n_sink keys (hymba's 128 meta tokens) stay
+//           visible to every later query, as _attend's `k_slot < n_sink` test.
 //
 // What bounds it on the H100: operations. Prefill attention does about
 // 2 * 2 * Sq * Sk * hd flops per head (halved by the causal mask) against
@@ -18,7 +21,10 @@
 // output accumulator acc in registers (fp32, as the Pallas kernel keeps them in
 // VMEM), so scores never reach device memory and K/V are read once per query
 // tile. Unlike the Pallas kernel, the k-loop is bounded at the causal diagonal
-// and at the window's far edge, so fully masked tiles are never visited. Any S
+// and at the window's far edge, so fully masked tiles are never visited; with
+// sinks it first visits the tiles that hold keys [0, n_sink) and then jumps to
+// the window's first tile, never visiting a tile twice. Sinks are a template
+// parameter, so a call without them pays nothing for them. Any S
 // works: ragged tiles are zero-filled and masked. GQA reads KV head h / group
 // through strides; q, k, v and o are read in the model's [B, S, H, hd] layout
 // (any strides with a unit last stride), so no repeated K/V is built.
@@ -61,12 +67,12 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, Strides st, 
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool SINKS>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
                        int group, Strides sq, Strides sk, Strides sv, Strides so,
-                       float scale, int causal, int window) {
+                       float scale, int causal, int window, int n_sink) {
   constexpr int LD = HD + 1;       // padded rows: no bank conflicts on columns
   constexpr int PLD = BK + 1;
   constexpr int NE = HD / 8;       // output dims per thread
@@ -107,8 +113,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   int k_begin = 0;
   if (window > 0) k_begin = max(0, q0 + off - window + 1);
   k_begin = (k_begin / BK) * BK;
+  // with sinks (and a window): the tiles below sink_end first, then from k_begin on
+  const int sink_end = SINKS ? ((n_sink + BK - 1) / BK) * BK : 0;
 
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
+  for (int k0 = SINKS ? 0 : k_begin; k0 < k_end;
+       k0 = SINKS && k0 + BK >= sink_end && k0 + BK < k_begin ? k_begin : k0 + BK) {
     __syncthreads();  // the previous tile is no longer read
     load_tile<T, HD>(ks, kp, sk, k0, BK, Sk);
     load_tile<T, HD>(vs, vp, sv, k0, BK, Sk);
@@ -140,7 +149,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
         const int kj = k0 + cl + 8 * c;
-        ok[c] = kj < Sk && (!causal || kj <= qpos) && (window <= 0 || qpos - kj < window);
+        ok[c] = kj < Sk && (!causal || kj <= qpos) &&
+                (window <= 0 || qpos - kj < window || (SINKS && kj < n_sink));
         s[r][c] = ok[c] ? s[r][c] * scale : NEG_INF;
         mx = fmaxf(mx, s[r][c]);
       }
@@ -192,10 +202,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int Sq,
            int Sk, int group, Strides sq, Strides sk, Strides sv, Strides so, int causal,
-           int window, cudaStream_t stream) {
+           int window, int n_sink, cudaStream_t stream) {
   constexpr int LD = HD + 1;
   const size_t smem = sizeof(float) * ((BQ + 2 * BK) * LD + BQ * (BK + 1));
-  auto kernel = flash_attention_kernel<T, HD>;
+  auto kernel = window > 0 && n_sink > 0 ? flash_attention_kernel<T, HD, true>
+                                         : flash_attention_kernel<T, HD, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -204,18 +215,20 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(HD)));
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Sk, group, sq, sk, sv, so, scale, causal, window);
+      static_cast<T*>(o), Sq, Sk, group, sq, sk, sv, so, scale, causal, window, n_sink);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_hd(int hd, const void* q, const void* k, const void* v, void* o, int B, int H,
               int Sq, int Sk, int group, Strides sq, Strides sk, Strides sv, Strides so,
-              int causal, int window, cudaStream_t s) {
+              int causal, int window, int n_sink, cudaStream_t s) {
   if (hd == 64)
-    return launch<T, 64>(q, k, v, o, B, H, Sq, Sk, group, sq, sk, sv, so, causal, window, s);
+    return launch<T, 64>(q, k, v, o, B, H, Sq, Sk, group, sq, sk, sv, so, causal, window,
+                         n_sink, s);
   if (hd == 128)
-    return launch<T, 128>(q, k, v, o, B, H, Sq, Sk, group, sq, sk, sv, so, causal, window, s);
+    return launch<T, 128>(q, k, v, o, B, H, Sq, Sk, group, sq, sk, sv, so, causal, window,
+                          n_sink, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -226,22 +239,23 @@ extern "C" {
 // q [B, Sq, H, hd], k and v [B, Sk, K, hd], o [B, Sq, H, hd] with H = K * group,
 // given by pointers and (batch, seq, head) strides in elements; hd is 64 or 128
 // with unit stride. is_bf16: 1 = bfloat16, 0 = float32 (all four alike).
-// window <= 0 means no window. Returns the cudaError_t of the launch.
+// window <= 0 means no window; with a window, keys below n_sink (>= 0) are seen
+// by every query the causal mask lets see them. Returns the cudaError_t of the launch.
 int flash_attention_launch(const void* q, const void* k, const void* v, void* o, int B,
                            int H, int K, int Sq, int Sk, int hd, int is_bf16,
                            long long qb, long long qs, long long qh, long long kb,
                            long long ks, long long kh, long long vb, long long vs,
                            long long vh, long long ob, long long os, long long oh,
-                           int causal, int window, void* stream) {
+                           int causal, int window, int n_sink, void* stream) {
   if (B <= 0 || Sq <= 0) return 0;
   if (K <= 0 || H % K != 0) return static_cast<int>(cudaErrorInvalidValue);
   const Strides sq{qb, qs, qh}, sk{kb, ks, kh}, sv{vb, vs, vh}, so{ob, os, oh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return launch_hd<__nv_bfloat16>(hd, q, k, v, o, B, H, Sq, Sk, H / K, sq, sk, sv, so,
-                                     causal, window, s);
+                                     causal, window, n_sink, s);
   return launch_hd<float>(hd, q, k, v, o, B, H, Sq, Sk, H / K, sq, sk, sv, so, causal,
-                          window, s);
+                          window, n_sink, s);
 }
 
 const char* cuda_error_string(int err) {

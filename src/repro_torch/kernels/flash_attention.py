@@ -25,14 +25,18 @@ def _lib():
     fn = so.flash_attention_launch
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                       + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+                       + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return so
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
-    """Causal (end-aligned), optionally windowed GQA attention; returns [B, Sq, H, hd]."""
+                    causal: bool = True, window: Optional[int] = None,
+                    n_sink: int = 0) -> torch.Tensor:
+    """Causal (end-aligned), optionally windowed GQA attention; returns [B, Sq, H, hd].
+
+    With a window, the first ``n_sink`` keys (attention sinks) pass the window test.
+    """
     if q.device.type != "cuda":
         raise ValueError("flash_attention kernel takes CUDA tensors")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
@@ -51,11 +55,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise ValueError("q, k, v must lie on one device with a unit last stride")
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
+    if n_sink < 0:
+        raise ValueError(f"n_sink must be >= 0, got {n_sink}")
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     err = _lib().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         B, H, K, Sq, Sk, hd, int(q.dtype == torch.bfloat16), *strides,
-        int(causal), window or 0, torch.cuda.current_stream(q.device).cuda_stream)
+        int(causal), window or 0, n_sink, torch.cuda.current_stream(q.device).cuda_stream)
     build.check(NAME, err)
     return out

@@ -17,11 +17,13 @@ import torch
 
 from repro_torch.kernels import adapter_fused as _af
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import mamba_scan as _ms
 from repro_torch.kernels import rwkv_scan as _rs
 from repro_torch.kernels import ref
 
 IMPLS = ("kernel", "plain")
-LAUNCHES: Dict[str, int] = {"adapter_fused": 0, "flash_attention": 0, "rwkv_scan": 0}
+LAUNCHES: Dict[str, int] = {"adapter_fused": 0, "flash_attention": 0, "mamba_scan": 0,
+                            "rwkv_scan": 0}
 
 
 def reset_launches() -> None:
@@ -48,12 +50,13 @@ def adapter_fused(h: torch.Tensor, w_down: torch.Tensor, w_up: torch.Tensor, *,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: Optional[int] = None,
+                    causal: bool = True, window: Optional[int] = None, n_sink: int = 0,
                     impl: str = "kernel") -> torch.Tensor:
-    """q [B, Sq, H, hd]; k, v [B, Sk, K, hd]; returns [B, Sq, H, hd]."""
+    """q [B, Sq, H, hd]; k, v [B, Sk, K, hd]; returns [B, Sq, H, hd]. With a
+    window, the first ``n_sink`` keys pass the window test (attention sinks)."""
     if not _use_kernel(q, impl):
-        return ref.flash_attention(q, k, v, causal=causal, window=window)
-    out = _fa.flash_attention(q, k, v, causal=causal, window=window)
+        return ref.flash_attention(q, k, v, causal=causal, window=window, n_sink=n_sink)
+    out = _fa.flash_attention(q, k, v, causal=causal, window=window, n_sink=n_sink)
     LAUNCHES["flash_attention"] += 1
     return out
 
@@ -66,4 +69,15 @@ def rwkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lw: torch.Tenso
         return ref.rwkv_scan(r, k, v, lw, u, state0)
     out = _rs.rwkv_scan(r, k, v, lw, u, state0)
     LAUNCHES["rwkv_scan"] += 1
+    return out
+
+
+def mamba_scan(log_a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *,
+               impl: str = "kernel") -> Tuple[torch.Tensor, torch.Tensor]:
+    """log_a, b [B, S, D, N] fp32; c [B, S, N] -> (y [B, S, D], state [B, D, N]),
+    from a zero state."""
+    if not _use_kernel(log_a, impl):
+        return ref.mamba_scan(log_a, b, c)
+    out = _ms.mamba_scan(log_a, b, c)
+    LAUNCHES["mamba_scan"] += 1
     return out

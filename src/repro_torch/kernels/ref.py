@@ -50,11 +50,30 @@ def rwkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lw: torch.Tenso
     return torch.stack(outs, dim=1), s
 
 
+def mamba_scan(log_a: torch.Tensor, b: torch.Tensor,
+               c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential selective-SSM recurrence from a zero state (the reference's oracle).
+
+    log_a, b [B, S, D, N] fp32 (log_a = log decay <= 0); c [B, S, N].
+    Returns (y [B, S, D], final state [B, D, N]).
+
+        s_t = exp(log_a_t) * s_{t-1} + b_t ;  y_t = sum_N s_t * c_t
+    """
+    s = torch.zeros_like(log_a[:, 0])
+    ys = []
+    for t in range(log_a.shape[1]):
+        s = torch.exp(log_a[:, t]) * s + b[:, t]
+        ys.append(torch.einsum("bdn,bn->bd", s, c[:, t]))
+    return torch.stack(ys, dim=1), s
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
+                    causal: bool = True, window: Optional[int] = None,
+                    n_sink: int = 0) -> torch.Tensor:
     """q [B, Sq, H, hd]; k, v [B, Sk, K, hd] with H = K * group (query head n
     reads KV head n // group). fp32 scores and softmax; the causal mask aligns
-    the last query with the last key; fully masked rows give 0.
+    the last query with the last key; fully masked rows give 0. With a window,
+    the first ``n_sink`` keys (attention sinks) pass the window test.
     """
     B, Sq, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]
@@ -67,7 +86,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if causal:
         m &= ki <= qi
     if window is not None:
-        m &= (qi - ki) < window
+        m &= ((qi - ki) < window) | (ki < n_sink)
     s = s.masked_fill(~m, NEG_INF)
     p = torch.softmax(s, dim=-1).masked_fill(~m, 0.0)
     out = torch.einsum("bkgqs,bskh->bqkgh", p.to(v.dtype), v)

@@ -2,7 +2,10 @@
 
 A synchronous batcher: requests are left-padded into fixed batch slots,
 prefilled once, then decoded step by step with greedy argmax. Every block runs
-the fused adapter kernel, and prefill attention runs the flash-attention kernel.
+the fused adapter kernel; prefill attention runs the flash-attention kernel, an
+rwkv block's prefill the wkv-scan kernel, a hymba block's prefill both the
+flash-attention and the selective-scan kernels. The horizon a caller gives
+counts hymba's 128 meta tokens too (the CLI's does).
 
 Multi-tenant adapter hot-swap: with ``--adapter-store DIR`` pointing at an
 AdapterStore, each request may carry a tenant id (a store entry name). One
@@ -14,6 +17,7 @@ served on the next batch without a restart.
 Usage (on a machine with an NVIDIA GPU; ``--device cpu`` runs the plain versions):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
         --requests 8 --max-new 16 [--no-reduced] [--adapter-store DIR]
+    (--arch rwkv6-7b or hymba-1.5b for the other two port architectures)
 """
 from __future__ import annotations
 
@@ -205,8 +209,9 @@ def main(argv=None) -> None:
                                     size=rng.integers(4, args.prompt_len + 1)),
                     args.max_new, tenant=tenant_cycle[i % len(tenant_cycle)])
             for i in range(args.requests)]
+    # the horizon counts the meta tokens prefill puts before every prompt
     server = BatchServer(cfg, params, slots=args.slots,
-                         horizon=args.prompt_len + args.max_new + 8,
+                         horizon=tfm.n_meta(cfg) + args.prompt_len + args.max_new + 8,
                          registry=registry, device=device)
     results = server.run(reqs)
     print({k: v[:8] for k, v in list(results.items())[:4]})

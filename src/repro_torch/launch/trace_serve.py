@@ -1,13 +1,14 @@
 """Where serving time goes: one prefill and a few decode steps under torch.profiler.
 
 At the serving path's shapes: one architecture at its published width
-(qwen2.5-3b by default, or ``--arch rwkv6-7b``; random weights from seed 0,
-non-zero adapters), a batch of 4 prompts of 512 tokens, then 4 decode steps. For prefill and for decode it prints the host wall time
+(qwen2.5-3b by default, or ``--arch rwkv6-7b`` / ``hymba-1.5b``; random weights
+from seed 0, non-zero adapters), a batch of 4 prompts of 512 tokens (hymba
+puts its 128 meta tokens before each: 640 prefill positions), then 4 decode steps. For prefill and for decode it prints the host wall time
 without the profiler (taken before the profiler first runs), the device time
 summed over kernels (traced), the device's idle share of the unprofiled wall
 time, the kernel launches, and the kernels that took the most device time.
 
-    PYTHONPATH=src python -m repro_torch.launch.trace_serve [--arch rwkv6-7b]
+    PYTHONPATH=src python -m repro_torch.launch.trace_serve [--arch rwkv6-7b | hymba-1.5b]
 
 It needs a CUDA card: the numbers are device metrics.
 """
@@ -61,7 +62,7 @@ def main(argv=None) -> None:
     params = prm.materialize(cfg, seed=SEED, device=device)
     gen = torch.Generator(device=device).manual_seed(SEED)
     tokens = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT_LEN), generator=gen, device=device)
-    horizon = PROMPT_LEN + 2 * STEPS + 8
+    horizon = tfm.n_meta(cfg) + PROMPT_LEN + 2 * STEPS + 8
     state = {}
 
     def prefill():
@@ -76,7 +77,8 @@ def main(argv=None) -> None:
         prefill()                                   # warm-up: kernel build, cuBLAS
         decode()
         print(f"[trace] arch={cfg.name} layers={cfg.n_layers} batch={BATCH} "
-              f"prompt_len={PROMPT_LEN} decode_steps={STEPS} device={device}")
+              f"prompt_len={PROMPT_LEN} meta_tokens={tfm.n_meta(cfg)} decode_steps={STEPS} "
+              f"device={device}")
         # wall times before the profiler first runs, then the traced runs
         walls = [_wall_ms(prefill, device), _wall_ms(decode, device)]
         _traced(prefill, device, "prefill", walls[0])

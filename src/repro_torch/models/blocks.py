@@ -1,4 +1,4 @@
-"""Forward computation of the dense and RWKV-6 blocks, for serving.
+"""Forward computation of the dense, RWKV-6 and Hymba blocks, for serving.
 
     new_h, new_cache = apply_block(kind, cfg, params, h, ctx, cache)
 
@@ -6,12 +6,22 @@
 "prefill" (a full prompt that also fills the cache) or "step" (one new token
 per row against the cache). Shapes: h [B, S, D]; a dense layer's cache is
 ``{"k", "v"}`` of [B, Ck, K, hd], an rwkv layer's ``{"state", "px_tm",
-"px_cm"}`` (see ``models/kvcache.py``).
+"px_cm"}``, a hymba layer's ``{"k", "v", "ssm", "conv"}`` (see
+``models/kvcache.py``).
 
-Dense: "seq" and "prefill" attention run through ``ops.flash_attention``
-(every row has positions 0..S-1, so the reference's ``_attend`` there is
-exactly causal end-aligned attention); "step" attention against the cache is
-the plain :func:`_attend`, as it is jnp in the reference.
+Attention (dense and hymba): "seq" and "prefill" attention run through
+``ops.flash_attention`` (every row has positions 0..S-1, so the reference's
+``_attend`` there is exactly causal end-aligned attention, key index =
+position = slot); "step" attention against the cache is the plain
+:func:`_attend`, as it is jnp in the reference. A model with hymba blocks has
+128 attention sinks: with a window, keys in the first 128 slots pass the
+window test.
+
+Hymba: attention and the Mamba mix (:func:`mamba_mix`) read the same normed
+input; their outputs are RMS-normed, averaged and projected. The selective
+scan runs through ``ops.mamba_scan`` for a sequence (S > 1); one step (S = 1)
+is the plain single step, as it is jnp in the reference. ``impl="plain"``
+computes the reference's jnp form, an associative scan over chunks.
 
 RWKV-6: the time mix's wkv recurrence runs through ``ops.rwkv_scan`` for a
 sequence (S > 1); one step (S = 1) is the plain single-step recurrence, as it
@@ -32,6 +42,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.adapter import apply_adapter
 from repro_torch.kernels import ops
+from repro_torch.models import kvcache
 
 NEG_INF = -1e30
 _LATER = "ROADMAP.md Queue 1, 'The other block kinds'"
@@ -99,11 +110,13 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 
 
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_pos: torch.Tensor,
-            k_pos: torch.Tensor, *, causal: bool, window: Optional[int]) -> torch.Tensor:
+            k_pos: torch.Tensor, *, causal: bool, window: Optional[int],
+            n_sink: int = 0) -> torch.Tensor:
     """q [B, Sq, H, hd]; k, v [B, Sk, K, hd]; positions [B, S*] (k_pos -1 = empty slot).
 
     fp32 scores, masked to -1e30; probabilities zeroed where masked and cast to
-    ``v.dtype`` before PV, as the reference's ``blocks._attend``.
+    ``v.dtype`` before PV, as the reference's ``blocks._attend``. With a window,
+    a key whose slot index is below ``n_sink`` passes the window test.
     """
     B, Sq, H, hd = q.shape
     K = k.shape[2]
@@ -113,7 +126,10 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_pos: torch.Tens
     if causal:
         m = m & (k_pos[:, None, :] <= q_pos[:, :, None])
     if window is not None:
-        m = m & ((q_pos[:, :, None] - k_pos[:, None, :]) < window)
+        in_win = (q_pos[:, :, None] - k_pos[:, None, :]) < window
+        if n_sink > 0:
+            in_win = in_win | (torch.arange(k.shape[1], device=k.device) < n_sink)
+        m = m & in_win
     m = m[:, None, None]                                          # [B, 1, 1, Sq, Sk]
     p = torch.softmax(s.masked_fill(~m, NEG_INF), dim=-1).masked_fill(~m, 0.0)
     out = torch.einsum("bkgcs,bskh->bckgh", p.to(v.dtype), v)
@@ -141,6 +157,7 @@ def attention(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor, ctx
         q = rope(q, ctx.positions, cfg.rope_theta)
         kk = rope(kk, ctx.positions, cfg.rope_theta)
 
+    n_sink = kvcache.n_sink(cfg)
     new_cache = None
     if ctx.mode == "step":
         b_idx = torch.arange(B, device=x.device)[:, None]
@@ -148,7 +165,7 @@ def attention(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor, ctx
         cache["v"][b_idx, ctx.write_slots] = vv.to(cache["v"].dtype)
         new_cache = cache
         out = _attend(q, cache["k"], cache["v"], ctx.positions, ctx.cache_positions,
-                      causal=ctx.causal, window=cfg.sliding_window)
+                      causal=ctx.causal, window=cfg.sliding_window, n_sink=n_sink)
     else:
         if ctx.mode == "prefill":
             # gather-fill: write_slots [B, Ck] is the prompt index landing in each slot
@@ -156,7 +173,7 @@ def attention(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor, ctx
             new_cache = {"k": kk.gather(1, gi).to(cache["k"].dtype),
                          "v": vv.gather(1, gi).to(cache["v"].dtype)}
         out = ops.flash_attention(q, kk, vv, causal=ctx.causal, window=cfg.sliding_window,
-                                  impl=ctx.impl)
+                                  n_sink=n_sink, impl=ctx.impl)
     y = out.to(x.dtype).reshape(B, S, H * hd) @ p["wo"].reshape(H * hd, D)
     return y, new_cache
 
@@ -292,6 +309,85 @@ def rwkv_channel_mix(cfg: ModelConfig, p, x: torch.Tensor,
     return out, new_cache
 
 
+# ---------------------------------------------------------------------------
+# Mamba-style selective SSM (Hymba's parallel SSM heads)
+# ---------------------------------------------------------------------------
+
+
+def _ssm_chunks(log_a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, s0: torch.Tensor,
+                L: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's jnp form of the scan: chunks of L steps, each an
+    associative scan of the (a, b) pairs (here by doubling), the state carried
+    from chunk to chunk. log_a, b [B, S, di, N]; c [B, S, N]; s0 [B, di, N].
+    Returns (y [B, S, di], final state)."""
+    B, S, di, N = log_a.shape
+    nch = S // L
+    a = torch.exp(log_a).reshape(B, nch, L, di, N)
+    b = b.reshape(B, nch, L, di, N)
+    d = 1
+    while d < L:
+        # step t <- (step t - d, then step t): (a_t a_{t-d}, a_t b_{t-d} + b_t)
+        b = torch.cat([b[:, :, :d], a[:, :, d:] * b[:, :, :-d] + b[:, :, d:]], dim=2)
+        a = torch.cat([a[:, :, :d], a[:, :, d:] * a[:, :, :-d]], dim=2)
+        d *= 2
+    c = c.reshape(B, nch, L, N)
+    state, ys = s0, []
+    for i in range(nch):
+        states = a[:, i] * state[:, None] + b[:, i]                     # [B, L, di, N]
+        ys.append(torch.einsum("bldn,bln->bld", states, c[:, i]))
+        state = states[:, -1]
+    return torch.cat(ys, dim=1), state
+
+
+def mamba_mix(cfg: ModelConfig, p, x: torch.Tensor,
+              cache: Optional[Dict[str, torch.Tensor]], impl: str = "kernel",
+              ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """x [B, S, D] -> y [B, S, di]; the cache's ``ssm`` state and ``conv`` tail."""
+    B, S, D = x.shape
+    di = cfg.n_heads * cfg.head_dim
+    N, R, W = cfg.ssm.state_size, cfg.ssm.dt_rank, cfg.ssm.conv_width
+
+    xz = x @ p["in_proj"]                                               # [B, S, di]
+    # causal depthwise conv over [conv cache | x]
+    prev = cache.get("conv") if cache else None
+    if prev is None:
+        prev = torch.zeros((B, W - 1, di), dtype=xz.dtype, device=x.device)
+    xc = torch.cat([prev.to(xz.dtype), xz], dim=1)                      # [B, S+W-1, di]
+    conv_w = p["conv_w"].float()
+    xconv = sum(xc[:, w:w + S].float() * conv_w[w] for w in range(W)).to(xz.dtype)
+    xs = F.silu(xconv)
+
+    dt_lr, b_mat, c_mat = torch.split(xs @ p["x_proj"], [R, N, N], dim=-1)
+    # in the model dtype, then f32: the reference's order
+    dt = F.softplus(dt_lr @ p["dt_proj"] + p["dt_bias"]).float()        # [B, S, di]
+    A = -torch.exp(p["a_log"].float())                                  # [di, N]
+    log_a = dt[..., None] * A                                           # [B, S, di, N]
+    bx = dt[..., None] * b_mat[:, :, None, :].float() * xs[..., None].float()
+    c = c_mat.float()
+    s0 = (cache["ssm"].float() if cache
+          else torch.zeros((B, di, N), dtype=torch.float32, device=x.device))
+
+    if S == 1:                                      # single step
+        state = torch.exp(log_a[:, 0]) * s0 + bx[:, 0]
+        ys = torch.einsum("bdn,bn->bd", state, c[:, 0])[:, None]
+    elif impl == "kernel":
+        # S > 1 comes only from "seq" (no cache) and "prefill", whose cache is
+        # freshly zeroed: the reference's s0 is zero, the kernel's start.
+        ys, state = ops.mamba_scan(log_a.contiguous(), bx.contiguous(), c.contiguous())
+    else:
+        if impl != "plain":
+            raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
+        ys, state = _ssm_chunks(log_a, bx, c, s0, _chunk_of(S, 128))
+    y = ys.to(x.dtype) + xs * p["d_skip"].to(x.dtype)
+
+    new_cache = None
+    if cache is not None:
+        new_cache = dict(cache)
+        new_cache["ssm"] = state.to(cache["ssm"].dtype)
+        new_cache["conv"] = xc[:, S:].clone() if W > 1 else cache["conv"]
+    return y, new_cache
+
+
 def apply_block(kind: str, cfg: ModelConfig, p: Dict, h: torch.Tensor, ctx: BlockCtx,
                 cache: Optional[Dict[str, torch.Tensor]] = None,
                 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
@@ -306,6 +402,21 @@ def apply_block(kind: str, cfg: ModelConfig, p: Dict, h: torch.Tensor, ctx: Bloc
         c, cm_cache = rwkv_channel_mix(cfg, p["rwkv"], norm(cfg, p["ln2"], h), new_cache)
         new_cache = cm_cache if cm_cache is not None else new_cache
         h = h + c
+    elif kind == "hymba":
+        hn = norm(cfg, p["ln1"], h)
+        a, attn_cache = attention(cfg, p["attn"], hn, ctx, cache)
+        s, ssm_cache = mamba_mix(cfg, p["ssm"], hn, cache, impl=ctx.impl)
+        # per-branch RMSNorm, averaged, then projected by the attention's wo. The
+        # reference applies wo to the attention branch twice (once inside
+        # attention), and the port is held to the reference (ROADMAP.md Queue 3).
+        fused = 0.5 * (rmsnorm({"scale": p["norm_attn"]}, a)
+                       + rmsnorm({"scale": p["norm_ssm"]}, s))
+        wo = p["attn"]["wo"]
+        h = h + fused @ wo.reshape(-1, wo.shape[-1])
+        new_cache = None
+        if cache is not None:
+            new_cache = {**ssm_cache, "k": attn_cache["k"], "v": attn_cache["v"]}
+        h = h + ffn(cfg, p["ffn"], norm(cfg, p["ln2"], h))
     else:
         raise NotImplementedError(f"block kind {kind!r} is not ported yet ({_LATER})")
     # the paper's serial adapter, after the FFN / channel-mix sublayer

@@ -4,16 +4,19 @@ Layout: one entry per layer,
 
   dense : {"k", "v"}, each [B, Ck, K, hd]
   rwkv  : {"state": [B, H, hd, hd] f32, "px_tm": [B, D], "px_cm": [B, D]}
+  hymba : dense + {"ssm": [B, di, N] f32, "conv": [B, W-1, di]}
 
 (``px_*`` hold the last token of the time and channel mixes' normed input,
 which the next token shifts against; prefill writes them at that input's
-dtype), plus
+dtype; ``conv`` holds the last W-1 inputs of the Mamba mix's causal conv, and
+prefill writes it at the model's dtype), plus
 
   {"pos": [B, Ck] int64  (absolute position held in each slot, -1 = empty),
    "next": [B] int64     (number of tokens in the cache so far)}
 
 Sliding-window archs keep a ring buffer of ``n_sink + window`` slots; full
-attention keeps ``seq_len`` slots. The cache is bf16 by default whatever the
+attention keeps ``seq_len`` slots; hymba's first ``n_sink`` = 128 slots hold
+its meta tokens, never evicted. The cache is bf16 by default whatever the
 model's dtype, as in the reference. RWKV caches O(1) state only.
 """
 from __future__ import annotations
@@ -49,9 +52,14 @@ def write_slot(cfg: ModelConfig, pos: torch.Tensor, seq_len: int) -> torch.Tenso
 def _layer_entry(cfg: ModelConfig, kind: str, batch: int, ck: int, dtype: torch.dtype,
                  device) -> Dict[str, torch.Tensor]:
     zeros = lambda *shape, dt=dtype: torch.zeros(shape, dtype=dt, device=device)
-    if kind == "dense":
+    if kind in ("dense", "hymba"):
         shape = (batch, ck, cfg.n_kv_heads, cfg.head_dim)
-        return {"k": zeros(*shape), "v": zeros(*shape)}
+        entry = {"k": zeros(*shape), "v": zeros(*shape)}
+        if kind == "hymba":
+            di = cfg.n_heads * cfg.head_dim
+            entry["ssm"] = zeros(batch, di, cfg.ssm.state_size, dt=torch.float32)
+            entry["conv"] = zeros(batch, cfg.ssm.conv_width - 1, di)
+        return entry
     if kind == "rwkv":
         hd = cfg.ssm.head_dim
         return {"state": zeros(batch, cfg.d_model // hd, hd, hd, dt=torch.float32),

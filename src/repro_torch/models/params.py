@@ -8,7 +8,9 @@ instead of the reference's stacked ``[repeats, count, ...]`` leaves:
      "head": {"w"}, "blocks": [ one block's tree for each layer ]}
 
 a dense block is ``{"ln1", "attn", "ln2", "ffn", "adapter"}``, an rwkv block
-``{"ln1", "ln2", "rwkv", "adapter"}``.
+``{"ln1", "ln2", "rwkv", "adapter"}``, a hymba block ``{"ln1", "attn", "ssm",
+"norm_attn", "norm_ssm", "ln2", "ffn", "adapter"}``; a model with hymba blocks
+also has the top-level ``"meta"`` leaf, its 128 learned meta tokens [128, D].
 
 ``repro_torch.bridge`` converts between the two layouts.
 """
@@ -33,7 +35,7 @@ class PD:
     """Declarative parameter definition."""
 
     shape: Tuple[int, ...]
-    init: str = "normal"            # normal | zeros | ones | rwkv_decay
+    init: str = "normal"            # normal | zeros | ones | rwkv_decay | arange_log
     scale: Optional[float] = None   # stddev for normal; default 1/sqrt(fan-in)
     dtype: Optional[str] = None     # override the model dtype
     # rwkv_decay: (this layer's index, layer count) in its pattern entry's stack
@@ -113,6 +115,22 @@ def rwkv_defs(cfg: ModelConfig, ramp: Tuple[int, int] = (0, 1)) -> Dict[str, PD]
     }
 
 
+def mamba_defs(cfg: ModelConfig) -> Dict[str, PD]:
+    """Mamba-style selective SSM head bank (the SSM half of a Hymba block)."""
+    D = cfg.d_model
+    di = cfg.n_heads * cfg.head_dim          # d_inner matches the attention width
+    N, R, W = cfg.ssm.state_size, cfg.ssm.dt_rank, cfg.ssm.conv_width
+    return {
+        "in_proj": PD((D, di)),
+        "conv_w": PD((W, di), scale=0.2),
+        "x_proj": PD((di, R + 2 * N)),
+        "dt_proj": PD((R, di), scale=0.1),
+        "dt_bias": PD((di,), "zeros"),
+        "a_log": PD((di, N), "arange_log"),
+        "d_skip": PD((di,), "ones"),
+    }
+
+
 def block_defs(cfg: ModelConfig, kind: str, ramp: Tuple[int, int] = (0, 1)) -> Dict[str, Any]:
     """One layer's definitions; ``ramp`` places an rwkv layer in its stack."""
     if kind == "dense":
@@ -122,9 +140,16 @@ def block_defs(cfg: ModelConfig, kind: str, ramp: Tuple[int, int] = (0, 1)) -> D
     if kind == "rwkv":
         return {"ln1": norm_defs(cfg), "ln2": norm_defs(cfg),
                 "rwkv": rwkv_defs(cfg, ramp), "adapter": adapter_defs(cfg)}
+    if kind == "hymba":
+        di = cfg.n_heads * cfg.head_dim
+        return {"ln1": norm_defs(cfg), "attn": attn_defs(cfg), "ssm": mamba_defs(cfg),
+                "norm_attn": PD((di,), "ones", dtype="float32"),
+                "norm_ssm": PD((di,), "ones", dtype="float32"),
+                "ln2": norm_defs(cfg), "ffn": ffn_defs(cfg),
+                "adapter": adapter_defs(cfg)}
     raise NotImplementedError(
         f"block kind {kind!r} is not ported yet (Queue 1 slice 'other "
-        f"block kinds' of ROADMAP.md); the port runs dense and rwkv blocks")
+        f"block kinds' of ROADMAP.md); the port runs dense, rwkv and hymba blocks")
 
 
 def param_defs(cfg: ModelConfig) -> Dict[str, Any]:
@@ -138,12 +163,15 @@ def param_defs(cfg: ModelConfig) -> Dict[str, Any]:
     embed = {"tok": PD((cfg.padded_vocab, cfg.d_model), scale=0.02)}
     if not cfg.rope:                  # learned position table
         embed["pos"] = PD((min(cfg.max_seq_len, 8192), cfg.d_model), scale=0.02)
-    return {
+    defs = {
         "embed": embed,
         "final_norm": norm_defs(cfg),
         "head": {"w": PD((cfg.d_model, cfg.out_dim))},
         "blocks": blocks,
     }
+    if any(kind == "hymba" for kind, _ in cfg.pattern):
+        defs["meta"] = PD((128, cfg.d_model), scale=0.02)      # Hymba's meta tokens
+    return defs
 
 
 def count_params(cfg: ModelConfig) -> int:
@@ -159,6 +187,10 @@ def _init_leaf(pd: PD, dtype: torch.dtype, gen: torch.Generator,
         return torch.ones(pd.shape, dtype=dt, device=device)
     if pd.init == "rwkv_decay":
         return _decay_ramp(pd.shape, *pd.ramp, device=device).to(dt)
+    if pd.init == "arange_log":
+        # the Mamba A init: -[1..N] broadcast over channels, stored as log
+        a = torch.arange(1, pd.shape[-1] + 1, dtype=torch.float32, device=device)
+        return torch.log(a).expand(pd.shape).to(dt).contiguous()
     # the reference's fan-in is the second-to-last dim (of the unstacked shape)
     fan_in = pd.shape[-2] if len(pd.shape) >= 2 else pd.shape[-1]
     scale = pd.scale if pd.scale is not None else 1.0 / math.sqrt(max(fan_in, 1))

@@ -1,10 +1,16 @@
-"""Decoder for serving (dense and RWKV-6 blocks): embed, blocks, head; prefill and decode.
+"""Decoder for serving (dense, RWKV-6 and Hymba blocks): embed, blocks, head;
+prefill and decode.
 
 Parameters follow ``models/params.py`` (one dict per layer). The functions
 mirror the reference's ``models/transformer.py``: ``forward`` is its inference
 forward over a full sequence (no unfreeze ``boundary``, which belongs to
 training), ``prefill`` runs a prompt and fills the cache (KV by gathers,
 recurrent state by the scan), and ``decode_step`` adds one token per row.
+
+A model with hymba blocks puts its ``n_meta`` = 128 learned meta tokens
+before every prompt: positions run over the ``n_meta + S`` tokens, the meta
+tokens fill the cache's first (sink) slots, and ``forward`` drops their rows
+before the head.
 """
 from __future__ import annotations
 
@@ -18,11 +24,28 @@ from repro_torch.models.blocks import BlockCtx, apply_block, norm
 
 
 def _check(cfg: ModelConfig) -> None:
-    if any(kind not in ("dense", "rwkv") for kind, _ in cfg.pattern) or cfg.enc_dec \
-            or cfg.frontend:
+    if any(kind not in ("dense", "rwkv", "hymba") for kind, _ in cfg.pattern) \
+            or cfg.enc_dec or cfg.frontend:
         raise NotImplementedError(
-            f"{cfg.name}: only dense and rwkv decoders are ported yet "
+            f"{cfg.name}: only dense, rwkv and hymba decoders are ported yet "
             f"(ROADMAP.md Queue 1, 'The other block kinds')")
+
+
+def n_meta(cfg: ModelConfig) -> int:
+    """Hymba's meta tokens, prepended to every prompt (0 for other models)."""
+    return 128 if any(kind == "hymba" for kind, _ in cfg.pattern) else 0
+
+
+def _embed_prompt(cfg: ModelConfig, params, tokens: torch.Tensor):
+    """(h [B, nm + S, D], positions [B, nm + S]): the meta rows, then the tokens."""
+    B, S = tokens.shape
+    nm = n_meta(cfg)
+    pos = torch.arange(nm + S, device=tokens.device).expand(B, nm + S)
+    h = embed(cfg, params, tokens, pos[:, nm:])
+    if nm:
+        meta = params["meta"][None].to(h.dtype).expand(B, nm, cfg.d_model)
+        h = torch.cat([meta, h], dim=1)
+    return h, pos
 
 
 def embed(cfg: ModelConfig, params, tokens: torch.Tensor,
@@ -55,11 +78,10 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
             impl: str = "kernel") -> torch.Tensor:
     """Logits [B, S, V] of a full sequence (inference only)."""
     _check(cfg)
-    B, S = tokens.shape
-    pos = torch.arange(S, device=tokens.device).expand(B, S)
+    h, pos = _embed_prompt(cfg, params, tokens)
     ctx = BlockCtx(cfg=cfg, mode="seq", positions=pos, impl=impl)
-    h, _ = _run(cfg, params, embed(cfg, params, tokens, pos), ctx)
-    return head(cfg, params, h)
+    h, _ = _run(cfg, params, h, ctx)
+    return head(cfg, params, h[:, n_meta(cfg):])
 
 
 def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, *,
@@ -67,23 +89,25 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, *,
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Run the prompt; return (last-token logits [B, V], filled cache).
 
-    ``seq_len``: the decode horizon the cache must support (>= prompt length).
-    Every row has positions 0..S-1 (the server left-pads with token 0 and
-    attends to the pads, as the reference does).
+    ``seq_len``: the decode horizon the cache must support (>= meta tokens +
+    prompt length). Every row has positions 0..nm+S-1 (the server left-pads
+    with token 0 and attends to the pads, as the reference does).
     """
     _check(cfg)
-    B, S = tokens.shape
+    B = tokens.shape[0]
     dev = tokens.device
+    h, pos = _embed_prompt(cfg, params, tokens)
+    S = pos.shape[1]                                      # meta tokens + prompt
     seq_len = seq_len or S
     cache = kvcache.init_cache(cfg, B, seq_len, device=dev)
-    pos = torch.arange(S, device=dev).expand(B, S)
 
     # for each cache slot, the last prompt position landing in it (ring
     # buffer), or -1 if unwritten: a deterministic gather-fill
     ck = kvcache.cache_len(cfg, seq_len)
     ns = kvcache.n_sink(cfg)
     if (cfg.sliding_window is None or ck >= seq_len) and S > ck:
-        raise ValueError(f"prompt ({S}) exceeds the cache horizon ({ck}); raise seq_len")
+        raise ValueError(f"prompt ({S} with {n_meta(cfg)} meta tokens) exceeds the cache "
+                         f"horizon ({ck}); raise seq_len")
     slots = torch.arange(ck, device=dev)
     if cfg.sliding_window is not None and ck < seq_len:
         w = ck - ns
@@ -98,8 +122,7 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     ctx = BlockCtx(cfg=cfg, mode="prefill", positions=pos, impl=impl,
                    cache_positions=cache["pos"],
                    write_slots=torch.where(fill_pos < 0, 0, fill_pos)[None].expand(B, ck))
-    h, cache["layers"] = _run(cfg, params, embed(cfg, params, tokens, pos), ctx,
-                              cache["layers"])
+    h, cache["layers"] = _run(cfg, params, h, ctx, cache["layers"])
     logits = head(cfg, params, h[:, -1:])[:, 0]
     return logits, cache
 

@@ -12,10 +12,10 @@ also allows one bf16 ulp of each output (rtol 2**-7): its fp32 sums run in
 another order than the plain version's, which can move ``h + up`` across a
 rounding boundary where |h| > 4 and one ulp exceeds 2e-2.
 
-``rwkv_scan`` is held to its plain version relative to the largest entry of
-each output (1e-4): both sum fp32 products in their own order along a serial
-recurrence, and on the served model the outputs reach 1e3 and more, where an
-absolute tolerance says nothing.
+``rwkv_scan`` and ``mamba_scan`` are held to their plain versions relative
+to the largest entry of each output (1e-4): both sum fp32 products in their
+own order along a serial recurrence, and on the served models the outputs
+reach 1e3 and more, where an absolute tolerance says nothing.
 """
 import pytest
 
@@ -24,7 +24,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import ops  # noqa: E402
 
 ATOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 3e-2)}   # (adapter, attention)
-SCAN_RTOL = 1e-4     # rwkv_scan, of the largest entry of each output
+SCAN_RTOL = 1e-4     # rwkv_scan and mamba_scan, of the largest entry of each output
 
 
 @pytest.mark.gpu
@@ -91,3 +91,41 @@ def test_rwkv_scan_matches_plain_on_card(N, S, hd, state):
     for got_, want_ in ((out, want), (sT, wT)):
         torch.testing.assert_close(got_, want_, rtol=0,
                                    atol=SCAN_RTOL * want_.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,D,N", [(4, 330, 1600, 16), (2, 37, 256, 8), (3, 9, 40, 32),
+                                     (1, 1, 24, 4), (2, 70, 33, 16)])
+def test_mamba_scan_matches_plain_on_card(B, S, D, N):
+    """hymba-1.5b's prefill shape, the reduced size, ragged S and D, N up to 32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(S * N)
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    log_a = -torch.exp(0.5 * rnd(B, S, D, N) - 1.0)
+    b, c = 0.5 * rnd(B, S, D, N), rnd(B, S, N)
+    ops.reset_launches()
+    y, sT = ops.mamba_scan(log_a, b, c)
+    assert ops.LAUNCHES["mamba_scan"] == 1
+    want, wT = ops.mamba_scan(log_a, b, c, impl="plain")
+    for got_, want_ in ((y, want), (sT, wT)):
+        torch.testing.assert_close(got_, want_, rtol=0,
+                                   atol=SCAN_RTOL * want_.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("S,window,n_sink", [(700, 256, 128), (300, 128, 100),
+                                             (200, 64, 128), (260, 128, 0)])
+def test_flash_attention_sinks_on_card(S, window, n_sink, dtype):
+    """Sinks past the window (a whole or a part of a tile), sinks reaching
+    into the window, and no sinks, against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(S + n_sink)
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dt)
+    q, k, v = rnd(2, S, 10, 64), rnd(2, S, 2, 64), rnd(2, S, 2, 64)
+    got = ops.flash_attention(q, k, v, window=window, n_sink=n_sink)
+    want = ops.flash_attention(q, k, v, window=window, n_sink=n_sink, impl="plain")
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=ATOL[dtype][1])

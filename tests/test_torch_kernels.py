@@ -69,7 +69,8 @@ def test_adapter_fused_flattens_leading_dims_and_counts_no_cpu_launch():
     out = ops.adapter_fused(h, wd, wu)
     want = ref.adapter_fused(h.reshape(-1, 64), wd, wu).reshape(h.shape)
     torch.testing.assert_close(out, want, rtol=0, atol=0)
-    assert ops.LAUNCHES == {"adapter_fused": 0, "flash_attention": 0, "rwkv_scan": 0}
+    assert ops.LAUNCHES == {"adapter_fused": 0, "flash_attention": 0, "mamba_scan": 0,
+                            "rwkv_scan": 0}
 
 
 def _heads_first(x):

@@ -225,7 +225,7 @@ def _cache_pair(jcfg, tcfg, B, rng):
             .astype(np.float32) for name, x in jc.items()}
     jc = {name: jnp.asarray(vals[name]).astype(x.dtype) for name, x in jc.items()}
     tc = kvcache.init_cache(tcfg, B, 8, dtype=torch.bfloat16)["layers"][0]
-    tc = {name: bridge.to_tensor(np.asarray(jc[name])) for name in tc}
+    tc = {name: bridge.to_tensor(np.asarray(jc[name]), "cpu") for name in tc}
     return jc, tc
 
 
