@@ -8,9 +8,15 @@ run with a non-zero exit and no result line:
 
   1. environment: card name and power limit, torch and nvcc versions, and the
      build of every kernel from ``src/repro_torch/kernels/csrc`` (nvcc for
-     sm_90a, one process per source, all at once) with ptxas register/spill counts;
+     sm_90a, one process per source, all at once) with ptxas register/spill
+     counts per function, and how many of ``adapter_fused``'s decode clusters
+     the card holds at once (``cudaOccupancyMaxActiveClusters``);
   2. every kernel against its plain PyTorch version on the card, at the serving
-     path's shapes, with its time by CUDA events beside the plain version's;
+     path's shapes, with its time by CUDA events beside the plain version's
+     (and, for attention, SDPA's) and the kernel or path that ran; then,
+     checked but not timed, the edge cases of both redesigned
+     kernels (ragged lengths, sinks ending inside a tile, Sk > Sq, strided
+     views, every width, m, activation and dtype);
   3. qwen2.5-3b at its published width (36 layers, d_model 2048, vocab 152064
      padded), random weights from a seed with non-zero adapters, served by
      ``BatchServer`` (4 slots, 8 requests of 64-512 prompt tokens, 32 new tokens
@@ -46,6 +52,7 @@ from __future__ import annotations
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -65,7 +72,10 @@ import torch.nn.functional as F  # noqa: E402
 from torch.utils._pytree import tree_leaves, tree_map  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import adapter_fused as af  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.launch.kernel_times import cuda_ms, graph_ms  # noqa: E402
 from repro_torch.launch.serve import BatchServer, Request  # noqa: E402
 from repro_torch.models import params as prm  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
@@ -97,10 +107,11 @@ LOGIT_RMS_FRACTION = 0.5
 ATOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 3e-2)}  # (adapter, attention)
 ADAPTER_RTOL = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7}
 # hymba-1.5b's attention (hd 64, 5 query heads per KV head) gives bf16 outputs
-# above 4, where one bf16 ulp is 0.031: the plain version rounds the
+# above 4, where one bf16 ulp is 0.031: the plain version rounds the normalised
 # probabilities to bf16 before PV (as the reference's jnp does) and the kernel
-# keeps them in fp32, so the final rounding may land one ulp apart. Its bf16
-# cases also allow one bf16 ulp of each output (rtol 2**-7), as the adapter's.
+# the unnormalised exp(s - m), so the final rounding may land one ulp apart.
+# Its bf16 cases also allow one bf16 ulp of each output (rtol 2**-7), as the
+# adapter's.
 HYMBA_ATTENTION_RTOL = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7}
 # rwkv_scan and mamba_scan against their plain versions: relative to the
 # largest entry of each output. Both sum fp32 products in their own order
@@ -118,6 +129,14 @@ SOURCES = {
     "mamba_scan": ("src/repro_torch/kernels/csrc/mamba_scan.cu",
                    "src/repro/kernels/mamba_scan.py:76"),
 }
+# Each kernel's time at its record's shape, and the adapter's at decode (T = 4,
+# bf16, by D), before the present versions of adapter_fused and flash_attention:
+# copied from PERF.md section 6 (earlier chip runs, NVIDIA H100 80GB HBM3, 700 W,
+# launches issued from Python) and printed on a line of their own, never as
+# this run's numbers.
+PREVIOUS_MS = {"adapter_fused": 0.0736, "flash_attention": 0.3453, "rwkv_scan": 0.2753,
+               "mamba_scan": 0.2677, "adapter_fused_T4_D1600": 0.0356,
+               "adapter_fused_T4_D2048": 0.0572, "adapter_fused_T4_D4096": 0.0672}
 CARD = ""                        # nvidia-smi's name and power limit, beside every time
 
 
@@ -132,24 +151,12 @@ def card() -> str:
     return out[torch.cuda.current_device()] if len(out) > 1 else out[0]
 
 
-def cuda_ms(fn, iters: int = 20) -> float:
-    """Mean milliseconds of ``fn`` on the card by CUDA events, after a warm-up."""
-    for _ in range(3):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def in_turns(plain, kernel):
-    """Times of (kernel, plain), measured plain, kernel, kernel, plain."""
+    """(kernel ms on the device, kernel ms issued eagerly, plain ms issued
+    eagerly): the device time from a CUDA graph; the eager times measured
+    plain, kernel, kernel, plain."""
     p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), cuda_ms(plain)
-    return (k1 + k2) / 2, (p1 + p2) / 2
+    return graph_ms(kernel), (k1 + k2) / 2, (p1 + p2) / 2
 
 
 # ---------------------------------------------------------------- phase 1
@@ -163,13 +170,38 @@ def phase_environment() -> None:
     say("build", seconds=f"{time.perf_counter() - t0:.2f}",
         dir=os.path.relpath(build.BUILD_DIR, os.path.dirname(os.path.abspath(__file__))))
     for name, rec in build.LOG.items():
+        fn = ""
         for line in rec["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                say("ptxas", kernel=name, info=repr(line.strip().removeprefix("ptxas info    : ")))
+            if "Function properties for " in line:
+                fn = line.split("Function properties for ")[-1].strip()
+            elif "registers" in line or "spill" in line:
+                say("ptxas", kernel=name, function=_demangle(fn),
+                    info=repr(line.strip().removeprefix("ptxas info    : ")))
+    for dtype in (torch.bfloat16, torch.float32):
+        for D in (1600, 2048, 4096):
+            say("cluster_occupancy", T=4, D=D, m=64, dtype=str(dtype).removeprefix("torch."),
+                cluster=af.CLUSTER, clusters=af.cluster_occupancy(4, D, 64, dtype))
+
+
+def _demangle(name: str) -> str:
+    """A kernel's readable name, where the toolkit's c++filt is on the PATH."""
+    tool = shutil.which("c++filt") or shutil.which("cu++filt")
+    if not name or tool is None:
+        return repr(name)
+    out = subprocess.run([tool, name], capture_output=True, text=True, timeout=60).stdout
+    return repr(out.strip().replace("(anonymous namespace)::", "").split("(")[0])
 
 
 # ---------------------------------------------------------------- phase 2
+def adapter_path(T, D, m, dtype) -> str:
+    """Which kernel the launcher runs: the decode path's cluster, or the tile path."""
+    cluster = af.cluster_size(T, D, m, dtype)
+    return f"cluster{cluster}" if cluster else (
+        "tile_staged" if af.plan(D, m, dtype)[0] else "tile_rows")
+
+
 def adapter_case(T, dtype, act, gen, record=None, D=2048):
+    """Returns the kernel's ms."""
     m = 64
     h = torch.randn(T, D, generator=gen, device="cuda").to(dtype)
     wd = (0.05 * torch.randn(D, m, generator=gen, device="cuda")).to(dtype)
@@ -181,8 +213,9 @@ def adapter_case(T, dtype, act, gen, record=None, D=2048):
     err = diff.max().item()
     tol = ATOL[dtype][0]
     excess = (diff - tol - ADAPTER_RTOL[dtype] * want.float().abs()).max().item()
-    ms, plain_ms = in_turns(lambda: ops.adapter_fused(h, wd, wu, activation=act, impl="plain"),
-                            lambda: ops.adapter_fused(h, wd, wu, activation=act))
+    ms, eager_ms, plain_ms = in_turns(
+        lambda: ops.adapter_fused(h, wd, wu, activation=act, impl="plain"),
+        lambda: ops.adapter_fused(h, wd, wu, activation=act))
     size = h.element_size()
     nbytes = 2 * T * D * size + 2 * D * m * wd.element_size()
     # down-projection on h's type; the up-projection has an fp32 left operand
@@ -191,16 +224,19 @@ def adapter_case(T, dtype, act, gen, record=None, D=2048):
     t_bytes = nbytes / HBM_BYTES_PER_S
     bound_ms = 1e3 * max(t_ops, t_bytes)
     dt = str(dtype).removeprefix("torch.")
-    say("adapter_fused", T=T, D=D, m=m, dtype=dt, act=act, max_abs_err=f"{err:.3g}",
-        atol=tol, rtol=ADAPTER_RTOL[dtype], ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-        bound_ms=f"{bound_ms:.5f}", card=repr(CARD))
+    say("adapter_fused", T=T, D=D, m=m, dtype=dt, act=act, path=adapter_path(T, D, m, dtype),
+        max_abs_err=f"{err:.3g}", atol=tol, rtol=ADAPTER_RTOL[dtype], ms=f"{ms:.4f}",
+        eager_ms=f"{eager_ms:.4f}", plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.5f}",
+        card=repr(CARD))
     if not excess <= 0:
         raise AssertionError(f"adapter_fused disagrees with its plain version: max error "
                              f"{err}, {excess} beyond atol {tol} + rtol {ADAPTER_RTOL[dtype]}")
     if record is not None:
-        record.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                      bound_by="operations" if t_ops > t_bytes else "bytes",
-                      library_ms=None, shape=f"h[{T},{D}] m={m} {act} {dt}")
+        record.update(max_abs_err=err, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                      bound_ms=bound_ms, bound_by="operations" if t_ops > t_bytes else "bytes",
+                      library_ms=None, shape=f"h[{T},{D}] m={m} {act} {dt}",
+                      path=adapter_path(T, D, m, dtype))
+    return ms
 
 
 def rwkv_case(N, S, hd, gen, state=False, record=None):
@@ -215,8 +251,8 @@ def rwkv_case(N, S, hd, gen, state=False, record=None):
     want, wT = ops.rwkv_scan(r, k, v, lw, u, s0, impl="plain")
     torch.cuda.synchronize()
     errs = [(a - b).abs().max().item() / b.abs().max().item() for a, b in ((out, want), (sT, wT))]
-    ms, plain_ms = in_turns(lambda: ops.rwkv_scan(r, k, v, lw, u, s0, impl="plain"),
-                            lambda: ops.rwkv_scan(r, k, v, lw, u, s0))
+    ms, eager_ms, plain_ms = in_turns(lambda: ops.rwkv_scan(r, k, v, lw, u, s0, impl="plain"),
+                                      lambda: ops.rwkv_scan(r, k, v, lw, u, s0))
     # each input read once, each output written once; the recurrence's 5 hd^2
     # fp32 flops per step (r.S, and the decayed rank-one state update)
     nbytes = 4 * (5 * N * S * hd + N * hd + 2 * N * hd * hd)
@@ -226,16 +262,16 @@ def rwkv_case(N, S, hd, gen, state=False, record=None):
     say("rwkv_scan", N=N, S=S, hd=hd, state0="random" if state else "zero",
         rel_err_out=f"{errs[0]:.3g}", rel_err_state=f"{errs[1]:.3g}", rtol=SCAN_RTOL,
         max_abs_out=f"{want.abs().max().item():.4g}", ms=f"{ms:.4f}",
-        plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.5f}", mbytes=f"{nbytes / 1e6:.1f}",
-        card=repr(CARD))
+        eager_ms=f"{eager_ms:.4f}", plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.5f}",
+        mbytes=f"{nbytes / 1e6:.1f}", card=repr(CARD))
     if not max(errs) <= SCAN_RTOL:
         raise AssertionError(f"rwkv_scan disagrees with its plain version: {errs} of the "
                              f"largest entries (rtol {SCAN_RTOL})")
     if record is not None:
         record.update(max_abs_err=max((out - want).abs().max().item(),
                                       (sT - wT).abs().max().item()),
-                      max_rel_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                      bound_by="operations" if t_ops > t_bytes else "bytes",
+                      max_rel_err=max(errs), ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                      bound_ms=bound_ms, bound_by="operations" if t_ops > t_bytes else "bytes",
                       library_ms=None, shape=f"r/k/v/lw[{N},{S},{hd}] f32")
 
 
@@ -257,8 +293,8 @@ def attention_case(S, window, dtype, gen, record=None, heads=(16, 2, 128), n_sin
     err = diff.max().item()
     tol, rtol = ATOL[dtype][1], rtol or 0.0
     excess = (diff - tol - rtol * want.float().abs()).max().item()
-    ms, plain_ms = in_turns(lambda: ops.flash_attention(q, k, v, impl="plain", **kw),
-                            lambda: ops.flash_attention(q, k, v, **kw))
+    ms, eager_ms, plain_ms = in_turns(lambda: ops.flash_attention(q, k, v, impl="plain", **kw),
+                                      lambda: ops.flash_attention(q, k, v, **kw))
     i = torch.arange(S, device="cuda")
     seen = i[None, :] <= i[:, None]                   # the (query, key) pairs the mask keeps
     if window is not None:
@@ -272,26 +308,71 @@ def attention_case(S, window, dtype, gen, record=None, heads=(16, 2, 128), n_sin
         sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=seen,
                                                       enable_gqa=True)
     lib_err = (sdpa().transpose(1, 2).float() - want.float()).abs().max().item()
-    library_ms = cuda_ms(sdpa)
+    library_ms, library_eager_ms = graph_ms(sdpa), cuda_ms(sdpa)
     pairs = int(seen.sum())
     t_ops = 4 * B * H * hd * pairs / (BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
     t_bytes = 2 * (q.numel() + k.numel()) * q.element_size() / HBM_BYTES_PER_S
     bound_ms = 1e3 * max(t_ops, t_bytes)
     dt = str(dtype).removeprefix("torch.")
     say("flash_attention", B=B, H=H, K=K, hd=hd, S=S, window=window, n_sink=n_sink,
-        dtype=dt, max_abs_err=f"{err:.3g}", tol=tol, rtol=rtol, ms=f"{ms:.4f}",
-        plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
-        bound_ms=f"{bound_ms:.5f}", library_err=f"{lib_err:.3g}", card=repr(CARD))
+        dtype=dt, kernel=fa.kernel_for(q, k, v), max_abs_err=f"{err:.3g}", tol=tol, rtol=rtol,
+        ms=f"{ms:.4f}", library_ms=f"{library_ms:.4f}", ms_per_library_ms=f"{ms / library_ms:.3f}",
+        eager_ms=f"{eager_ms:.4f}", library_eager_ms=f"{library_eager_ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.5f}",
+        library_err=f"{lib_err:.3g}", card=repr(CARD))
     if not excess <= 0:
         raise AssertionError(f"flash_attention disagrees with its plain version: max error "
                              f"{err}, {excess} beyond atol {tol} + rtol {rtol}")
     if record is not None:
-        record.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                      bound_by="operations" if t_ops > t_bytes else "bytes",
-                      library_ms=library_ms,
+        record.update(max_abs_err=err, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                      bound_ms=bound_ms, bound_by="operations" if t_ops > t_bytes else "bytes",
+                      library_ms=library_ms, library_eager_ms=library_eager_ms,
                       shape=f"q[{B},{S},{H},{hd}] kv[{B},{S},{K},{hd}] causal {dt}"
-                            + (f" window {window} n_sink {n_sink}" if n_sink else ""))
+                            + (f" window {window} n_sink {n_sink}" if n_sink else ""),
+                      kernel=fa.kernel_for(q, k, v))
     return ms
+
+
+def edge_cases(gen) -> None:
+    """Correctness only, no timing: the bf16 attention kernel at lengths around
+    a tile, sinks ending inside a tile, Sk > Sq and q, k, v as strided views of
+    a fused [B, S, 3, H, hd] tensor, at both GQA groups; the adapter at decode
+    and tile row counts, every width, m, activation and dtype. One line each
+    with the case count and the largest error beyond the tolerance (<= 0)."""
+    worst, n = -1.0, 0
+    for H, K, hd in ((16, 2, 128), (25, 5, 64)):
+        for Sq, Sk, window, n_sink in [(S, S, None, 0) for S in (1, 7, 63, 65, 130, 573)] + [
+                (65, 65, 128, 0), (573, 573, 128, 0), (130, 130, 128, 100),
+                (573, 573, 128, 100), (37, 100, None, 0), (65, 200, 128, 0),
+                (7, 300, 128, 100)]:
+            qkv = torch.randn(2, Sk, 3, H, hd, generator=gen, device="cuda").to(torch.bfloat16)
+            q, k, v = qkv[:, Sk - Sq:, 0], qkv[:, :, 1, :K], qkv[:, :, 2, :K]
+            kw = dict(window=window, n_sink=n_sink)
+            got = ops.flash_attention(q, k, v, **kw).float()
+            want = ops.flash_attention(q, k, v, impl="plain", **kw).float()
+            worst = max(worst, ((got - want).abs() - ATOL[torch.bfloat16][1]).max().item())
+            n += 1
+    say("flash_attention_edges", cases=n, dtype="bfloat16", worst_excess=f"{worst:.3g}")
+    if not worst <= 0:
+        raise AssertionError(f"flash_attention edge case beyond tolerance by {worst}")
+    worst, n = -1.0, 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for D in (256, 1600, 2048, 4096, 4608):
+            for m in (16, 48, 64):
+                wd = (0.05 * torch.randn(D, m, generator=gen, device="cuda")).to(dtype)
+                wu = (0.05 * torch.randn(m, D, generator=gen, device="cuda")).to(dtype)
+                for T in (1, 3, 4, 16, 17):
+                    h = torch.randn(T, D, generator=gen, device="cuda").to(dtype)
+                    for act in ("gelu", "relu", "silu"):
+                        got = ops.adapter_fused(h, wd, wu, activation=act).float()
+                        want = ops.adapter_fused(h, wd, wu, activation=act, impl="plain").float()
+                        excess = ((got - want).abs() - ATOL[dtype][0]
+                                  - ADAPTER_RTOL[dtype] * want.abs()).max().item()
+                        worst = max(worst, excess)
+                        n += 1
+    say("adapter_fused_edges", cases=n, worst_excess=f"{worst:.3g}")
+    if not worst <= 0:
+        raise AssertionError(f"adapter_fused edge case beyond tolerance by {worst}")
 
 
 def mamba_case(B, S, D, N, gen, record=None):
@@ -307,8 +388,8 @@ def mamba_case(B, S, D, N, gen, record=None):
     want, wT = ops.mamba_scan(log_a, b, c, impl="plain")
     torch.cuda.synchronize()
     errs = [(a - w).abs().max().item() / w.abs().max().item() for a, w in ((y, want), (sT, wT))]
-    ms, plain_ms = in_turns(lambda: ops.mamba_scan(log_a, b, c, impl="plain"),
-                            lambda: ops.mamba_scan(log_a, b, c))
+    ms, eager_ms, plain_ms = in_turns(lambda: ops.mamba_scan(log_a, b, c, impl="plain"),
+                                      lambda: ops.mamba_scan(log_a, b, c))
     # log_a and b read once, c read once, y and the state written once; about
     # four fp32 flops per (b, t, d, n): exp, the fma, the product with c, one add
     nbytes = 4 * (2 * B * S * D * N + B * S * N + B * S * D + B * D * N)
@@ -318,23 +399,24 @@ def mamba_case(B, S, D, N, gen, record=None):
     say("mamba_scan", B=B, S=S, D=D, N=N, rel_err_y=f"{errs[0]:.3g}",
         rel_err_state=f"{errs[1]:.3g}", rtol=SCAN_RTOL,
         max_abs_y=f"{want.abs().max().item():.4g}", ms=f"{ms:.4f}",
-        plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.5f}", mbytes=f"{nbytes / 1e6:.1f}",
-        card=repr(CARD))
+        eager_ms=f"{eager_ms:.4f}", plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.5f}",
+        mbytes=f"{nbytes / 1e6:.1f}", card=repr(CARD))
     if not max(errs) <= SCAN_RTOL:
         raise AssertionError(f"mamba_scan disagrees with its plain version: {errs} of the "
                              f"largest entries (rtol {SCAN_RTOL})")
     if record is not None:
         record.update(max_abs_err=max((y - want).abs().max().item(),
                                       (sT - wT).abs().max().item()),
-                      max_rel_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                      bound_by="operations" if t_ops > t_bytes else "bytes",
+                      max_rel_err=max(errs), ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                      bound_ms=bound_ms, bound_by="operations" if t_ops > t_bytes else "bytes",
                       library_ms=None, shape=f"log_a/b[{B},{S},{D},{N}] f32")
 
 
 def phase_kernels(records) -> None:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     bf16, f32 = torch.bfloat16, torch.float32
-    adapter_case(4, bf16, "gelu", gen)                     # decode: T = batch
+    decode = {}
+    decode[2048] = adapter_case(4, bf16, "gelu", gen)      # decode: T = batch
     adapter_case(2048, bf16, "gelu", gen, records["adapter_fused"])   # prefill 4 x 512
     adapter_case(2048, bf16, "relu", gen)
     adapter_case(2048, bf16, "silu", gen)
@@ -346,7 +428,9 @@ def phase_kernels(records) -> None:
     # rwkv6-7b's width: the f32 h tile does not fit in shared memory
     for T in (4, 2048):
         for dtype in (bf16, f32):
-            adapter_case(T, dtype, "gelu", gen, D=4096)
+            ms = adapter_case(T, dtype, "gelu", gen, D=4096)
+            if (T, dtype) == (4, bf16):
+                decode[4096] = ms
     # rwkv6-7b prefill: N = 4 rows x 64 heads, the served prompt lengths
     rwkv_case(256, 512, 64, gen, record=records["rwkv_scan"])
     rwkv_case(256, 445, 64, gen)
@@ -355,7 +439,7 @@ def phase_kernels(records) -> None:
     # hymba-1.5b: the adapter at D = 1600 (decode; prefill 4 x 573), the scan at
     # trace_serve's prefill (128 meta + 512) and the served batches, and
     # attention with 128 sinks where they matter (S 2048, window 1024)
-    adapter_case(4, bf16, "gelu", gen, D=1600)
+    decode[1600] = adapter_case(4, bf16, "gelu", gen, D=1600)
     adapter_case(2292, bf16, "gelu", gen, D=1600)
     adapter_case(2292, f32, "gelu", gen, D=1600)
     mamba_case(4, 640, 1600, 16, gen, record=records["mamba_scan"])
@@ -372,6 +456,10 @@ def phase_kernels(records) -> None:
         attention_case(573, 1024, dtype, gen, n_sink=128, **hymba)     # served prefill
         attention_case(300, 128, dtype, gen, n_sink=100, **hymba)      # sinks in a part tile
     records["flash_attention"]["sinks_S2048_w1024_n128"] = sinks
+    records["adapter_fused"]["decode_T4_bf16"] = {
+        f"D{D}": {"ms": ms, "path": adapter_path(4, D, 64, bf16)}
+        for D, ms in sorted(decode.items())}
+    edge_cases(gen)
 
 
 # ---------------------------------------------------------------- phases 3 and 4
@@ -537,6 +625,8 @@ def main() -> None:
     phase_environment()
     records = {name: {"name": name, "route": "cuda", "source": src, "replaces": rep}
                for name, (src, rep) in SOURCES.items()}
+    say("previous", source="PERF.md section 6", timer="eager",
+        **{f"{name}_ms": ms for name, ms in PREVIOUS_MS.items()})
     phase_kernels(records)
     phase_serve("qwen2.5-3b", records, cpu_witness=True)
     gc.collect()                                        # free qwen2.5-3b before rwkv6-7b

@@ -1,5 +1,6 @@
 // Flash attention forward: causal (end-aligned), optional sliding window with
-// attention sinks, GQA.
+// attention sinks, GQA. Two kernels: bf16 on the tensor cores, f32 on the
+// CUDA cores.
 //
 // Replaces: the Pallas TPU kernel src/repro/kernels/flash_attention.py
 //           (flash_attention / _kernel, pallas_call at line 86). In the port it
@@ -12,45 +13,64 @@
 // 2 * 2 * Sq * Sk * hd flops per head (halved by the causal mask) against
 // (q + k + v + o) bytes read or written once; at S = 512, hd = 128 that is
 // far above the ~295 flops per byte where the bf16 tensor cores become the
-// limit. This first version runs its products on the fp32 CUDA cores
-// (67 TFLOP/s peak), so it meets that rate long before the memory's.
+// limit.
 //
-// What the design does about it: one block per (query tile of 64 rows, query
-// head, batch row). The block keeps its Q tile, one K tile, one V tile and the
-// probability tile in shared memory as fp32 and the running max m, sum l and
-// output accumulator acc in registers (fp32, as the Pallas kernel keeps them in
-// VMEM), so scores never reach device memory and K/V are read once per query
-// tile. Unlike the Pallas kernel, the k-loop is bounded at the causal diagonal
-// and at the window's far edge, so fully masked tiles are never visited; with
-// sinks it first visits the tiles that hold keys [0, n_sink) and then jumps to
-// the window's first tile, never visiting a tile twice. Sinks are a template
-// parameter, so a call without them pays nothing for them. Any S
-// works: ragged tiles are zero-filled and masked. GQA reads KV head h / group
-// through strides; q, k, v and o are read in the model's [B, S, H, hd] layout
-// (any strides with a unit last stride), so no repeated K/V is built.
-// Tensor-core products (mma / wgmma) and TMA pipelining are later work.
+// Shared by both kernels: one block per (query tile, query head, batch row).
+// The running max m, sum l and the output accumulator stay fp32 in
+// registers (as the Pallas kernel keeps them in VMEM), so scores never reach
+// device memory and K/V are read once per query tile. Unlike the Pallas
+// kernel, the k-loop is bounded at the causal diagonal and at the window's far
+// edge, so fully masked tiles are never visited; with sinks it first visits the
+// tiles that hold keys [0, n_sink) and then jumps to the window's first tile,
+// never visiting a tile twice. Sinks are a template parameter, so a call
+// without them pays nothing for them. Any S works: ragged tiles are
+// zero-filled and masked. GQA reads KV head h / group through strides; q, k, v
+// and o are read in the model's [B, S, H, hd] layout (any strides with a unit
+// last stride), so no repeated K/V is built.
+//
+// bf16 (flash_attention_tc_kernel), FlashAttention-2 style on mma.sync
+// m16n8k16: four warps own MT 16-row m-tiles of queries each (MT = 2 at hd
+// 128, so each K/V fragment feeds two products; 1 at hd 64). Q is loaded once
+// (into registers as A fragments where they fit, else read by ldmatrix at
+// each k-step). K/V tiles of 64 keys stream into shared memory with cp.async,
+// double-buffered: the next tile (after the same sink jump) is in flight while
+// the current one is used, and the wait for V comes after S = QK^T, in an
+// XOR-swizzled layout so that ldmatrix has no bank conflicts. S accumulates in
+// fp32 registers; the masks run only on m-tiles that the tile cuts (the
+// diagonal, the window edge, the sinks, the ragged end). The softmax reduces
+// across the 4 lanes that share a row and exponentiates on the SFU (ex2). The
+// m16n8 accumulator layout is the m16n8k16 A layout, so P goes to bf16
+// straight from the S registers (the unnormalised exp(s - m), where the plain
+// version rounds the normalised probabilities) and never touches shared
+// memory; V is the B operand through ldmatrix.trans. The output goes through
+// the warp's own rows of the Q tile to 16-byte stores. Blocks start longest
+// first: the grid's slowest index is the query tile, last rows first, so the
+// causal tail is a short tile. hd 64 and 128; q, k, v need 16-byte aligned
+// rows (the launcher checks). wgmma and TMA (the rest of the way to SDPA's
+// time at hd 128) are later work.
+//
+// f32 (flash_attention_kernel): the first port's scalar kernel, unchanged: it
+// keeps its tiles in shared memory as fp32 and forms both products with fp32
+// FMAs, exactly (TF32 would not hold the f32 tolerance of 1e-5).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cmath>
+#include <cstdint>
 
 namespace {
 
 constexpr int BQ = 64;         // query rows per block
 constexpr int BK = 64;         // keys per tile
-constexpr int THREADS = 128;   // 16 row groups of 4 rows x 8 column lanes
+constexpr int THREADS = 128;   // scalar: 16 row groups of 4 rows x 8 column lanes;
+                               // tensor cores: 4 warps of 16 rows
 constexpr float NEG_INF = -1e30f;
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 struct Strides {
   long long b, s, h;  // in elements; the head dim has stride 1
@@ -199,37 +219,438 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int Sq,
-           int Sk, int group, Strides sq, Strides sk, Strides sv, Strides so, int causal,
-           int window, int n_sink, cudaStream_t stream) {
+// ---------------------------------------------------------------- bf16, tensor cores
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory; src_bytes 0 fills zeros (ragged rows)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// c += a b: a 16x16 bf16 (row), b 16x8 bf16 (col), c 16x8 fp32
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x on the SFU (flushes subnormal results to 0: they add nothing to a sum
+// that contains the row's largest term, 1)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// element offset of 16-byte chunk `c` of row `r` in a [rows][HD] bf16 tile:
+// the chunk index is XORed with the row's low 3 bits, so the 8 rows one
+// ldmatrix phase reads lie in 8 different bank groups
+template <int HD> __device__ __forceinline__ int swz(int r, int c) {
+  return r * HD + ((c ^ (r & 7)) << 3);
+}
+
+// rows [row0, row0 + 64) of a [S, hd] slice (row stride `ld`) into a swizzled
+// tile; rows at or past n_valid are zero-filled
+template <int HD>
+__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                                long long ld, int row0, int n_valid) {
+  constexpr int CH = HD / 8;
+  for (int i = threadIdx.x; i < BK * CH; i += THREADS) {
+    const int r = i / CH;
+    const int c = i - r * CH;
+    const bool ok = row0 + r < n_valid;
+    const __nv_bfloat16* g = src + (ok ? row0 + r : 0) * ld + c * 8;
+    cp_async16(smem_u32(dst + swz<HD>(r, c)), g, ok ? 16 : 0);
+  }
+}
+
+// MT: 16-row m-tiles per warp. The block holds 64 * MT query rows; warp w
+// owns rows 16w + 64i (i < MT), so every K/V fragment read from shared memory
+// feeds MT products, and each warp has an early and a late m-tile on the
+// causal diagonal. With MT * HD <= 128 the Q fragments stay in registers,
+// else they are read from the Q tile at every k-step.
+template <int HD, int MT, bool SINKS>
+__global__ void __launch_bounds__(THREADS)
+flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                          int Sq, int Sk, int group, Strides sq, Strides sk, Strides sv,
+                          Strides so, float scale, int causal, int window, int n_sink) {
+  static_assert(BK == 64 && THREADS == 128, "4 warps of 16-row m-tiles, 64-key tiles");
+  constexpr int BQT = 64 * MT;       // query rows per block
+  constexpr int KS = HD / 16;        // k-steps of QK^T
+  constexpr int ND = HD / 8;         // 8-wide column blocks of O
+  constexpr int TILE = BK * HD;
+  constexpr bool QREG = MT * HD <= 128;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BQT][HD]
+  __nv_bfloat16* ks = qs + BQT * HD;                                // [2][BK][HD]
+  __nv_bfloat16* vs = ks + 2 * TILE;                                // [2][BK][HD]
+
+  // blocks start in the order of their linear index: every head's and row's
+  // tile of the last (longest causal) query rows first, then the next
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQT;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int kvh = h / group;
+  const __nv_bfloat16* qp = q + b * sq.b + h * sq.h;
+  const __nv_bfloat16* kp = k + b * sk.b + kvh * sk.h;
+  const __nv_bfloat16* vp = v + b * sv.b + kvh * sv.h;
+  __nv_bfloat16* op = o + b * so.b + h * so.h;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;        // accumulator rows g and g + 8 of an m-tile
+  const int t = lane % 4;        // accumulator columns 2t, 2t + 1 of each 8
+  const int off = Sk - Sq;       // align the last query with the last key
+
+  // keys that any row of this tile may see (as the scalar kernel)
+  const int last_q = min(q0 + BQT, Sq) - 1;
+  int k_end = Sk;
+  if (causal) k_end = min(Sk, last_q + off + 1);
+  int k_begin = 0;
+  if (window > 0) k_begin = max(0, q0 + off - window + 1);
+  k_begin = (k_begin / BK) * BK;
+  const int sink_end = SINKS ? ((n_sink + BK - 1) / BK) * BK : 0;
+  auto next = [&](int k0) {
+    return SINKS && k0 + BK >= sink_end && k0 + BK < k_begin ? k_begin : k0 + BK;
+  };
+  const int first = SINKS ? 0 : k_begin;
+
+  // cp.async groups in order: Q, K0, V0, then K and V of each next tile
+#pragma unroll
+  for (int i = 0; i < MT; ++i) load_tile_async<HD>(qs + i * TILE, qp, sq.s, q0 + 64 * i, Sq);
+  cp_async_commit();
+  if (first < k_end) load_tile_async<HD>(ks, kp, sk.s, first, Sk);
+  cp_async_commit();
+  if (first < k_end) load_tile_async<HD>(vs, vp, sv.s, first, Sk);
+  cp_async_commit();
+  cp_async_wait<2>();  // the Q tile
+  __syncthreads();
+
+  // the warp's m-tile i holds tile rows rowt[i] .. rowt[i] + 15
+  int rowt[MT];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) rowt[i] = 64 * i + 16 * warp;
+  uint32_t qf[QREG ? MT : 1][QREG ? KS : 1][4];
+  if constexpr (QREG) {
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        ldmatrix_x4(qf[i][kk], smem_u32(qs + swz<HD>(rowt[i] + lane % 16, 2 * kk + lane / 16)));
+  }
+
+  float acc[MT][ND][4];
+  float m_r[MT][2], l_r[MT][2];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.0f;
+    m_r[i][0] = m_r[i][1] = -INFINITY;
+    l_r[i][0] = l_r[i][1] = 0.0f;
+  }
+
+  int buf = 0;
+  for (int k0 = first; k0 < k_end;) {
+    cp_async_wait<1>();  // this tile's K
+    __syncthreads();     // ... for every thread; and the other buffer is no longer read
+    const int kn = next(k0);
+    if (kn < k_end) load_tile_async<HD>(ks + (buf ^ 1) * TILE, kp, sk.s, kn, Sk);
+    cp_async_commit();
+    if (kn < k_end) load_tile_async<HD>(vs + (buf ^ 1) * TILE, vp, sv.s, kn, Sk);
+    cp_async_commit();
+    const __nv_bfloat16* kb = ks + buf * TILE;
+    const __nv_bfloat16* vb = vs + buf * TILE;
+
+    // the m-tiles that this tile cuts (an m-tile that sees none of its keys
+    // is all masked: its max, sum and accumulator stay as they were)
+    bool masked[MT];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const int lo = q0 + rowt[i] + off;  // positions of the m-tile's rows
+      masked[i] = k0 + BK > Sk || (causal && k0 + BK - 1 > lo) ||
+                  (window > 0 && lo + 15 - k0 >= window);
+    }
+
+    // S = Q K^T: per m-tile 16 x 64, 8 column blocks of 8 keys
+    float s[MT][8][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[i][n][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t qk[MT][4];
+      if constexpr (!QREG) {
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+          ldmatrix_x4(qk[i], smem_u32(qs + swz<HD>(rowt[i] + lane % 16, 2 * kk + lane / 16)));
+      }
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t kf[4];
+        ldmatrix_x4(kf, smem_u32(kb + swz<HD>(np * 16 + lane % 8 + (lane / 16) * 8,
+                                              2 * kk + (lane / 8) % 2)));
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          const uint32_t(&a)[4] = QREG ? qf[QREG ? i : 0][QREG ? kk : 0] : qk[i];
+          mma_bf16(s[i][2 * np], a, kf[0], kf[1]);
+          mma_bf16(s[i][2 * np + 1], a, kf[2], kf[3]);
+        }
+      }
+    }
+
+    // online softmax, per m-tile
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[i][n][e] *= scale;
+      if (masked[i]) {
+        const int qrow = q0 + rowt[i] + g + off;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kj = k0 + 8 * n + 2 * t + (e & 1);
+            const int qpos = qrow + 8 * (e >> 1);
+            const bool ok = kj < Sk && (!causal || kj <= qpos) &&
+                            (window <= 0 || qpos - kj < window || (SINKS && kj < n_sink));
+            if (!ok) s[i][n][e] = -INFINITY;
+          }
+        }
+      }
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[i][n][0], s[i][n][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[i][n][2], s[i][n][3]));
+      }
+      float base[2], alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        // the 4 lanes of a row are adjacent lanes of the warp
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m_r[i][r], mx[r]);
+        // a row that has seen no key yet keeps p = 0 and never forms inf - inf
+        base[r] = m_new == -INFINITY ? 0.0f : m_new * LOG2E;
+        alpha[r] = fast_exp2(fmaf(m_r[i][r], LOG2E, -base[r]));
+        m_r[i][r] = m_new;
+      }
+      float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = fast_exp2(fmaf(s[i][n][e], LOG2E, -base[e >> 1]));
+          s[i][n][e] = p;
+          sum[e >> 1] += p;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+        l_r[i][r] = alpha[r] * l_r[i][r] + sum[r];
+      }
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        acc[i][n][0] *= alpha[0];
+        acc[i][n][1] *= alpha[0];
+        acc[i][n][2] *= alpha[1];
+        acc[i][n][3] *= alpha[1];
+      }
+    }
+
+    cp_async_wait<2>();  // this tile's V
+    __syncthreads();
+
+    // O += P V: P (bf16) from the S registers, V through ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t pf[MT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        pf[i][0] = pack_bf16(s[i][2 * kk][0], s[i][2 * kk][1]);
+        pf[i][1] = pack_bf16(s[i][2 * kk][2], s[i][2 * kk][3]);
+        pf[i][2] = pack_bf16(s[i][2 * kk + 1][0], s[i][2 * kk + 1][1]);
+        pf[i][3] = pack_bf16(s[i][2 * kk + 1][2], s[i][2 * kk + 1][3]);
+      }
+#pragma unroll
+      for (int dp = 0; dp < HD / 16; ++dp) {
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, smem_u32(vb + swz<HD>(16 * kk + lane % 8 + ((lane / 8) % 2) * 8,
+                                                    2 * dp + lane / 16)));
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          mma_bf16(acc[i][2 * dp], pf[i], vf[0], vf[1]);
+          mma_bf16(acc[i][2 * dp + 1], pf[i], vf[2], vf[3]);
+        }
+      }
+    }
+    buf ^= 1;
+    k0 = kn;
+  }
+
+  // normalise (rows that saw no key give 0) and store through the warp's own
+  // rows of the Q tile, which no other warp reads
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) inv[r] = l_r[i][r] > 0.0f ? 1.0f / l_r[i][r] : 0.0f;
+    const int r0 = rowt[i] + g;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      *reinterpret_cast<uint32_t*>(qs + swz<HD>(r0, n) + 2 * t) =
+          pack_bf16(acc[i][n][0] * inv[0], acc[i][n][1] * inv[0]);
+      *reinterpret_cast<uint32_t*>(qs + swz<HD>(r0 + 8, n) + 2 * t) =
+          pack_bf16(acc[i][n][2] * inv[1], acc[i][n][3] * inv[1]);
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int j = lane; j < 16 * ND; j += 32) {
+      const int r = j / ND;
+      const int c = j - r * ND;
+      const int qi = q0 + rowt[i] + r;
+      if (qi < Sq)
+        *reinterpret_cast<uint4*>(op + qi * so.s + c * 8) =
+            *reinterpret_cast<const uint4*>(qs + swz<HD>(rowt[i] + r, c));
+    }
+  }
+}
+
+// ---------------------------------------------------------------- launchers
+
+// Raises a kernel's dynamic shared-memory limit once per device; `done` is the
+// calling instantiation's bit set of devices already raised.
+template <typename K>
+cudaError_t smem_limit_once(std::atomic<unsigned long long>& done, K kernel, int bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (bit && (done.load(std::memory_order_acquire) & bit)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
+}
+
+// the reference's scale: 1 / sqrt(hd) in double, rounded once to fp32
+template <int HD> float softmax_scale() {
+  return static_cast<float>(1.0 / sqrt(static_cast<double>(HD)));
+}
+
+template <int HD, bool SINKS>
+int launch_scalar(const void* q, const void* k, const void* v, void* o, int B, int H, int Sq,
+                  int Sk, int group, Strides sq, Strides sk, Strides sv, Strides so,
+                  int causal, int window, int n_sink, cudaStream_t stream) {
   constexpr int LD = HD + 1;
-  const size_t smem = sizeof(float) * ((BQ + 2 * BK) * LD + BQ * (BK + 1));
-  auto kernel = window > 0 && n_sink > 0 ? flash_attention_kernel<T, HD, true>
-                                         : flash_attention_kernel<T, HD, false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  constexpr int smem = sizeof(float) * ((BQ + 2 * BK) * LD + BQ * (BK + 1));
+  auto kernel = flash_attention_kernel<float, HD, SINKS>;
+  static std::atomic<unsigned long long> done{0};
+  cudaError_t err = smem_limit_once(done, kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  // the reference's scale: 1 / sqrt(hd) in double, rounded once to fp32
-  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(HD)));
   kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Sk, group, sq, sk, sv, so, scale, causal, window, n_sink);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, group, sq, sk, sv, so,
+      softmax_scale<HD>(), causal, window, n_sink);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_hd(int hd, const void* q, const void* k, const void* v, void* o, int B, int H,
-              int Sq, int Sk, int group, Strides sq, Strides sk, Strides sv, Strides so,
-              int causal, int window, int n_sink, cudaStream_t s) {
+template <int HD, int MT, bool SINKS>
+int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int H, int Sq,
+              int Sk, int group, Strides sq, Strides sk, Strides sv, Strides so, int causal,
+              int window, int n_sink, cudaStream_t stream) {
+  constexpr int smem = sizeof(__nv_bfloat16) * (64 * MT + 4 * BK) * HD;
+  auto kernel = flash_attention_tc_kernel<HD, MT, SINKS>;
+  static std::atomic<unsigned long long> done{0};
+  cudaError_t err = smem_limit_once(done, kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(H, B, (Sq + 64 * MT - 1) / (64 * MT));
+  kernel<<<grid, THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq, Sk, group, sq,
+      sk, sv, so, softmax_scale<HD>(), causal, window, n_sink);
+  return static_cast<int>(cudaGetLastError());
+}
+
+using Launch = int (*)(const void*, const void*, const void*, void*, int, int, int, int, int,
+                       Strides, Strides, Strides, Strides, int, int, int, cudaStream_t);
+
+// the instantiation for (hd, sinks) of a launcher family. The tensor-core
+// kernel runs 2 m-tiles per warp at hd 128 (each K/V fragment feeds two
+// products; 246-255 registers) and 1 at hd 64, where two made the served
+// hymba prefill slower (more registers, fewer blocks per SM).
+template <bool TC>
+Launch pick(int hd, bool sinks) {
   if (hd == 64)
-    return launch<T, 64>(q, k, v, o, B, H, Sq, Sk, group, sq, sk, sv, so, causal, window,
-                         n_sink, s);
+    return TC ? (sinks ? &launch_tc<64, 1, true> : &launch_tc<64, 1, false>)
+              : (sinks ? &launch_scalar<64, true> : &launch_scalar<64, false>);
   if (hd == 128)
-    return launch<T, 128>(q, k, v, o, B, H, Sq, Sk, group, sq, sk, sv, so, causal, window,
-                          n_sink, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+    return TC ? (sinks ? &launch_tc<128, 2, true> : &launch_tc<128, 2, false>)
+              : (sinks ? &launch_scalar<128, true> : &launch_scalar<128, false>);
+  return nullptr;
+}
+
+template <bool TC>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int K, int Sq,
+           int Sk, int hd, long long qb, long long qs, long long qh, long long kb,
+           long long ks, long long kh, long long vb, long long vs, long long vh,
+           long long ob, long long os, long long oh, int causal, int window, int n_sink,
+           void* stream) {
+  if (B <= 0 || Sq <= 0) return 0;
+  if (K <= 0 || H % K != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Launch fn = pick<TC>(hd, window > 0 && n_sink > 0);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return fn(q, k, v, o, B, H, Sq, Sk, H / K, Strides{qb, qs, qh}, Strides{kb, ks, kh},
+            Strides{vb, vs, vh}, Strides{ob, os, oh}, causal, window, n_sink,
+            static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -238,24 +659,31 @@ extern "C" {
 
 // q [B, Sq, H, hd], k and v [B, Sk, K, hd], o [B, Sq, H, hd] with H = K * group,
 // given by pointers and (batch, seq, head) strides in elements; hd is 64 or 128
-// with unit stride. is_bf16: 1 = bfloat16, 0 = float32 (all four alike).
-// window <= 0 means no window; with a window, keys below n_sink (>= 0) are seen
-// by every query the causal mask lets see them. Returns the cudaError_t of the launch.
+// with unit stride. window <= 0 means no window; with a window, keys below
+// n_sink (>= 0) are seen by every query the causal mask lets see them.
+// Returns the cudaError_t of the launch.
+
+// float32 q, k, v, o: the scalar kernel
 int flash_attention_launch(const void* q, const void* k, const void* v, void* o, int B,
-                           int H, int K, int Sq, int Sk, int hd, int is_bf16,
-                           long long qb, long long qs, long long qh, long long kb,
-                           long long ks, long long kh, long long vb, long long vs,
-                           long long vh, long long ob, long long os, long long oh,
-                           int causal, int window, int n_sink, void* stream) {
-  if (B <= 0 || Sq <= 0) return 0;
-  if (K <= 0 || H % K != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const Strides sq{qb, qs, qh}, sk{kb, ks, kh}, sv{vb, vs, vh}, so{ob, os, oh};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch_hd<__nv_bfloat16>(hd, q, k, v, o, B, H, Sq, Sk, H / K, sq, sk, sv, so,
-                                     causal, window, n_sink, s);
-  return launch_hd<float>(hd, q, k, v, o, B, H, Sq, Sk, H / K, sq, sk, sv, so, causal,
-                          window, n_sink, s);
+                           int H, int K, int Sq, int Sk, int hd, long long qb, long long qs,
+                           long long qh, long long kb, long long ks, long long kh,
+                           long long vb, long long vs, long long vh, long long ob,
+                           long long os, long long oh, int causal, int window, int n_sink,
+                           void* stream) {
+  return launch<false>(q, k, v, o, B, H, K, Sq, Sk, hd, qb, qs, qh, kb, ks, kh, vb, vs, vh,
+                       ob, os, oh, causal, window, n_sink, stream);
+}
+
+// bfloat16 q, k, v, o: the tensor-core kernel. Every pointer 16-byte aligned
+// and every stride a multiple of 8 elements.
+int flash_attention_tc_launch(const void* q, const void* k, const void* v, void* o, int B,
+                              int H, int K, int Sq, int Sk, int hd, long long qb,
+                              long long qs, long long qh, long long kb, long long ks,
+                              long long kh, long long vb, long long vs, long long vh,
+                              long long ob, long long os, long long oh, int causal,
+                              int window, int n_sink, void* stream) {
+  return launch<true>(q, k, v, o, B, H, K, Sq, Sk, hd, qb, qs, qh, kb, ks, kh, vb, vs, vh,
+                      ob, os, oh, causal, window, n_sink, stream);
 }
 
 const char* cuda_error_string(int err) {

@@ -1,8 +1,9 @@
-"""Launcher of the flash-attention CUDA kernel (``csrc/flash_attention.cu``).
+"""Launchers of the flash-attention CUDA kernels (``csrc/flash_attention.cu``).
 
 The port of the reference's Pallas ``kernels/flash_attention.py``, in the
 model's layout: q [B, Sq, H, hd], k and v [B, Sk, K, hd], query head n reading
-KV head n // (H // K). It takes CUDA tensors only; ``kernels.ops.flash_attention``
+KV head n // (H // K). bf16 runs the tensor-core kernel, f32 the scalar one
+(:func:`kernel_for`). It takes CUDA tensors only; ``kernels.ops.flash_attention``
 is the public entry, which sends a CPU tensor to the plain version in
 ``kernels/ref.py``.
 """
@@ -17,17 +18,45 @@ from repro_torch.kernels import build
 
 NAME = "flash_attention"
 HEAD_DIMS = (64, 128)
-DTYPES = (torch.bfloat16, torch.float32)
+# dtype -> (kernel, its C launcher in csrc/flash_attention.cu)
+KERNELS = {torch.bfloat16: ("tensor_cores", "flash_attention_tc_launch"),
+           torch.float32: ("scalar", "flash_attention_launch")}
 
 
-def _lib():
-    so = build.lib(NAME)
-    fn = so.flash_attention_launch
+def _launcher(dtype: torch.dtype):
+    fn = getattr(build.lib(NAME), KERNELS[dtype][1])
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                       + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    return so
+    return fn
+
+
+def kernel_for(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel that takes these inputs on the card ("tensor_cores" for bf16,
+    "scalar" for f32); raise ValueError for any input neither takes. Reads
+    shapes, dtypes and strides only, so it runs on any device."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}: "
+                         f"expected [B, S, H, hd] and [B, S, K, hd]")
+    B, Sq, H, hd = q.shape
+    Bk, Sk, K, hdk = k.shape
+    if Bk != B or hdk != hd or H % K:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not match")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel takes head_dim in {HEAD_DIMS}, got {hd}")
+    if q.dtype not in KERNELS or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q, k, v must share one dtype of {tuple(KERNELS)}")
+    for t in (q, k, v):
+        if t.device != q.device or t.stride(-1) != 1:
+            raise ValueError("q, k, v must lie on one device with a unit last stride")
+    return KERNELS[q.dtype][0]
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    """16-byte rows, as the tensor-core kernel's cp.async copies need them."""
+    strides = [s for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
+    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in strides)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -39,29 +68,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """
     if q.device.type != "cuda":
         raise ValueError("flash_attention kernel takes CUDA tensors")
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}: "
-                         f"expected [B, S, H, hd] and [B, S, K, hd]")
-    B, Sq, H, hd = q.shape
-    Bk, Sk, K, hdk = k.shape
-    if Bk != B or hdk != hd or H % K:
-        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not match")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel takes head_dim in {HEAD_DIMS}, got {hd}")
-    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"q, k, v must share one dtype of {DTYPES}")
-    for t in (q, k, v):
-        if t.device != q.device or t.stride(-1) != 1:
-            raise ValueError("q, k, v must lie on one device with a unit last stride")
+    kernel = kernel_for(q, k, v)
+    if kernel == "tensor_cores" and not all(map(_aligned, (q, k, v))):
+        raise ValueError("the bf16 kernel needs 16-byte aligned q, k, v with strides "
+                         "that are multiples of 8 elements")
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
     if n_sink < 0:
         raise ValueError(f"n_sink must be >= 0, got {n_sink}")
+    B, Sq, H, hd = q.shape
+    Sk, K = k.shape[1], k.shape[2]
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
-    err = _lib().flash_attention_launch(
+    err = _launcher(q.dtype)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, H, K, Sq, Sk, hd, int(q.dtype == torch.bfloat16), *strides,
-        int(causal), window or 0, n_sink, torch.cuda.current_stream(q.device).cuda_stream)
+        B, H, K, Sq, Sk, hd, *strides, int(causal), window or 0, n_sink,
+        torch.cuda.current_stream(q.device).cuda_stream)
     build.check(NAME, err)
     return out

@@ -1,0 +1,184 @@
+"""Times the port's kernels, and its serving loop, so two checkouts can be compared in one run.
+
+    PYTHONPATH=<checkout>/src python3 src/repro_torch/launch/kernel_times.py [--serve ARCH]
+
+Whichever ``repro_torch`` is first on the path is the one timed: run this file
+against two checkouts in turns (A, B, B, A) on one card to compare them. It
+uses only the public entries (``kernels.ops``, ``BatchServer``).
+
+Without ``--serve``: ``adapter_fused`` at decode (h [T, D] for 1-17 rows and
+the served widths) and at prefill (h [2048, 2048]), and ``flash_attention`` at the served
+prefill shapes, each checked against its plain version and timed three ways:
+``ms``, the device time of launches captured in one CUDA graph and replayed;
+``eager_ms``, launches issued from Python (for a kernel of a few microseconds,
+the host's rate); ``host_us``, the host time of one call (its Python and the
+launch) with the card not waited on. With ``--serve ARCH``: the architecture at
+its published width (random weights from seed 0, non-zero adapters), 4 slots, 8
+requests of 64-512 prompt tokens, 32 new tokens each, served after a warm-up,
+``--runs`` times: tokens per second, prefill ms and decode ms per step.
+
+Prints one JSON line per measurement, then the card's name and power limit.
+It needs a CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import statistics
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+SEED = 0
+
+
+def cuda_ms(fn, iters: int = 20) -> float:
+    """Mean milliseconds of ``fn`` on the card by CUDA events, after a warm-up."""
+    for _ in range(3):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Mean device milliseconds of ``fn``: ``iters`` calls captured in one CUDA
+    graph and replayed, so the host's cost of each launch is not in the time
+    (a kernel of a few microseconds launched from Python is otherwise timed
+    by the host: ``cuda_ms``)."""
+    fn()                                    # first call: build, function attributes
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
+
+
+def host_us(fn, calls: int = 200, reps: int = 21) -> float:
+    """Median over ``reps`` of the host microseconds per call of ``fn``, issued
+    ``calls`` times without waiting for the card (the card is waited on
+    between repetitions)."""
+    times = []
+    for _ in range(reps + 1):              # the first repetition warms up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append(1e6 * (time.perf_counter() - t0) / calls)
+    torch.cuda.synchronize()
+    return statistics.median(times[1:])
+
+
+def card() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def _time(name: str, shape: str, kernel, plain) -> None:
+    got, want = kernel().float(), plain().float()
+    print(json.dumps({"kernel": name, "shape": shape,
+                      "max_abs_err": (got - want).abs().max().item(),
+                      "ms": graph_ms(kernel), "eager_ms": cuda_ms(kernel),
+                      "host_us": host_us(kernel)}), flush=True)
+
+
+def kernels() -> None:
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rnd = lambda *s, dtype: torch.randn(s, generator=gen, device="cuda").to(dtype)
+    adapters = [(T, D, torch.bfloat16) for D in (1600, 2048, 4096) for T in (1, 4, 16)]
+    adapters += [(17, 2048, torch.bfloat16), (4, 4096, torch.float32),
+                 (2048, 2048, torch.bfloat16)]
+    for T, D, dtype in adapters:
+        h, wd, wu = rnd(T, D, dtype=dtype), 0.05 * rnd(D, 64, dtype=dtype), \
+            0.05 * rnd(64, D, dtype=dtype)
+        _time("adapter_fused", f"h[{T},{D}] m=64 gelu {str(dtype)[6:]}",
+              lambda: ops.adapter_fused(h, wd, wu),
+              lambda: ops.adapter_fused(h, wd, wu, impl="plain"))
+    for S, (H, K, hd), window, n_sink, dtype in (
+            (512, (16, 2, 128), None, 0, torch.bfloat16),
+            (573, (25, 5, 64), 1024, 128, torch.bfloat16),
+            (2048, (25, 5, 64), 1024, 128, torch.bfloat16),
+            (512, (16, 2, 128), None, 0, torch.float32)):
+        q, k, v = rnd(4, S, H, hd, dtype=dtype), rnd(4, S, K, hd, dtype=dtype), \
+            rnd(4, S, K, hd, dtype=dtype)
+        kw = dict(window=window, n_sink=n_sink)
+        _time("flash_attention", f"q[4,{S},{H},{hd}] kv heads {K} window {window} "
+              f"n_sink {n_sink} {str(dtype)[6:]}",
+              lambda: ops.flash_attention(q, k, v, **kw),
+              lambda: ops.flash_attention(q, k, v, impl="plain", **kw))
+
+
+def serve(arch: str, runs: int) -> None:
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import BatchServer, Request
+    from repro_torch.models import params as prm
+    from repro_torch.models import transformer as tfm
+
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, adapter=dataclasses.replace(cfg.adapter,
+                                                                zero_init_up=False))
+    params = prm.materialize(cfg, seed=SEED, device="cuda")
+    rng = np.random.default_rng(SEED)
+    max_new, slots = 32, 4
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n))
+               for n in rng.integers(64, 513, size=8)]
+    horizon = tfm.n_meta(cfg) + 512 + max_new + 8
+    requests = lambda: [Request(i, p, max_new) for i, p in enumerate(prompts)]
+    BatchServer(cfg, params, slots=slots, horizon=horizon, device="cuda").run(
+        requests()[:slots], log=lambda *a: None)            # warm-up: cuBLAS, allocator
+    for run in range(runs):
+        server = BatchServer(cfg, params, slots=slots, horizon=horizon, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = server.run(requests(), log=lambda *a: None)
+        wall = time.perf_counter() - t0
+        b = server.batches
+        print(json.dumps({"serve": arch, "run": run,
+                          "tokens_per_s": sum(map(len, results.values())) / wall,
+                          "prefill_ms": [1e3 * x["prefill_s"] for x in b],
+                          "decode_ms_per_step": [1e3 * x["decode_s"] / x["decode_steps"]
+                                                 for x in b]}), flush=True)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--serve", default=None, help="serve this architecture instead")
+    ap.add_argument("--runs", type=int, default=5, help="served runs after the warm-up")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_times: needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if args.serve:
+        serve(args.serve, args.runs)
+    else:
+        kernels()
+    print(card(), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -129,3 +129,81 @@ def test_flash_attention_sinks_on_card(S, window, n_sink, dtype):
     got = ops.flash_attention(q, k, v, window=window, n_sink=n_sink)
     want = ops.flash_attention(q, k, v, window=window, n_sink=n_sink, impl="plain")
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=ATOL[dtype][1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("D", [256, 1600, 2048, 4096, 4608])
+def test_adapter_fused_decode_cluster_on_card(D, dtype):
+    """Decode rows (T <= 16) run as one thread block cluster of 16 blocks, which
+    the card can launch; T = 17 runs the tile path. Every activation, m of 16,
+    48 and 64, against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.kernels import adapter_fused as af
+
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(D)
+    rnd = lambda *s, scale=1.0: (torch.randn(s, generator=gen, device="cuda") * scale).to(dt)
+    tol = dict(atol=ATOL[dtype][0], rtol=2.0 ** -7 if dtype == "bfloat16" else 0.0)
+    for T in (1, 3, 4, 16, 17):
+        for m in (16, 48, 64):
+            h, wd, wu = rnd(T, D), rnd(D, m, scale=0.05), rnd(m, D, scale=0.05)
+            assert (af.cluster_size(T, D, m, dt) > 0) == (T <= af.SMALL_T)
+            if T <= af.SMALL_T:
+                assert af.cluster_occupancy(T, D, m, dt) > 0
+            for act in ("gelu", "relu", "silu"):
+                want = ops.adapter_fused(h, wd, wu, activation=act, impl="plain").float()
+                ops.reset_launches()
+                got = ops.adapter_fused(h, wd, wu, activation=act)
+                assert ops.LAUNCHES["adapter_fused"] == 1
+                torch.testing.assert_close(got.float(), want, **tol)
+
+
+def _attention_cases():
+    """(Sq, Sk, window, n_sink): the lengths around a 64-row tile, the served
+    hymba prefill, a window, sinks that end inside a tile, and Sk > Sq."""
+    cases = [(S, S, None, 0) for S in (1, 7, 63, 65, 130, 573)]
+    cases += [(S, S, 128, 0) for S in (65, 573)]
+    cases += [(S, S, 128, 100) for S in (130, 573)]
+    cases += [(37, 100, None, 0), (65, 200, 128, 0), (7, 300, 128, 100)]
+    return cases
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads", [(16, 2, 128), (25, 5, 64)], ids=["qwen", "hymba"])
+@pytest.mark.parametrize("Sq,Sk,window,n_sink", _attention_cases())
+def test_flash_attention_tensor_cores_on_card(Sq, Sk, window, n_sink, heads):
+    """The bf16 tensor-core kernel (GQA groups 8 and 5) against the plain
+    version, with q, k and v taken as strided views of one fused
+    [B, S, 3, H, hd] tensor."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.kernels import flash_attention as fa
+
+    H, K, hd = heads
+    gen = torch.Generator(device="cuda").manual_seed(Sq * 1000 + Sk + H)
+    qkv = torch.randn(2, Sk, 3, H, hd, generator=gen, device="cuda").to(torch.bfloat16)
+    q, k, v = qkv[:, Sk - Sq:, 0], qkv[:, :, 1, :K], qkv[:, :, 2, :K]
+    assert fa.kernel_for(q, k, v) == "tensor_cores" and not q.is_contiguous()
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, window=window, n_sink=n_sink)
+    assert ops.LAUNCHES["flash_attention"] == 1
+    want = ops.flash_attention(q, k, v, window=window, n_sink=n_sink, impl="plain")
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=ATOL["bfloat16"][1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("Sq,Sk,window", [(130, 130, None), (65, 200, 64)])
+def test_flash_attention_not_causal_on_card(Sq, Sk, window, dtype):
+    """causal=False (every key visible, or only the window's), both kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(Sq + Sk)
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dt)
+    q, k, v = rnd(2, Sq, 8, 128), rnd(2, Sk, 2, 128), rnd(2, Sk, 2, 128)
+    got = ops.flash_attention(q, k, v, causal=False, window=window)
+    want = ops.flash_attention(q, k, v, causal=False, window=window, impl="plain")
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=ATOL[dtype][1])

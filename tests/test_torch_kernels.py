@@ -172,3 +172,81 @@ def test_adapter_fused_launcher_takes_every_model_width(D, dtype, staged, T):
     with pytest.raises(ValueError, match="CUDA"):
         torch_af.adapter_fused(torch.zeros(T, D, dtype=dtype), torch.zeros(D, 64, dtype=dtype),
                                torch.zeros(64, D, dtype=dtype))
+
+
+@pytest.mark.parametrize("m", [16, 48, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "rwkv6-7b", "hymba-1.5b"])
+def test_adapter_fused_launcher_plans_decode_clusters(arch, dtype, m):
+    """Up to SMALL_T rows (decode) the launcher picks one cluster of CLUSTER
+    blocks, whose shared-memory layout fits at every model width of the port
+    and gives each region the room the kernel uses; above it, the tile path.
+    Pure Python: the kernels run only on the card."""
+    from repro_torch.configs import get_config
+
+    D = get_config(arch).d_model
+    assert torch_af.CLUSTER == 16 and torch_af.SMALL_T == 16
+    size, threads = dtype.itemsize, torch_af.THREADS
+    vec = 16 // size
+    for T in range(1, torch_af.SMALL_T + 1):
+        assert torch_af.cluster_size(T, D, m, dtype) == torch_af.CLUSTER
+        p = torch_af.cluster_plan(T, D, m, dtype)
+        nt, dc = p.nt, p.dc
+        assert T <= nt < 2 * T and nt & (nt - 1) == 0          # least power of two >= T
+        # ceil(D / 16) columns per block, rounded up to 16 bytes
+        assert dc % vec == 0 and dc * torch_af.CLUSTER >= D > (dc - vec) * torch_af.CLUSTER
+        weights = size * dc * m
+        regions = [(0, 4 * threads * nt), (p.part, 4 * nt * m), (p.mid, 4 * m * nt),
+                   (p.hs, 4 * dc * nt), (p.wd, weights)]
+        if p.wu != p.wd:
+            regions.append((p.wu, weights))
+        else:   # W_up takes W_down's buffer only where both do not fit
+            assert p.wd + 2 * weights > torch_af.SMEM_LIMIT
+        regions.sort()
+        for (start, n), (nxt, _) in zip(regions, regions[1:]):
+            assert start + n <= nxt
+        assert regions[-1][0] + regions[-1][1] == p.smem <= torch_af.SMEM_LIMIT
+        assert p.wd % 16 == 0 and p.wu % 16 == 0
+    for T in (torch_af.SMALL_T + 1, 300, 2048):
+        assert torch_af.cluster_size(T, D, m, dtype) == 0
+        assert torch_af.cluster_plan(T, D, m, dtype) is None
+    with pytest.raises(ValueError, match="CUDA"):
+        torch_af.adapter_fused(torch.zeros(4, D, dtype=dtype), torch.zeros(D, m, dtype=dtype),
+                               torch.zeros(m, D, dtype=dtype))
+
+
+def test_adapter_fused_decode_path_refuses_what_does_not_fit():
+    """A width whose share of the weights does not fit even with W_up in
+    W_down's buffer goes to the tile path."""
+    assert torch_af.cluster_size(4, 8192, 128, torch.float32) == 0
+    assert torch_af.cluster_size(4, 8192, 64, torch.float32) == torch_af.CLUSTER
+    assert torch_af.cluster_size(4, 2048, 512, torch.bfloat16) == 0
+
+
+@pytest.mark.parametrize("hd,dtype,kernel", [(64, torch.bfloat16, "tensor_cores"),
+                                             (128, torch.bfloat16, "tensor_cores"),
+                                             (64, torch.float32, "scalar"),
+                                             (128, torch.float32, "scalar")])
+def test_flash_attention_launcher_picks_kernel_by_dtype(hd, dtype, kernel):
+    """bf16 runs the tensor-core kernel and f32 the scalar one, also for q as a
+    strided view of a fused [B, S, 3, H, hd] tensor. Pure Python: no card."""
+    qkv = torch.empty(2, 70, 3, 8, hd, dtype=dtype, device="meta")
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1, :2], qkv[:, :, 2, :2]
+    assert torch_fa.kernel_for(q, k, v) == kernel
+
+
+@pytest.mark.parametrize("case", ["hd80", "mixed_dtypes", "gqa_mismatch", "last_stride"])
+def test_flash_attention_launcher_refuses_what_no_kernel_takes(case):
+    meta = lambda *s, dtype=torch.bfloat16: torch.empty(s, dtype=dtype, device="meta")
+    q, k = meta(1, 64, 8, 128), meta(1, 64, 2, 128)
+    v = k
+    if case == "hd80":
+        q, k, v = meta(1, 64, 8, 80), meta(1, 64, 2, 80), meta(1, 64, 2, 80)
+    elif case == "mixed_dtypes":
+        v = meta(1, 64, 2, 128, dtype=torch.float32)
+    elif case == "gqa_mismatch":
+        k = v = meta(1, 64, 3, 128)
+    else:
+        q = meta(1, 64, 128, 8).transpose(2, 3)
+    with pytest.raises(ValueError):
+        torch_fa.kernel_for(q, k, v)
