@@ -14,9 +14,11 @@ run with a non-zero exit and no result line:
   2. every kernel against its plain PyTorch version on the card, at the serving
      path's shapes, with its time by CUDA events beside the plain version's
      (and, for attention, SDPA's) and the kernel or path that ran; then,
-     checked but not timed, the edge cases of both redesigned
+     checked but not timed, the edge cases of the redesigned
      kernels (ragged lengths, sinks ending inside a tile, Sk > Sq, strided
-     views, every width, m, activation and dtype);
+     views, every width, m, activation and dtype); ``rwkv_scan`` also at
+     decays down to -20 a step and S of 1, 7 and 33, and ``mamba_scan`` from
+     a random start state, each timed with ptxas's registers and spill;
   3. qwen2.5-3b at its published width (36 layers, d_model 2048, vocab 152064
      padded), random weights from a seed with non-zero adapters, served by
      ``BatchServer`` (4 slots, 8 requests of 64-512 prompt tokens, 32 new tokens
@@ -130,14 +132,16 @@ SOURCES = {
                    "src/repro/kernels/mamba_scan.py:76"),
 }
 # Each kernel's time at its record's shape, and the adapter's at decode (T = 4,
-# bf16, by D), before the present versions of adapter_fused and flash_attention:
-# copied from PERF.md section 6 (earlier chip runs, NVIDIA H100 80GB HBM3, 700 W,
+# bf16, by D), before the present versions of adapter_fused, flash_attention
+# and rwkv_scan: copied from PERF.md section 6 (earlier chip runs, NVIDIA H100
+# 80GB HBM3, 700 W; rwkv_scan's the serial kernel's CUDA-graph time, the others
 # launches issued from Python) and printed on a line of their own, never as
 # this run's numbers.
-PREVIOUS_MS = {"adapter_fused": 0.0736, "flash_attention": 0.3453, "rwkv_scan": 0.2753,
+PREVIOUS_MS = {"adapter_fused": 0.0736, "flash_attention": 0.3453, "rwkv_scan": 0.2717,
                "mamba_scan": 0.2677, "adapter_fused_T4_D1600": 0.0356,
                "adapter_fused_T4_D2048": 0.0572, "adapter_fused_T4_D4096": 0.0672}
 CARD = ""                        # nvidia-smi's name and power limit, beside every time
+PTXAS = {}                       # mangled function name -> ptxas's register and spill lines
 
 
 def say(phase: str, **fields) -> None:
@@ -175,6 +179,7 @@ def phase_environment() -> None:
             if "Function properties for " in line:
                 fn = line.split("Function properties for ")[-1].strip()
             elif "registers" in line or "spill" in line:
+                PTXAS.setdefault(fn, []).append(line.strip().removeprefix("ptxas info    : "))
                 say("ptxas", kernel=name, function=_demangle(fn),
                     info=repr(line.strip().removeprefix("ptxas info    : ")))
     for dtype in (torch.bfloat16, torch.float32):
@@ -239,12 +244,15 @@ def adapter_case(T, dtype, act, gen, record=None, D=2048):
     return ms
 
 
-def rwkv_case(N, S, hd, gen, state=False, record=None):
+def rwkv_case(N, S, hd, gen, state=False, record=None, strong=False):
     """At the served model's scale: r, k, v of std 8, log decays -exp(x) with
-    x uniform in the decay prior's (-6, -0.5), u of std 0.5."""
+    x uniform in the decay prior's (-6, -0.5), u of std 0.5. ``strong`` takes
+    x up to 3 (decays down to -e^3 = -20 a step, where a factorisation through
+    e^{-ca} would overflow)."""
     rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
     r, k, v = 8 * rnd(N, S, hd), 8 * rnd(N, S, hd), 8 * rnd(N, S, hd)
-    lw = -torch.exp(-6.0 + 5.5 * torch.rand(N, S, hd, generator=gen, device="cuda"))
+    top = 3.0 if strong else -0.5
+    lw = -torch.exp(-6.0 + (top + 6.0) * torch.rand(N, S, hd, generator=gen, device="cuda"))
     u = 0.5 * rnd(N, 1, hd)
     s0 = 100 * rnd(N, hd, hd) if state else torch.zeros(N, hd, hd, device="cuda")
     out, sT = ops.rwkv_scan(r, k, v, lw, u, s0)
@@ -259,11 +267,14 @@ def rwkv_case(N, S, hd, gen, state=False, record=None):
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = 5 * N * S * hd * hd / FP32_FLOPS
     bound_ms = 1e3 * max(t_ops, t_bytes)
+    ptxas = [info for fn, lines in PTXAS.items() if f"rwkv_scan_kernelILi{hd}E" in fn
+             for info in lines]
     say("rwkv_scan", N=N, S=S, hd=hd, state0="random" if state else "zero",
+        decays="strong" if strong else "prior",
         rel_err_out=f"{errs[0]:.3g}", rel_err_state=f"{errs[1]:.3g}", rtol=SCAN_RTOL,
         max_abs_out=f"{want.abs().max().item():.4g}", ms=f"{ms:.4f}",
         eager_ms=f"{eager_ms:.4f}", plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.5f}",
-        mbytes=f"{nbytes / 1e6:.1f}", card=repr(CARD))
+        mbytes=f"{nbytes / 1e6:.1f}", ptxas=repr("; ".join(ptxas)), card=repr(CARD))
     if not max(errs) <= SCAN_RTOL:
         raise AssertionError(f"rwkv_scan disagrees with its plain version: {errs} of the "
                              f"largest entries (rtol {SCAN_RTOL})")
@@ -375,28 +386,32 @@ def edge_cases(gen) -> None:
         raise AssertionError(f"adapter_fused edge case beyond tolerance by {worst}")
 
 
-def mamba_case(B, S, D, N, gen, record=None):
+def mamba_case(B, S, D, N, gen, record=None, state=False):
     """At the served model's scale: dt = softplus(x) of unit-normal x (as
     dt_lr @ dt_proj + dt_bias gives), log_a = dt * A with A = -(1..N) (the
-    arange_log init), b = dt * B * x and c of unit-normal B, x and c."""
+    arange_log init), b = dt * B * x and c of unit-normal B, x and c; with
+    ``state``, a start state of std 3 (a cache's ``ssm``), else none (zero)."""
     rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
     dt = F.softplus(rnd(B, S, D))[..., None]
     log_a = (dt * -torch.arange(1, N + 1, device="cuda", dtype=torch.float32)).contiguous()
     b = (dt * rnd(B, S, 1, N) * rnd(B, S, D, 1)).contiguous()
     c = rnd(B, S, N)
-    y, sT = ops.mamba_scan(log_a, b, c)
-    want, wT = ops.mamba_scan(log_a, b, c, impl="plain")
+    s0 = 3 * rnd(B, D, N) if state else None
+    y, sT = ops.mamba_scan(log_a, b, c, s0)
+    want, wT = ops.mamba_scan(log_a, b, c, s0, impl="plain")
     torch.cuda.synchronize()
     errs = [(a - w).abs().max().item() / w.abs().max().item() for a, w in ((y, want), (sT, wT))]
-    ms, eager_ms, plain_ms = in_turns(lambda: ops.mamba_scan(log_a, b, c, impl="plain"),
-                                      lambda: ops.mamba_scan(log_a, b, c))
-    # log_a and b read once, c read once, y and the state written once; about
-    # four fp32 flops per (b, t, d, n): exp, the fma, the product with c, one add
-    nbytes = 4 * (2 * B * S * D * N + B * S * N + B * S * D + B * D * N)
+    ms, eager_ms, plain_ms = in_turns(lambda: ops.mamba_scan(log_a, b, c, s0, impl="plain"),
+                                      lambda: ops.mamba_scan(log_a, b, c, s0))
+    # log_a and b read once, c read once, the start state (if any) read once, y
+    # and the state written once; about four fp32 flops per (b, t, d, n): exp,
+    # the fma, the product with c, one add
+    nbytes = 4 * (2 * B * S * D * N + B * S * N + B * S * D + (2 if state else 1) * B * D * N)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = 4 * B * S * D * N / FP32_FLOPS
     bound_ms = 1e3 * max(t_ops, t_bytes)
-    say("mamba_scan", B=B, S=S, D=D, N=N, rel_err_y=f"{errs[0]:.3g}",
+    say("mamba_scan", B=B, S=S, D=D, N=N, state0="random" if state else "none",
+        rel_err_y=f"{errs[0]:.3g}",
         rel_err_state=f"{errs[1]:.3g}", rtol=SCAN_RTOL,
         max_abs_y=f"{want.abs().max().item():.4g}", ms=f"{ms:.4f}",
         eager_ms=f"{eager_ms:.4f}", plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.5f}",
@@ -436,6 +451,13 @@ def phase_kernels(records) -> None:
     rwkv_case(256, 445, 64, gen)
     rwkv_case(256, 202, 64, gen, state=True)
     rwkv_case(64, 300, 32, gen, state=True)
+    # the chunked kernel's edges: decays down to -20 a step, and S around and
+    # below its chunk of 16 steps
+    rwkv_case(256, 512, 64, gen, state=True, strong=True)
+    for S in (1, 7, 33):
+        rwkv_case(64, S, 64, gen, state=True)
+    rwkv_case(16, 33, 16, gen, state=True, strong=True)
+    rwkv_case(16, 7, 8, gen, state=True)
     # hymba-1.5b: the adapter at D = 1600 (decode; prefill 4 x 573), the scan at
     # trace_serve's prefill (128 meta + 512) and the served batches, and
     # attention with 128 sinks where they matter (S 2048, window 1024)
@@ -447,6 +469,7 @@ def phase_kernels(records) -> None:
     mamba_case(4, 330, 1600, 16, gen)
     mamba_case(2, 37, 256, 8, gen)
     mamba_case(3, 9, 40, 32, gen)
+    mamba_case(4, 330, 1600, 16, gen, state=True)     # a cache's start state
     sinks = {}
     for dtype in (bf16, f32):
         hymba = dict(heads=(25, 5, 64), rtol=HYMBA_ATTENTION_RTOL[dtype])
@@ -625,7 +648,7 @@ def main() -> None:
     phase_environment()
     records = {name: {"name": name, "route": "cuda", "source": src, "replaces": rep}
                for name, (src, rep) in SOURCES.items()}
-    say("previous", source="PERF.md section 6", timer="eager",
+    say("previous", source="PERF.md section 6", timer=repr("rwkv_scan CUDA graph, others eager"),
         **{f"{name}_ms": ms for name, ms in PREVIOUS_MS.items()})
     phase_kernels(records)
     phase_serve("qwen2.5-3b", records, cpu_witness=True)

@@ -1,13 +1,14 @@
-// Selective-SSM (Mamba) scan from a zero state: the SSM half of every hymba block.
+// Selective-SSM (Mamba) scan from a given start state: the SSM half of every hymba block.
 //
 // Replaces: the Pallas TPU kernel src/repro/kernels/mamba_scan.py
 //           (mamba_scan / _kernel, pallas_call at line 76). It computes what the
 //           reference's oracle src/repro/kernels/ref.py::mamba_scan computes:
 //
-//   s_t = e^{log_a_t} o s_{t-1} + b_t  (s_0 = 0),   y_t = sum_n s_t[:, n] c_t[n]
+//   s_t = e^{log_a_t} o s_{t-1} + b_t  (s_0 = state0),   y_t = sum_n s_t[:, n] c_t[n]
 //
-// with log_a, b [B, S, D, N] fp32 (log_a = dt * A <= 0), c [B, S, N]; returns
-// y [B, S, D] and the final state [B, D, N].
+// with log_a, b [B, S, D, N] fp32 (log_a = dt * A <= 0), c [B, S, N] and the
+// start state [B, D, N] (zero when none is given); returns y [B, S, D] and the
+// final state [B, D, N].
 //
 // What bounds it on the H100: bytes. Each (b, t, d, n) reads log_a and b once
 // (8 bytes) for about four flops (exp, fma, the product with c, one add of the
@@ -26,7 +27,8 @@
 // every load is coalesced. The loads of the next P = 8 steps are issued before
 // the current P steps are computed, so a device-memory round trip is spread
 // over P steps instead of paid on each. N is a power of two up to 32 (a
-// template parameter); any S, B and D. The final state is written once.
+// template parameter); any S, B and D. The start state is read once (none:
+// zero) and the final state written once.
 // Reading log_a and b as dt and B x (4N times fewer bytes) is later work.
 #include <cuda_runtime.h>
 
@@ -38,8 +40,9 @@ constexpr int P = 8;     // steps whose loads are in flight ahead of the compute
 template <int N>
 __global__ void __launch_bounds__(THREADS)
 mamba_scan_kernel(const float* __restrict__ log_a, const float* __restrict__ b,
-                  const float* __restrict__ c, float* __restrict__ y,
-                  float* __restrict__ s_out, int S, int D, long long total) {
+                  const float* __restrict__ c, const float* __restrict__ s0,
+                  float* __restrict__ y, float* __restrict__ s_out, int S, int D,
+                  long long total) {
   const long long g = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
   // Threads past the end compute on element 0 and store nothing, so every lane
   // of a warp takes part in the shuffles.
@@ -67,7 +70,7 @@ mamba_scan_kernel(const float* __restrict__ log_a, const float* __restrict__ b,
     }
   };
 
-  float s = 0.0f;
+  float s = s0 != nullptr && valid ? s0[g] : 0.0f;    // [B, D, N]: element g
   load(0);
   for (int t0 = 0; t0 < S; t0 += P) {
     float la_c[P], b_c[P], c_c[P];
@@ -93,15 +96,15 @@ mamba_scan_kernel(const float* __restrict__ log_a, const float* __restrict__ b,
 }
 
 template <int N>
-int launch(const void* log_a, const void* b, const void* c, void* y, void* state, int B,
-           int S, int D, cudaStream_t stream) {
+int launch(const void* log_a, const void* b, const void* c, const void* state0, void* y,
+           void* state, int B, int S, int D, cudaStream_t stream) {
   const long long total = static_cast<long long>(B) * D * N;
   const long long blocks = (total + THREADS - 1) / THREADS;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   mamba_scan_kernel<N><<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(
       static_cast<const float*>(log_a), static_cast<const float*>(b),
-      static_cast<const float*>(c), static_cast<float*>(y), static_cast<float*>(state), S, D,
-      total);
+      static_cast<const float*>(c), static_cast<const float*>(state0), static_cast<float*>(y),
+      static_cast<float*>(state), S, D, total);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -109,21 +112,22 @@ int launch(const void* log_a, const void* b, const void* c, void* y, void* state
 
 extern "C" {
 
-// log_a, b [B, S, D, N]; c [B, S, N]; y [B, S, D]; state [B, D, N]. All fp32,
-// contiguous, on one device; N is 1, 2, 4, 8, 16 or 32; S >= 1. The scan starts
-// from a zero state. Returns the cudaError_t of the launch (0 = launched).
-int mamba_scan_launch(const void* log_a, const void* b, const void* c, void* y, void* state,
-                      int B, int S, int D, int N, void* stream) {
+// log_a, b [B, S, D, N]; c [B, S, N]; state0, state [B, D, N]; y [B, S, D]. All
+// fp32, contiguous, on one device; N is 1, 2, 4, 8, 16 or 32; S >= 1. The scan
+// starts from state0, or from a zero state where state0 is null. Returns the
+// cudaError_t of the launch (0 = launched).
+int mamba_scan_launch(const void* log_a, const void* b, const void* c, const void* state0,
+                      void* y, void* state, int B, int S, int D, int N, void* stream) {
   if (B <= 0 || D <= 0) return 0;
   if (S <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (N) {
-    case 1: return launch<1>(log_a, b, c, y, state, B, S, D, s);
-    case 2: return launch<2>(log_a, b, c, y, state, B, S, D, s);
-    case 4: return launch<4>(log_a, b, c, y, state, B, S, D, s);
-    case 8: return launch<8>(log_a, b, c, y, state, B, S, D, s);
-    case 16: return launch<16>(log_a, b, c, y, state, B, S, D, s);
-    case 32: return launch<32>(log_a, b, c, y, state, B, S, D, s);
+    case 1: return launch<1>(log_a, b, c, state0, y, state, B, S, D, s);
+    case 2: return launch<2>(log_a, b, c, state0, y, state, B, S, D, s);
+    case 4: return launch<4>(log_a, b, c, state0, y, state, B, S, D, s);
+    case 8: return launch<8>(log_a, b, c, state0, y, state, B, S, D, s);
+    case 16: return launch<16>(log_a, b, c, state0, y, state, B, S, D, s);
+    case 32: return launch<32>(log_a, b, c, state0, y, state, B, S, D, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,14 +1,15 @@
 """Launcher of the selective-SSM scan CUDA kernel (``csrc/mamba_scan.cu``).
 
-The port of the reference's Pallas ``kernels/mamba_scan.py``: from a zero
-state, ``s_t = exp(log_a_t) * s_{t-1} + b_t`` and ``y_t = sum_N s_t * c_t``. It
+The port of the reference's Pallas ``kernels/mamba_scan.py``: from a start
+state (zero when none is given), ``s_t = exp(log_a_t) * s_{t-1} + b_t`` and
+``y_t = sum_N s_t * c_t``. It
 takes CUDA tensors only; ``kernels.ops.mamba_scan`` is the public entry, which
 sends a CPU tensor to the plain version in ``kernels/ref.py``.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -22,12 +23,12 @@ def _lib():
     so = build.lib(NAME)
     fn = so.mamba_scan_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return so
 
 
-def check(log_a, b, c) -> None:
+def check(log_a, b, c, state0=None) -> None:
     """Raise unless the inputs are what the kernel takes (any device)."""
     if log_a.dim() != 4:
         raise ValueError(f"log_a must be [B, S, D, N], got {tuple(log_a.shape)}")
@@ -36,25 +37,30 @@ def check(log_a, b, c) -> None:
         raise ValueError("mamba_scan kernel takes S >= 1")
     if N not in STATE_SIZES:
         raise ValueError(f"mamba_scan kernel takes a state size N in {STATE_SIZES}, got {N}")
-    for name, t, want in (("b", b, (B, S, D, N)), ("c", c, (B, S, N))):
+    given = (("b", b, (B, S, D, N)), ("c", c, (B, S, N)))
+    if state0 is not None:
+        given += (("state0", state0, (B, D, N)),)
+    for name, t, want in given:
         if tuple(t.shape) != want:
             raise ValueError(f"{name} {tuple(t.shape)} does not fit log_a {tuple(log_a.shape)}")
-    for name, t in (("log_a", log_a), ("b", b), ("c", c)):
+    for name, t, _ in (("log_a", log_a, None),) + given:
         if t.dtype != torch.float32 or not t.is_contiguous() or t.device != log_a.device:
             raise ValueError(f"{name} must be a contiguous float32 tensor on log_a's device")
 
 
-def mamba_scan(log_a: torch.Tensor, b: torch.Tensor,
-               c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """log_a, b [B, S, D, N]; c [B, S, N] -> (y [B, S, D], final state [B, D, N])."""
+def mamba_scan(log_a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+               state0: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """log_a, b [B, S, D, N]; c [B, S, N]; state0 [B, D, N] or None (zero)
+    -> (y [B, S, D], final state [B, D, N])."""
     if log_a.device.type != "cuda":
         raise ValueError("mamba_scan kernel takes CUDA tensors")
-    check(log_a, b, c)
+    check(log_a, b, c, state0)
     B, S, D, N = log_a.shape
     y = torch.empty((B, S, D), dtype=torch.float32, device=log_a.device)
     state = torch.empty((B, D, N), dtype=torch.float32, device=log_a.device)
     err = _lib().mamba_scan_launch(
-        log_a.data_ptr(), b.data_ptr(), c.data_ptr(), y.data_ptr(), state.data_ptr(),
+        log_a.data_ptr(), b.data_ptr(), c.data_ptr(),
+        None if state0 is None else state0.data_ptr(), y.data_ptr(), state.data_ptr(),
         B, S, D, N, torch.cuda.current_stream(log_a.device).cuda_stream)
     build.check(NAME, err)
     return y, state

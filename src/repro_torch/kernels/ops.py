@@ -72,12 +72,13 @@ def rwkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lw: torch.Tenso
     return out
 
 
-def mamba_scan(log_a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *,
+def mamba_scan(log_a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+               state0: Optional[torch.Tensor] = None, *,
                impl: str = "kernel") -> Tuple[torch.Tensor, torch.Tensor]:
     """log_a, b [B, S, D, N] fp32; c [B, S, N] -> (y [B, S, D], state [B, D, N]),
-    from a zero state."""
+    from ``state0`` [B, D, N] fp32, or from a zero state when it is None."""
     if not _use_kernel(log_a, impl):
-        return ref.mamba_scan(log_a, b, c)
-    out = _ms.mamba_scan(log_a, b, c)
+        return ref.mamba_scan(log_a, b, c, state0)
+    out = _ms.mamba_scan(log_a, b, c, state0)
     LAUNCHES["mamba_scan"] += 1
     return out

@@ -50,16 +50,17 @@ def rwkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lw: torch.Tenso
     return torch.stack(outs, dim=1), s
 
 
-def mamba_scan(log_a: torch.Tensor, b: torch.Tensor,
-               c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Sequential selective-SSM recurrence from a zero state (the reference's oracle).
+def mamba_scan(log_a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+               state0: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential selective-SSM recurrence (the reference's oracle), from
+    ``state0`` [B, D, N] or, when it is None, from a zero state.
 
     log_a, b [B, S, D, N] fp32 (log_a = log decay <= 0); c [B, S, N].
     Returns (y [B, S, D], final state [B, D, N]).
 
         s_t = exp(log_a_t) * s_{t-1} + b_t ;  y_t = sum_N s_t * c_t
     """
-    s = torch.zeros_like(log_a[:, 0])
+    s = torch.zeros_like(log_a[:, 0]) if state0 is None else state0
     ys = []
     for t in range(log_a.shape[1]):
         s = torch.exp(log_a[:, t]) * s + b[:, t]

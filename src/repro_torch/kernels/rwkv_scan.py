@@ -50,6 +50,8 @@ def rwkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lw: torch.Tenso
     if r.device.type != "cuda":
         raise ValueError("rwkv_scan kernel takes CUDA tensors")
     check(r, k, v, lw, u, state0)
+    if any(t.data_ptr() % 16 for t in (r, k, v, lw)):
+        raise ValueError("rwkv_scan kernel takes r, k, v, lw at 16-byte aligned addresses")
     N, S, hd = r.shape
     out = torch.empty_like(r)
     state = torch.empty_like(state0)

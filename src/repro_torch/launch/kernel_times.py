@@ -7,8 +7,10 @@ against two checkouts in turns (A, B, B, A) on one card to compare them. It
 uses only the public entries (``kernels.ops``, ``BatchServer``).
 
 Without ``--serve``: ``adapter_fused`` at decode (h [T, D] for 1-17 rows and
-the served widths) and at prefill (h [2048, 2048]), and ``flash_attention`` at the served
-prefill shapes, each checked against its plain version and timed three ways:
+the served widths) and at prefill (h [2048, 2048]), ``flash_attention`` at the served
+prefill shapes, ``rwkv_scan`` at rwkv6-7b's prefill (N 256 = 4 rows x 64 heads
+of 64, S 512 and 445) and ``mamba_scan`` at hymba-1.5b's ([4, 640, 1600, 16]),
+each checked against its plain version and timed three ways:
 ``ms``, the device time of launches captured in one CUDA graph and replayed;
 ``eager_ms``, launches issued from Python (for a kernel of a few microseconds,
 the host's rate); ``host_us``, the host time of one call (its Python and the
@@ -98,9 +100,15 @@ def card() -> str:
 
 
 def _time(name: str, shape: str, kernel, plain) -> None:
-    got, want = kernel().float(), plain().float()
+    """``kernel`` and ``plain`` return a tensor or a tuple of tensors; the
+    error is the largest over the outputs, absolute and relative to each
+    output's largest entry."""
+    pairs = list(zip(*(o if isinstance(o, tuple) else (o,) for o in (kernel(), plain()))))
+    gaps = [((a.float() - b.float()).abs().max().item(), b.float().abs().max().item())
+            for a, b in pairs]
     print(json.dumps({"kernel": name, "shape": shape,
-                      "max_abs_err": (got - want).abs().max().item(),
+                      "max_abs_err": max(g for g, _ in gaps),
+                      "max_rel_err": max(g / max(m, 1e-30) for g, m in gaps),
                       "ms": graph_ms(kernel), "eager_ms": cuda_ms(kernel),
                       "host_us": host_us(kernel)}), flush=True)
 
@@ -131,6 +139,24 @@ def kernels() -> None:
               f"n_sink {n_sink} {str(dtype)[6:]}",
               lambda: ops.flash_attention(q, k, v, **kw),
               lambda: ops.flash_attention(q, k, v, impl="plain", **kw))
+    # the scans at the served models' scale (as in chip_smoke.py), called as
+    # every version of the port takes them
+    for S in (512, 445):
+        N, hd = 256, 64
+        r, k, v = (8 * rnd(N, S, hd, dtype=torch.float32) for _ in range(3))
+        lw = -torch.exp(-6.0 + 5.5 * torch.rand(N, S, hd, generator=gen, device="cuda"))
+        u, s0 = 0.5 * rnd(N, 1, hd, dtype=torch.float32), torch.zeros(N, hd, hd, device="cuda")
+        _time("rwkv_scan", f"r/k/v/lw[{N},{S},{hd}] f32",
+              lambda: ops.rwkv_scan(r, k, v, lw, u, s0),
+              lambda: ops.rwkv_scan(r, k, v, lw, u, s0, impl="plain"))
+    B, S, D, N = 4, 640, 1600, 16
+    dt = torch.nn.functional.softplus(rnd(B, S, D, dtype=torch.float32))[..., None]
+    log_a = (dt * -torch.arange(1, N + 1, device="cuda", dtype=torch.float32)).contiguous()
+    b = (dt * rnd(B, S, 1, N, dtype=torch.float32) * rnd(B, S, D, 1, dtype=torch.float32)
+         ).contiguous()
+    c = rnd(B, S, N, dtype=torch.float32)
+    _time("mamba_scan", f"log_a/b[{B},{S},{D},{N}] f32",
+          lambda: ops.mamba_scan(log_a, b, c), lambda: ops.mamba_scan(log_a, b, c, impl="plain"))
 
 
 def serve(arch: str, runs: int) -> None:

@@ -371,9 +371,8 @@ def mamba_mix(cfg: ModelConfig, p, x: torch.Tensor,
         state = torch.exp(log_a[:, 0]) * s0 + bx[:, 0]
         ys = torch.einsum("bdn,bn->bd", state, c[:, 0])[:, None]
     elif impl == "kernel":
-        # S > 1 comes only from "seq" (no cache) and "prefill", whose cache is
-        # freshly zeroed: the reference's s0 is zero, the kernel's start.
-        ys, state = ops.mamba_scan(log_a.contiguous(), bx.contiguous(), c.contiguous())
+        ys, state = ops.mamba_scan(log_a.contiguous(), bx.contiguous(), c.contiguous(),
+                                   s0.contiguous())
     else:
         if impl != "plain":
             raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")

@@ -72,16 +72,24 @@ def test_adapter_fused_wide_models_on_card(D, T, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("N,S,hd,state", [(256, 202, 64, False), (256, 445, 64, True),
-                                          (64, 130, 32, True), (8, 33, 16, True),
-                                          (8, 1, 8, True)])
-def test_rwkv_scan_matches_plain_on_card(N, S, hd, state):
+@pytest.mark.parametrize("N,S,hd,state,strong", [
+    (256, 202, 64, False, False), (256, 445, 64, True, False), (64, 130, 32, True, False),
+    (8, 33, 16, True, False), (8, 1, 8, True, False), (64, 300, 64, True, True),
+    (8, 37, 32, True, True), (8, 7, 8, True, True), (16, 1, 64, True, False),
+    (16, 7, 64, True, False), (16, 33, 64, False, False), (4, 16, 16, True, False)])
+def test_rwkv_scan_matches_plain_on_card(N, S, hd, state, strong):
+    """Ragged S around and below the kernel's chunk of 16 steps, every head
+    dim, and strong decays (log decays down to -e^3 = -20 a step, where a
+    factorisation through e^{-ca} would overflow)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     gen = torch.Generator(device="cuda").manual_seed(S)
     rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
     r, k, v = rnd(N, S, hd), rnd(N, S, hd), rnd(N, S, hd)
-    lw = -torch.exp(0.5 * rnd(N, S, hd) - 1.0)
+    if strong:
+        lw = -torch.exp(-6.0 + 9.0 * torch.rand(N, S, hd, generator=gen, device="cuda"))
+    else:
+        lw = -torch.exp(0.5 * rnd(N, S, hd) - 1.0)
     u = 0.5 * rnd(N, 1, hd)
     s0 = 0.1 * rnd(N, hd, hd) if state else torch.zeros(N, hd, hd, device="cuda")
     ops.reset_launches()
@@ -94,20 +102,24 @@ def test_rwkv_scan_matches_plain_on_card(N, S, hd, state):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,S,D,N", [(4, 330, 1600, 16), (2, 37, 256, 8), (3, 9, 40, 32),
-                                     (1, 1, 24, 4), (2, 70, 33, 16)])
-def test_mamba_scan_matches_plain_on_card(B, S, D, N):
-    """hymba-1.5b's prefill shape, the reduced size, ragged S and D, N up to 32."""
+@pytest.mark.parametrize("B,S,D,N,state", [(4, 330, 1600, 16, False), (2, 37, 256, 8, False),
+                                           (3, 9, 40, 32, False), (1, 1, 24, 4, False),
+                                           (2, 70, 33, 16, False), (4, 330, 1600, 16, True),
+                                           (3, 9, 40, 32, True), (1, 1, 24, 4, True)])
+def test_mamba_scan_matches_plain_on_card(B, S, D, N, state):
+    """hymba-1.5b's prefill shape, the reduced size, ragged S and D, N up to
+    32; from no start state (zero) or a random one (a cache's ``ssm``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     gen = torch.Generator(device="cuda").manual_seed(S * N)
     rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
     log_a = -torch.exp(0.5 * rnd(B, S, D, N) - 1.0)
     b, c = 0.5 * rnd(B, S, D, N), rnd(B, S, N)
+    s0 = 3.0 * rnd(B, D, N) if state else None
     ops.reset_launches()
-    y, sT = ops.mamba_scan(log_a, b, c)
+    y, sT = ops.mamba_scan(log_a, b, c, s0)
     assert ops.LAUNCHES["mamba_scan"] == 1
-    want, wT = ops.mamba_scan(log_a, b, c, impl="plain")
+    want, wT = ops.mamba_scan(log_a, b, c, s0, impl="plain")
     for got_, want_ in ((y, want), (sT, wT)):
         torch.testing.assert_close(got_, want_, rtol=0,
                                    atol=SCAN_RTOL * want_.abs().max().item())

@@ -214,6 +214,35 @@ def test_mamba_scan_matches_reference_and_pallas(B, S, D, N, chunk):
         np.testing.assert_allclose(_np(got_), _np(want_), atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("B,S,D,N", [(2, 9, 8, 4), (1, 37, 16, 16)])
+def test_mamba_scan_starts_from_state0(B, S, D, N):
+    """A non-zero start state against a float64 numpy loop (1e-4, the
+    reference's tolerance), and two halves chained through the state equal
+    one pass."""
+    log_a, b, c = _scan_inputs(B, S, D, N, seed=S + N)
+    s0 = (3.0 * np.random.default_rng(S).standard_normal((B, D, N))).astype(np.float32)
+    s, ys = s0.astype(np.float64), []
+    for t in range(S):
+        s = np.exp(log_a[:, t].astype(np.float64)) * s + b[:, t]
+        ys.append(np.einsum("bdn,bn->bd", s, c[:, t]))
+    xs = [torch.from_numpy(x) for x in (log_a, b, c, s0)]
+    y, sT = ops.mamba_scan(*xs)
+    np.testing.assert_allclose(_np(y), np.stack(ys, 1), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(_np(sT), s, atol=1e-4, rtol=1e-4)
+    h = S // 2
+    y1, s1 = ops.mamba_scan(*(x[:, :h] for x in xs[:3]), xs[3])
+    y2, s2 = ops.mamba_scan(*(x[:, h:] for x in xs[:3]), s1)
+    np.testing.assert_allclose(_np(torch.cat([y1, y2], 1)), _np(y), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(_np(s2), _np(sT), atol=1e-5, rtol=1e-5)
+    zero, _ = ops.mamba_scan(*xs[:3])
+    assert np.abs(_np(zero) - _np(y)).max() > 0.1          # state0 mattered
+    torch_ms.check(*xs)
+    with pytest.raises(ValueError, match="does not fit"):
+        torch_ms.check(*xs[:3], xs[3][:, :, :1])
+    with pytest.raises(ValueError, match="float32"):
+        torch_ms.check(*xs[:3], xs[3].double())
+
+
 def test_mamba_scan_launcher_takes_cuda_tensors_only():
     """No silent fallback, and the state sizes and dtype the kernel takes."""
     xs = [torch.from_numpy(x) for x in _scan_inputs(2, 8, 4, 16, seed=2)]
@@ -269,23 +298,27 @@ def _cache_pair(jcfg, B, seq_len, rng, random: bool):
 
 
 MIX_CASES = [("seq", "kernel"), ("seq", "plain"), ("prefill", "kernel"),
-             ("prefill", "plain"), ("step", "kernel")]
+             ("prefill", "plain"), ("step", "kernel"), ("chunk", "kernel"),
+             ("chunk", "plain")]
 
 
 @pytest.mark.parametrize("mode,impl", MIX_CASES)
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_mamba_mix_matches_jax(dtype, mode, impl):
     """mamba_mix on the same input: 37 tokens with no cache ("seq"), 200 from
-    a fresh cache ("prefill": two chunks of 100 in the plain form), or one
-    token against a random cache ("step"); y, and the new ``ssm`` and ``conv``."""
+    a fresh cache ("prefill": two chunks of 100 in the plain form), one token
+    against a random cache ("step"), or 9 tokens against a random cache
+    ("chunk": the scan starts from its ``ssm``); y, and the new ``ssm`` and
+    ``conv``."""
     jcfg, tcfg, jparams, port = _models(dtype)
     jp = jax.tree.map(lambda x: x[1, 0], jparams["blocks"][0])["ssm"]
     tp = port["blocks"][1]["ssm"]
     rng = np.random.default_rng(4)
-    B, S = 2, {"seq": 37, "prefill": 200, "step": 1}[mode]
+    B, S = 2, {"seq": 37, "prefill": 200, "step": 1, "chunk": 9}[mode]
     x = rng.standard_normal((B, S, tcfg.d_model)).astype(np.float32)
     xj, xt = jnp.asarray(x).astype(dtype), torch.from_numpy(x).to(getattr(torch, dtype))
-    jc, tc = (None, None) if mode == "seq" else _cache_pair(jcfg, B, 8, rng, mode == "step")
+    random = mode in ("step", "chunk")
+    jc, tc = (None, None) if mode == "seq" else _cache_pair(jcfg, B, 8, rng, random)
 
     jy, jnc = jax.jit(lambda p, x, c: jax_blocks.mamba_mix(jcfg, p, x, c))(jp, xj, jc)
     ty, tnc = blocks.mamba_mix(tcfg, tp, xt, tc, impl=impl)

@@ -200,6 +200,106 @@ def test_rwkv_scan_state_chaining():
     assert not np.allclose(_np(got), _np(full))           # state0 mattered
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """Cut fp32 to TF32 (10 mantissa bits), as the kernel cuts each hi part and
+    as the tensor core reads the fp32 bits it is given for a TF32 operand."""
+    return (x.view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor, products: str) -> torch.Tensor:
+    """a @ b in "fp32", as "3xtf32" (a_lo b_hi + a_hi b_lo + a_hi b_hi, with
+    x = x_hi + x_lo exactly) or as one "tf32" product."""
+    if products == "fp32":
+        return a @ b
+    ahi, bhi = _tf32(a), _tf32(b)
+    if products == "tf32":
+        return ahi @ bhi
+    alo, blo = _tf32(a - ahi), _tf32(b - bhi)
+    return alo @ bhi + ahi @ blo + ahi @ bhi
+
+
+def _chunked_scan(r, k, v, lw, u, s0, products: str, L: int = 16):
+    """The CUDA kernel's decomposition in plain torch: chunks of L steps (the
+    last one padded with r = k = v = lw = 0), every decay a running product of
+    e^{lw} (every factor <= 1): forward, r o e^{ca_prev} and e^{ca_L};
+    backward, k o e^{ca_L - ca}; and along t for the pairwise decays of A's
+    two diagonal 8 x 8 blocks. A's off-diagonal block is factorised at the
+    second sub-chunk's first step b: r_t e^{ca_prev[t] - ca_prev[b]} and
+    k_s e^{ca_prev[b] - ca[s]}, both <= 1. The bonus sits on A's diagonal,
+    and the four products (A's off-diagonal block, inter, A V, hand-off) run
+    in fp32, as 3xTF32 (the kernel's) or as one TF32 product each."""
+    N, S, hd = r.shape
+    pad = -S % L
+    r, k, v, lw = (torch.cat([x, x.new_zeros(N, pad, hd)], 1) for x in (r, k, v, lw))
+    w = torch.exp(lw)
+    state, outs = s0, []
+    for c0 in range(0, S + pad, L):
+        rc, kc, vc, wc = (x[:, c0:c0 + L] for x in (r, k, v, w))
+        ones = torch.ones_like(wc[:, :1])
+        fwd = torch.cumprod(torch.cat([ones, wc[:, :-1]], 1), 1)          # e^{ca_prev}
+        bwd = torch.flip(torch.cumprod(torch.cat([ones, torch.flip(wc, [1])[:, :-1]], 1), 1),
+                         [1])                                               # e^{ca_L - ca}
+        rd, kd = rc * fwd, kc * bwd
+        decay = fwd[:, -1] * wc[:, -1]                                      # e^{ca_L}
+        A = torch.zeros(N, L, L)
+        H = L // 2
+        for s in range(L):                                      # the two diagonal blocks
+            A[:, s, s] = (rc[:, s] * u[:, 0] * kc[:, s]).sum(-1)
+            run = kc[:, s]                                      # k_s e^{ca_prev[t] - ca[s]}
+            for t in range(s + 1, (s // H + 1) * H):
+                A[:, t, s] = (rc[:, t] * run).sum(-1)
+                run = run * wc[:, t]
+        # the off-diagonal block, factorised at step H: both factors <= 1
+        rq = rc[:, H:] * torch.cumprod(torch.cat([ones, wc[:, H:-1]], 1), 1)
+        kq = kc[:, :H] * torch.flip(torch.cumprod(
+            torch.cat([ones, torch.flip(wc[:, 1:H], [1])], 1), 1), [1])
+        A[:, H:, :H] = _mm(rq, kq.transpose(1, 2), products)
+        outs.append(_mm(rd, state, products) + _mm(A, vc, products))
+        state = decay[:, :, None] * state + _mm(kd.transpose(1, 2), vc, products)
+    return torch.cat(outs, 1)[:, :S], state
+
+
+def _served_scale_inputs(N, S, hd, scale, seed):
+    rng = np.random.default_rng(seed)
+    r, k, v = (scale * rng.standard_normal((N, S, hd)).astype(np.float32) for _ in range(3))
+    lw = -np.exp(rng.uniform(-6.0, 3.0, (N, S, hd))).astype(np.float32)
+    u = 0.5 * rng.standard_normal((N, 1, hd)).astype(np.float32)
+    s0 = (12.5 * scale * rng.standard_normal((N, hd, hd))).astype(np.float32)
+    return r, k, v, lw, u, s0
+
+
+@pytest.mark.parametrize("products", ["fp32", "3xtf32"])
+@pytest.mark.parametrize("N,S,hd,scale", [(2, 1, 8, 1.0), (3, 7, 16, 1.0), (2, 33, 32, 1.0),
+                                          (2, 50, 64, 1.0), (2, 100, 64, 8.0)])
+def test_rwkv_scan_kernel_decomposition_matches_reference(N, S, hd, scale, products):
+    """The kernel's chunked form against the reference's oracle, at decays
+    down to -e^3 = -20 a step (where a factorisation through e^{-ca} would
+    overflow), ragged S and every head dim. Unit-scale inputs at the
+    reference's 1e-3; the served scale (r, k, v of std 8, state of std 100)
+    at 1e-4 of the largest entry, the tolerance the kernel is held to on the
+    card."""
+    xs = _served_scale_inputs(N, S, hd, scale, seed=S * hd)
+    got, got_s = _chunked_scan(*map(torch.from_numpy, xs), products=products)
+    want, want_s = jax_ref.rwkv_scan(*map(jnp.asarray, xs))
+    assert np.isfinite(_np(got)).all() and np.isfinite(_np(got_s)).all()
+    for a, b in ((got, want), (got_s, want_s)):
+        if scale == 1.0:
+            np.testing.assert_allclose(_np(a), _np(b), atol=1e-3, rtol=1e-3)
+        else:
+            _close_rel(a, b, 1e-4)
+
+
+def test_rwkv_scan_one_tf32_product_misses_the_tolerance():
+    """Why the kernel splits its operands: with one TF32 product each (about
+    three digits), the served scale's outputs and state miss 1e-4 of their
+    largest entry."""
+    xs = _served_scale_inputs(2, 100, 64, 8.0, seed=6400)
+    got, got_s = _chunked_scan(*map(torch.from_numpy, xs), products="tf32")
+    want, want_s = jax_ref.rwkv_scan(*map(jnp.asarray, xs))
+    for a, b in ((got, want), (got_s, want_s)):
+        assert np.abs(_np(a) - _np(b)).max() > 1e-4 * np.abs(_np(b)).max()
+
+
 def test_rwkv_scan_launcher_takes_cuda_tensors_only():
     """No silent fallback, and the head dims and dtype the kernel takes."""
     xs = [torch.from_numpy(x) for x in _scan_inputs(2, 8, 16, seed=2)]
