@@ -10,10 +10,14 @@ run with a non-zero exit and no result line:
      build of every kernel from ``src/repro_torch/kernels/csrc`` (nvcc for
      sm_90a, one process per source, all at once) with ptxas register/spill
      counts per function, and how many of ``adapter_fused``'s decode clusters
-     the card holds at once (``cudaOccupancyMaxActiveClusters``);
+     and of its bf16 prefill path's clusters (at the served shapes' plans) the
+     card holds at once (``cudaOccupancyMaxActiveClusters``);
   2. every kernel against its plain PyTorch version on the card, at the serving
      path's shapes, with its time by CUDA events beside the plain version's
-     (and, for attention, SDPA's) and the kernel or path that ran; then,
+     (and, for attention, SDPA's) and the kernel or path that ran (the
+     adapter's bf16 prefill path at every served batch's shape, with ptxas's
+     registers and spill, and, where its time on one h falls below the bytes
+     bound, its time over copies of h that exceed the L2 cache); then,
      checked but not timed, the edge cases of the redesigned
      kernels (ragged lengths, sinks ending inside a tile, Sk > Sq, strided
      views, every width, m, activation and dtype); ``rwkv_scan`` also at
@@ -77,7 +81,8 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import adapter_fused as af  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
-from repro_torch.launch.kernel_times import cuda_ms, graph_ms  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.launch.kernel_times import cold_ms, cuda_ms, graph_ms  # noqa: E402
 from repro_torch.launch.serve import BatchServer, Request  # noqa: E402
 from repro_torch.models import params as prm  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
@@ -105,7 +110,10 @@ LOGIT_RMS_FRACTION = 0.5
 # (adapter 1e-5 f32 / 2e-2 bf16, attention 1e-5 / 3e-2). The bf16 adapter also
 # allows one bf16 ulp of each output (rtol 2**-7): its fp32 sums run in another
 # order, which can move h + up across a bf16 rounding boundary, and among the
-# 4M random values of h [2048, 2048] some exceed 4, where one ulp is 0.031.
+# 4M random values of h [2048, 2048] some exceed 4, where one ulp is 0.031. It
+# also allows one bf16 ulp of the up term (adapter_excess): the plain version
+# rounds up to bf16 before the residual add, and fp32 sums in another order
+# can land that rounding one ulp apart, which shows where h cancels a large up.
 ATOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 3e-2)}  # (adapter, attention)
 ADAPTER_RTOL = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7}
 # hymba-1.5b's attention (hd 64, 5 query heads per KV head) gives bf16 outputs
@@ -131,15 +139,17 @@ SOURCES = {
     "mamba_scan": ("src/repro_torch/kernels/csrc/mamba_scan.cu",
                    "src/repro/kernels/mamba_scan.py:76"),
 }
-# Each kernel's time at its record's shape, and the adapter's at decode (T = 4,
-# bf16, by D), before the present versions of adapter_fused, flash_attention
-# and rwkv_scan: copied from PERF.md section 6 (earlier chip runs, NVIDIA H100
-# 80GB HBM3, 700 W; rwkv_scan's the serial kernel's CUDA-graph time, the others
-# launches issued from Python) and printed on a line of their own, never as
-# this run's numbers.
+# Each kernel's time at its record's shape, the adapter's at decode (T = 4,
+# bf16, by D) and its bf16 tile path's at prefill, before the present
+# versions of adapter_fused, flash_attention and rwkv_scan: copied from
+# PERF.md section 6 (earlier chip runs, NVIDIA H100 80GB HBM3, 700 W;
+# rwkv_scan's and the tile path's CUDA-graph times, the others launches issued
+# from Python) and printed on a line of their own, never as this run's numbers.
 PREVIOUS_MS = {"adapter_fused": 0.0736, "flash_attention": 0.3453, "rwkv_scan": 0.2717,
                "mamba_scan": 0.2677, "adapter_fused_T4_D1600": 0.0356,
-               "adapter_fused_T4_D2048": 0.0572, "adapter_fused_T4_D4096": 0.0672}
+               "adapter_fused_T4_D2048": 0.0572, "adapter_fused_T4_D4096": 0.0672,
+               "adapter_fused_tile_T2048_D2048": 0.0574, "adapter_fused_tile_T2048_D4096": 0.1243,
+               "adapter_fused_tile_T2292_D1600": 0.0963}
 CARD = ""                        # nvidia-smi's name and power limit, beside every time
 PTXAS = {}                       # mangled function name -> ptxas's register and spill lines
 
@@ -186,6 +196,11 @@ def phase_environment() -> None:
         for D in (1600, 2048, 4096):
             say("cluster_occupancy", T=4, D=D, m=64, dtype=str(dtype).removeprefix("torch."),
                 cluster=af.CLUSTER, clusters=af.cluster_occupancy(4, D, 64, dtype))
+    for T, D in ((2048, 2048), (808, 2048), (2048, 4096), (808, 4096), (2292, 1600),
+                 (1320, 1600)):
+        p = af.tile_plan(T, D, 64)
+        say("tile_occupancy", T=T, D=D, m=64, dtype="bfloat16", rows=af.TILE_ROWS,
+            cluster=p.cluster, smem=p.smem, clusters=af.tile_occupancy(p))
 
 
 def _demangle(name: str) -> str:
@@ -199,10 +214,32 @@ def _demangle(name: str) -> str:
 
 # ---------------------------------------------------------------- phase 2
 def adapter_path(T, D, m, dtype) -> str:
-    """Which kernel the launcher runs: the decode path's cluster, or the tile path."""
-    cluster = af.cluster_size(T, D, m, dtype)
-    return f"cluster{cluster}" if cluster else (
-        "tile_staged" if af.plan(D, m, dtype)[0] else "tile_rows")
+    """Which kernel the launcher runs: the decode path's cluster, the bf16
+    tile path (tiles of 64 rows, blocks per cluster) or the 16-row CUDA-core
+    kernel (h tile staged in shared memory, or rows read from device memory)."""
+    kernel, p = af.route(T, D, m, dtype)
+    if kernel == "cluster":
+        return f"cluster{af.CLUSTER}"
+    return f"tc_tile{af.TILE_ROWS}_c{p.cluster}" if kernel == "tile" else f"tile_{kernel}"
+
+
+def adapter_ptxas(T, D, m, dtype) -> str:
+    """ptxas's register and spill lines of the instantiation a shape runs."""
+    kernel, p = af.route(T, D, m, dtype)
+    key = {"cluster": "adapter_cluster_kernel", "tile": "adapter_tile_kernel",
+           "staged": "adapter_fused_kernelI", "rows": "adapter_fused_kernelI"}[kernel]
+    if kernel in ("staged", "rows"):
+        te = "13__nv_bfloat16" if dtype == torch.bfloat16 else "f"
+        key += f"{te}Lb{int(kernel == 'staged')}E"
+    return "; ".join(info for fn, lines in PTXAS.items() if key in fn for info in lines)
+
+
+def adapter_excess(got, want, h, wd, wu, act, dtype) -> float:
+    """The kernel's largest error beyond atol plus ADAPTER_RTOL of |out| and
+    of |up|, the term the plain version rounds to h's type (<= 0: agrees)."""
+    up = (ref.act(act, h.float() @ wd.float()) @ wu.float()).to(dtype).float()
+    bound = ATOL[dtype][0] + ADAPTER_RTOL[dtype] * (want.float().abs() + up.abs())
+    return ((got.float() - want.float()).abs() - bound).max().item()
 
 
 def adapter_case(T, dtype, act, gen, record=None, D=2048):
@@ -217,30 +254,41 @@ def adapter_case(T, dtype, act, gen, record=None, D=2048):
     diff = (got.float() - want.float()).abs()
     err = diff.max().item()
     tol = ATOL[dtype][0]
-    excess = (diff - tol - ADAPTER_RTOL[dtype] * want.float().abs()).max().item()
+    excess = adapter_excess(got, want, h, wd, wu, act, dtype)
     ms, eager_ms, plain_ms = in_turns(
         lambda: ops.adapter_fused(h, wd, wu, activation=act, impl="plain"),
         lambda: ops.adapter_fused(h, wd, wu, activation=act))
     size = h.element_size()
     nbytes = 2 * T * D * size + 2 * D * m * wd.element_size()
-    # down-projection on h's type; the up-projection has an fp32 left operand
-    down_rate = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
-    t_ops = 2 * T * D * m / down_rate + 2 * T * D * m / FP32_FLOPS
+    # bf16: both products at the tensor-core rate (the least the card could
+    # take); f32: on the CUDA cores, where the reference's fp32 products run
+    rate = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+    t_ops = 4 * T * D * m / rate
     t_bytes = nbytes / HBM_BYTES_PER_S
     bound_ms = 1e3 * max(t_ops, t_bytes)
+    # a graph of launches on one h may find it in the 50 MB L2: below the
+    # bytes bound, time it again over copies of h that exceed L2
+    cold = cold_ms(lambda x: ops.adapter_fused(x, wd, wu, activation=act), h) \
+        if ms < bound_ms else None
+    share = bound_ms / max(ms, cold or 0.0)
     dt = str(dtype).removeprefix("torch.")
-    say("adapter_fused", T=T, D=D, m=m, dtype=dt, act=act, path=adapter_path(T, D, m, dtype),
+    path = adapter_path(T, D, m, dtype)
+    say("adapter_fused", T=T, D=D, m=m, dtype=dt, act=act, path=path,
         max_abs_err=f"{err:.3g}", atol=tol, rtol=ADAPTER_RTOL[dtype], ms=f"{ms:.4f}",
+        **({"cold_ms": f"{cold:.4f}"} if cold is not None else {}),
         eager_ms=f"{eager_ms:.4f}", plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.5f}",
+        share_of_bound=f"{share:.3f}",
+        **({"ptxas": repr(adapter_ptxas(T, D, m, dtype))} if T > af.SMALL_T else {}),
         card=repr(CARD))
     if not excess <= 0:
         raise AssertionError(f"adapter_fused disagrees with its plain version: max error "
-                             f"{err}, {excess} beyond atol {tol} + rtol {ADAPTER_RTOL[dtype]}")
+                             f"{err}, {excess} beyond atol {tol} + rtol {ADAPTER_RTOL[dtype]} "
+                             f"of |out| and |up|")
     if record is not None:
         record.update(max_abs_err=err, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
                       bound_ms=bound_ms, bound_by="operations" if t_ops > t_bytes else "bytes",
-                      library_ms=None, shape=f"h[{T},{D}] m={m} {act} {dt}",
-                      path=adapter_path(T, D, m, dtype))
+                      library_ms=None, shape=f"h[{T},{D}] m={m} {act} {dt}", path=path,
+                      **({"cold_ms": cold} if cold is not None else {}))
     return ms
 
 
@@ -372,14 +420,12 @@ def edge_cases(gen) -> None:
             for m in (16, 48, 64):
                 wd = (0.05 * torch.randn(D, m, generator=gen, device="cuda")).to(dtype)
                 wu = (0.05 * torch.randn(m, D, generator=gen, device="cuda")).to(dtype)
-                for T in (1, 3, 4, 16, 17):
+                for T in (1, 3, 4, 16, 17, 100):
                     h = torch.randn(T, D, generator=gen, device="cuda").to(dtype)
                     for act in ("gelu", "relu", "silu"):
                         got = ops.adapter_fused(h, wd, wu, activation=act).float()
                         want = ops.adapter_fused(h, wd, wu, activation=act, impl="plain").float()
-                        excess = ((got - want).abs() - ATOL[dtype][0]
-                                  - ADAPTER_RTOL[dtype] * want.abs()).max().item()
-                        worst = max(worst, excess)
+                        worst = max(worst, adapter_excess(got, want, h, wd, wu, act, dtype))
                         n += 1
     say("adapter_fused_edges", cases=n, worst_excess=f"{worst:.3g}")
     if not worst <= 0:
@@ -464,6 +510,10 @@ def phase_kernels(records) -> None:
     decode[1600] = adapter_case(4, bf16, "gelu", gen, D=1600)
     adapter_case(2292, bf16, "gelu", gen, D=1600)
     adapter_case(2292, f32, "gelu", gen, D=1600)
+    # the bf16 tile path at the served batches' prefills (4 x 202 and 4 x 445
+    # for qwen2.5-3b and rwkv6-7b; 4 x 330 and 4 x 573 with hymba's meta tokens)
+    for T, D in ((808, 2048), (1780, 2048), (808, 4096), (1780, 4096), (1320, 1600)):
+        adapter_case(T, bf16, "gelu", gen, D=D)
     mamba_case(4, 640, 1600, 16, gen, record=records["mamba_scan"])
     mamba_case(4, 573, 1600, 16, gen)
     mamba_case(4, 330, 1600, 16, gen)
@@ -648,7 +698,8 @@ def main() -> None:
     phase_environment()
     records = {name: {"name": name, "route": "cuda", "source": src, "replaces": rep}
                for name, (src, rep) in SOURCES.items()}
-    say("previous", source="PERF.md section 6", timer=repr("rwkv_scan CUDA graph, others eager"),
+    say("previous", source="PERF.md section 6",
+        timer=repr("rwkv_scan and adapter_fused_tile CUDA graph, others eager"),
         **{f"{name}_ms": ms for name, ms in PREVIOUS_MS.items()})
     phase_kernels(records)
     phase_serve("qwen2.5-3b", records, cpu_witness=True)

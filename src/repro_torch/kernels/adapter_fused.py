@@ -3,7 +3,11 @@
 The port of the reference's Pallas ``kernels/adapter_fused.py``. Up to
 ``SMALL_T`` rows (decode) one thread block cluster of ``CLUSTER`` blocks
 splits D (:func:`cluster_plan`, which also lays out each block's shared
-memory for the kernel); above, one block per 16-row tile (:func:`plan`).
+memory for the kernel). Above, bf16 runs tiles of 64 rows on the tensor
+cores, each tile one cluster of up to 16 blocks that splits D
+(:func:`tile_plan`); f32, and the bf16 inputs the tile path does not take,
+run one block per 16-row tile on the CUDA cores (:func:`plan`).
+:func:`route` says which by shape, :func:`check` by shape and alignment.
 It takes CUDA tensors only; ``kernels.ops.adapter_fused`` is the public entry,
 which sends a CPU tensor to the plain version in ``kernels/ref.py``.
 """
@@ -21,11 +25,21 @@ NAME = "adapter_fused"
 ACTIVATIONS = {"gelu": 0, "relu": 1, "silu": 2}
 DTYPES = (torch.bfloat16, torch.float32)
 SMEM_LIMIT = 232_448   # bytes of shared memory one block may use on Hopper
+SM_SMEM = 233_472      # bytes of shared memory on an SM (1024 of them reserved per block)
 ROWS, THREADS = 16, 256  # rows of h per block, threads per block (csrc/adapter_fused.cu)
 # The decode path: blocks per cluster (CLUSTER in the source) and the most
 # rows it takes (one 16-row tile), both chosen by timing them on the H100
 # (PERF.md).
 CLUSTER, SMALL_T = 16, 16
+# The bf16 prefill path: rows per tile (one wgmma's 64), the blocks per
+# cluster the kernel takes (dividing 64; above 8 non-portable; ``tile_plan``
+# uses 8 and 16, ``launch/kernel_times.py --plans`` times them all) and the
+# most 64-column chunks of D one block owns; and the largest m (one column of
+# each thread's partial sums in the f32 kernel).
+TILE_ROWS = 64
+TILE_CLUSTERS = (1, 2, 4, 8, 16)
+TILE_CHUNKS = 8
+MAX_M = THREADS
 
 
 class ClusterPlan(NamedTuple):
@@ -42,6 +56,34 @@ class ClusterPlan(NamedTuple):
     smem: int
 
 
+class TilePlan(NamedTuple):
+    """One launch of the bf16 prefill path: tiles of ``TILE_ROWS`` rows, each
+    one cluster of ``cluster`` blocks owning ``dc`` columns of D (a multiple
+    of 64), m padded to ``mp`` (a multiple of 16), and the block's shared
+    memory in bytes: the offsets of its regions (``TileLayout`` in the
+    source) and the total."""
+    cluster: int
+    dc: int
+    mp: int
+    hs: int
+    wd: int
+    wu: int
+    part: int
+    hi: int
+    lo: int
+    bar: int
+    smem: int
+
+
+class Route(NamedTuple):
+    """Which kernel a call takes: ``"cluster"`` (decode, ``plan`` a
+    :class:`ClusterPlan`), ``"tile"`` (bf16 prefill, a :class:`TilePlan`), or
+    the 16-row CUDA-core kernel, ``"staged"`` or ``"rows"`` (``plan`` its
+    shared-memory bytes)."""
+    kernel: str
+    plan: object
+
+
 def _lib():
     so = build.lib(NAME)
     if so.adapter_fused_launch.argtypes is None:
@@ -53,6 +95,11 @@ def _lib():
         so.adapter_fused_cluster_launch.restype = ctypes.c_int
         so.adapter_fused_cluster_occupancy.argtypes = [ctypes.c_int] * 3
         so.adapter_fused_cluster_occupancy.restype = ctypes.c_int
+        so.adapter_fused_tile_launch.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 15
+                                                 + [ctypes.c_void_p])
+        so.adapter_fused_tile_launch.restype = ctypes.c_int
+        so.adapter_fused_tile_occupancy.argtypes = [ctypes.c_int] * 2
+        so.adapter_fused_tile_occupancy.restype = ctypes.c_int
     return so
 
 
@@ -63,12 +110,84 @@ def _sm_count(device: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def plan(D: int, m: int, dtype: torch.dtype) -> Tuple[bool, int]:
-    """(stage, shared-memory bytes) of one block of the tile path: the [16, D]
-    h tile is staged in shared memory where it fits, else its rows are read
-    from device memory."""
+    """(stage, shared-memory bytes) of one block of the 16-row CUDA-core
+    kernel: in f32 the [16, D] h tile is staged in shared memory where it
+    fits, else (and always in bf16, which takes this kernel only where no tile
+    plan fits) its rows are read from device memory."""
     base = 4 * (THREADS * ROWS + ROWS * m)             # partial sums + intermediate
-    staged = base + torch.finfo(dtype).bits // 8 * ROWS * D
-    return (True, staged) if staged <= SMEM_LIMIT else (False, base)
+    staged = base + 4 * ROWS * D
+    return (True, staged) if dtype == torch.float32 and staged <= SMEM_LIMIT else (False, base)
+
+
+def _up16(x: int, n: int = 16) -> int:
+    return -(-x // n) * n
+
+
+@functools.lru_cache(maxsize=None)
+def tile_layout(D: int, m: int, cluster: int) -> Optional[TilePlan]:
+    """The bf16 prefill path's shared memory for tiles of ``TILE_ROWS`` rows
+    split over clusters of ``cluster`` blocks, or None where it does not fit.
+
+    Each block owns ceil(D / cluster) columns rounded up to 64 (``dc``, at
+    most ``TILE_CHUNKS`` chunks of 64); m is padded to 16 (``mp``). The
+    regions, in bytes from the first 1024-byte aligned address of the block's
+    shared memory (1024 bytes are set aside for that): the block's slice of h
+    ``hs`` [64, dc], its rows of W_down ``wd`` [dc, m padded to 64] and its
+    columns of W_up ``wu`` [mp, dc], each in bf16 as 64-column chunks of
+    128-byte rows in the TMA's 128-byte swizzle (1024-byte aligned); the
+    cluster's partial sums of the block's rows of the intermediate ``part``
+    [cluster][64 / cluster][mp + 8] in fp32; the intermediate's bf16 parts
+    ``hi`` and ``lo`` [64][mp + 8]; ``bar``, the mbarriers. W_down is read
+    only before the cluster's first barrier, so W_up may take its buffer
+    (``wu == wd``, loaded after that barrier). Of the two layouts, the one
+    that lets more blocks share an SM (:func:`blocks_per_sm`), else W_up in
+    a buffer of its own, loaded with h.
+    """
+    if cluster not in TILE_CLUSTERS or not 1 <= m <= MAX_M:
+        return None
+    bt, mp, mp64 = TILE_ROWS, _up16(m), _up16(m, 64)
+    dc = _up16(-(-D // cluster), 64)
+    if dc > 64 * TILE_CHUNKS:
+        return None
+    hs, wd = 0, 2 * bt * dc
+    w_down, w_up = 2 * mp64 * dc, 2 * mp * dc
+    part_n, mid_n, bar_n = 4 * bt * (mp + 8), 2 * bt * (mp + 8), _up16(8 * (TILE_CHUNKS + 1))
+    plans = []
+    for wu, part in ((wd + w_down, wd + w_down + w_up),     # W_up in a buffer of its own
+                     (wd, wd + max(w_down, w_up))):         # W_up in W_down's
+        hi = part + part_n
+        bar = hi + 2 * mid_n
+        plans.append(TilePlan(cluster, dc, mp, hs, wd, wu, part, hi, hi + mid_n, bar,
+                              1024 + bar + bar_n))
+    plans = [p for p in plans if p.smem <= SMEM_LIMIT]
+    return min(plans, key=lambda p: (-blocks_per_sm(p.smem), p.wu == p.wd), default=None)
+
+
+def blocks_per_sm(smem: int) -> int:
+    """Blocks of the bf16 prefill path one SM holds with ``smem`` bytes of
+    shared memory each: at most 2 (its register budget, 128 a thread)."""
+    return min(2, SM_SMEM // (smem + 1024))
+
+
+@functools.lru_cache(maxsize=None)
+def tile_plan(T: int, D: int, m: int) -> Optional[TilePlan]:
+    """The bf16 prefill path's launch for h [T, D] (T > ``SMALL_T``), or None
+    where the path does not take the shape: D or m not a multiple of 8 (the
+    TMA moves 16-byte rows), or no plan fits (m above 128 at wide D: m 256
+    above D 2048). No model of the configs has such a shape; the 16-row
+    CUDA-core kernel takes it.
+
+    Clusters of 8 blocks where two fit on an SM, else of 16 (at the served
+    shapes: 8 at D 1600 and 2048, 16 at D 4096), the plan that timed fastest
+    on the H100 (``launch/kernel_times.py --plans``, PERF.md). A smaller
+    cluster only gives each block more columns, so none fits where 16 do not.
+    """
+    if T <= SMALL_T or D % 8 or m % 8:
+        return None
+    eight = tile_layout(D, m, 8)
+    if eight is not None and blocks_per_sm(eight.smem) == 2:
+        return eight
+    return tile_layout(D, m, 16)
 
 
 @functools.lru_cache(maxsize=None)
@@ -108,9 +227,24 @@ def cluster_size(T: int, D: int, m: int, dtype: torch.dtype) -> int:
     return CLUSTER if cluster_plan(T, D, m, dtype) else 0
 
 
+def route(T: int, D: int, m: int, dtype: torch.dtype) -> Route:
+    """The kernel that runs h [T, D] with bottleneck m, decided by shape alone."""
+    p = cluster_plan(T, D, m, dtype)
+    if p is not None:
+        return Route("cluster", p)
+    if dtype == torch.bfloat16:
+        t = tile_plan(T, D, m)
+        if t is not None:
+            return Route("tile", t)
+    stage, smem = plan(D, m, dtype)
+    return Route("staged" if stage else "rows", smem)
+
+
 def check(h: torch.Tensor, w_down: torch.Tensor, w_up: torch.Tensor,
-          activation: str) -> Tuple[bool, int]:
-    """Raise unless the kernel takes these inputs (any device); return :func:`plan`."""
+          activation: str) -> Route:
+    """Raise unless the kernels take these inputs (any device); return
+    :func:`route`, but the 16-row kernel for bf16 tile-path inputs whose data
+    is not 16-byte aligned."""
     if h.dim() != 2 or not h.is_contiguous():
         raise ValueError(f"h must be a contiguous [T, D] tensor, got {tuple(h.shape)}")
     T, D = h.shape
@@ -125,10 +259,13 @@ def check(h: torch.Tensor, w_down: torch.Tensor, w_up: torch.Tensor,
         raise ValueError(f"unsupported dtype {h.dtype}")
     if activation not in ACTIVATIONS:
         raise ValueError(f"unknown activation {activation!r}")
-    stage, smem = plan(D, m, h.dtype)
-    if not 1 <= m <= THREADS or smem > SMEM_LIMIT:
+    if not 1 <= m <= MAX_M:
         raise ValueError(f"adapter_fused kernel does not take D={D}, m={m} in {h.dtype}")
-    return stage, smem
+    r = route(T, D, m, h.dtype)
+    if r.kernel == "tile" and any(t.data_ptr() % 16 for t in (h, w_down, w_up)):
+        # the TMA takes 16-byte aligned rows only (views at an odd offset)
+        return Route("rows", plan(D, m, h.dtype)[1])
+    return r
 
 
 def cluster_occupancy(T: int, D: int, m: int, dtype: torch.dtype) -> int:
@@ -142,20 +279,44 @@ def cluster_occupancy(T: int, D: int, m: int, dtype: torch.dtype) -> int:
     return n
 
 
+def tile_occupancy(p: TilePlan) -> int:
+    """How many clusters of the bf16 prefill path with plan ``p`` the current
+    card holds at once (``cudaOccupancyMaxActiveClusters``); 0: none launch."""
+    n = _lib().adapter_fused_tile_occupancy(p.cluster, p.smem)
+    build.check(NAME, -n if n < 0 else 0)
+    return n
+
+
+def launch_tile(h: torch.Tensor, w_down: torch.Tensor, w_up: torch.Tensor, p: TilePlan, *,
+                activation: str = "gelu") -> torch.Tensor:
+    """The bf16 prefill path with plan ``p`` (:func:`tile_plan` chooses it;
+    ``launch/kernel_times.py --plans`` times the others); inputs as
+    :func:`adapter_fused`'s, bf16, checked by the kernel's launcher."""
+    T, D = h.shape
+    out = torch.empty_like(h)
+    err = _lib().adapter_fused_tile_launch(
+        h.data_ptr(), w_down.data_ptr(), w_up.data_ptr(), out.data_ptr(), T, D,
+        w_down.shape[-1], ACTIVATIONS[activation], *p,
+        torch.cuda.current_stream(h.device).cuda_stream)
+    build.check(NAME, err)
+    return out
+
+
 def adapter_fused(h: torch.Tensor, w_down: torch.Tensor, w_up: torch.Tensor, *,
                   activation: str = "gelu") -> torch.Tensor:
     """h [T, D] -> h + act(h @ w_down) @ w_up; h and the weights are all bf16 or all f32."""
     if h.device.type != "cuda":
         raise ValueError("adapter_fused kernel takes CUDA tensors")
-    stage, _ = check(h, w_down, w_up, activation)
+    kernel, p = check(h, w_down, w_up, activation)
+    if kernel == "tile":
+        return launch_tile(h, w_down, w_up, p, activation=activation)
     T, D = h.shape
     m = w_down.shape[-1]
     so = _lib()
     out = torch.empty_like(h)
     bf16 = int(h.dtype == torch.bfloat16)
     stream = torch.cuda.current_stream(h.device).cuda_stream
-    p = cluster_plan(T, D, m, h.dtype)
-    if p is not None:
+    if kernel == "cluster":
         err = so.adapter_fused_cluster_launch(
             h.data_ptr(), w_down.data_ptr(), w_up.data_ptr(), out.data_ptr(),
             T, D, m, bf16, ACTIVATIONS[activation], *p, stream)
@@ -167,6 +328,6 @@ def adapter_fused(h: torch.Tensor, w_down: torch.Tensor, w_up: torch.Tensor, *,
         n_split = max(1, min(sms // max(row_tiles, 1), -(-D // 256)))
         err = so.adapter_fused_launch(
             h.data_ptr(), w_down.data_ptr(), w_up.data_ptr(), out.data_ptr(),
-            T, D, m, bf16, ACTIVATIONS[activation], int(stage), n_split, stream)
+            T, D, m, bf16, ACTIVATIONS[activation], int(kernel == "staged"), n_split, stream)
     build.check(NAME, err)
     return out

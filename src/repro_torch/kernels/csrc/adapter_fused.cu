@@ -3,55 +3,73 @@
 // Replaces: the Pallas TPU kernel src/repro/kernels/adapter_fused.py
 //           (adapter_fused / _kernel, pallas_call at line 55).
 //
-// What bounds it on the H100: bytes. The bottleneck m is tiny (64 for
-// qwen2.5-3b), so the work is 4*T*D*m flops against 2*T*D*2 bytes of h in and
-// out (bf16): about m flops per byte, far below the ~295 the tensor cores need
-// before they are the limit. Unfused, h would cross device memory three times
-// and the [T, m] intermediate once more. Both products here run on the fp32
-// CUDA cores (67 TFLOP/s), because the reference keeps fp32 internals and the
-// up-projection has an fp32 left operand; at large T that rate, not the
-// memory, is what this simple version meets first.
+// What bounds it on the H100: bytes. The bottleneck m is tiny (64 for every
+// served model), so the work is 4*T*D*m flops against 2*T*D*2 bytes of h in
+// and out (bf16): about m flops per byte, far below the ~295 the bf16 tensor
+// cores need before they are the limit. Unfused, h would cross device memory
+// three times and the [T, m] intermediate once more. Three kernels:
 //
-// What the design does about it: one block per tile of BT = 16 rows keeps the
-// whole [BT, D] h tile in shared memory (64 KB in bf16 at D = 2048), so h is
-// read from device memory once and written once; the [BT, m] intermediate
-// never leaves the SM. Where the tile does not fit in the 227 KB a block may
-// use (f32 above D = 3312, bf16 above D = 6624: f32 rwkv6-7b at 4096), the
-// block reads its rows from device memory instead, once for the
-// down-projection and once, mostly from L2, for the residual; the wrapper
-// chooses (STAGE) and every width takes the kernel. The down-projection splits the D reduction over the
-// warps and sums their parts in shared memory. With bf16 h and W_down it runs
-// on the tensor cores (wmma 16x16x16, fp32 accumulation: bf16 products are
-// exact in fp32, so only the order of the sum changes); otherwise each thread
-// sums a strided part of D on the CUDA cores. The up-projection keeps fp32
-// operands on the CUDA cores: each thread owns NC output columns at once, so a
-// broadcast of the intermediate from shared memory feeds NC FMAs, and W_up is
-// read coalesced. When there are too few row tiles to fill the card (decode,
-// T = batch), blockIdx.y splits the output columns; each split recomputes the
-// tiny intermediate. Rows past T are masked, never padded. wgmma and TMA are
-// later work.
+// bf16 prefill (T > 16, adapter_tile_kernel): one thread block cluster of C
+// blocks (8 or 16, planned by the wrapper: kernels/adapter_fused.py,
+// tile_plan) per tile of 64 rows splits D, so the cluster reads the [64, D] h
+// tile once and each block keeps its [64, D/C] slice in shared memory from
+// the down-projection to the residual add. The Tensor Memory Accelerator
+// moves it: 2-D tile copies of 64 columns in the 128-byte swizzle, one
+// mbarrier per chunk of 64 columns of h with the matching 64 rows of W_down,
+// all issued at once, so the down-projection of one chunk runs while the next
+// lands; rows past T and columns past D arrive as zeros (masked, not padded).
+// Each weight byte is read once per tile of 64 rows, not once per 16. Both
+// products run on the tensor cores with the reference's fp32 internals: the
+// down-projection on mma.sync m16n8k16 (bf16 products are exact in fp32);
+// the fp32 intermediate mid = act(.) is split into hi = bf16(mid) and lo =
+// bf16(mid - hi), and the up-projection sums hi @ W_up + lo @ W_up (W_up is
+// exact in bf16) in fp32 on wgmma, with hi and lo in registers and W_up read
+// from its swizzled tile, which leaves about 2^-17 of the up term, far below
+// the bf16 output's rounding. Once a first cluster barrier (arrived at when
+// the copies are issued, waited on after the first products) shows that every
+// block of the cluster has started, each block stores its partial [64, m]
+// sums of the rows block r owns (t = r mod C) into block r's shared memory;
+// after a second barrier block r adds the C partials in rank order, applies
+// the activation and writes hi and lo into every block; after a third every
+// block forms its D/C output columns. No atomics, and the result does not
+// depend on timing. Each warp rounds its 16 x 64 piece of the up term to
+// bf16, adds h in place in the staged slice and hands it to a TMA store.
+// The TMA takes 16-byte aligned rows only: the launcher refuses others (D or
+// m not a multiple of 8, data not 16-byte aligned), which the wrapper sends
+// to the 16-row kernel. Two
+// blocks share an SM where their shared memory allows (128 registers a
+// thread). What is left on the table (PERF.md): a block is a chain of load,
+// products, cluster barriers and stores that the card runs in rounds.
 //
-// Decode (T <= 16, adapter_cluster_kernel): one row tile, and the tile path
-// above leaves the card idle (each of its few blocks reads all of W_down as a
-// chain of dependent loads). Here one thread block cluster of C = 16 blocks (a
-// non-portable size) splits D: block r stages its D/C rows of W_down, its
-// D/C columns of W_up and of h into shared memory with 16-byte cp.async
-// copies, all issued at once, W_up in a second group that lands while the
-// down-projection runs. It forms its partial [T, m] sums of h @ W_down, the
-// cluster syncs, and every block adds the C partials in rank order through
-// distributed shared memory, applies the activation and so holds the whole
-// intermediate; then it writes its D/C output columns. Each weight byte is
-// read once, spread over C SMs, in one launch, with no device-memory scratch
-// and no atomics. At this T the arithmetic is a few MFLOP, so both products
-// run in fp32 on the CUDA cores and keep the reference's fp32 internals. Where
-// W_down and W_up do not both fit (wide f32 with a large m), W_up is staged
-// into W_down's buffer after the down-projection instead. The wrapper plans
-// the shared-memory layout and passes it in (ClusterLayout): it alone decides
-// whether a shape fits this path.
+// Decode (T <= 16, adapter_cluster_kernel): one row tile, and a tile path
+// leaves the card idle. Here one cluster of C = 16 blocks (a non-portable
+// size) splits D: block r stages its D/C rows of W_down, its D/C columns of
+// W_up and of h into shared memory with 16-byte cp.async copies, all issued at
+// once, W_up in a second group that lands while the down-projection runs. It
+// forms its partial [T, m] sums of h @ W_down, the cluster syncs, and every
+// block adds the C partials in rank order through distributed shared memory,
+// applies the activation and so holds the whole intermediate; then it writes
+// its D/C output columns. Each weight byte is read once, spread over C SMs, in
+// one launch, with no device-memory scratch and no atomics. At this T the
+// arithmetic is a few MFLOP, so both products run in fp32 on the CUDA cores
+// and keep the reference's fp32 internals. Where W_down and W_up do not both
+// fit (wide f32 with a large m), W_up is staged into W_down's buffer after the
+// down-projection instead. The wrapper plans the shared-memory layout and
+// passes it in (ClusterLayout): it alone decides whether a shape fits.
+//
+// f32 prefill, and bf16 shapes the tile path does not take (m above 128 at
+// wide D, m 256 above D 2048, D or m not a multiple of 8, rows not 16-byte
+// aligned; no model of the configs): adapter_fused_kernel, one block
+// per 16 rows on the CUDA cores with fp32 operands. The [16, D] h tile is
+// staged in shared memory where it fits (f32 up to D = 3312), else rows are
+// read from device memory; the down-projection splits D over thread groups,
+// the up-projection gives each thread NC output columns so one broadcast of
+// the intermediate feeds NC FMAs. With too few row tiles to fill the card,
+// blockIdx.y splits the output columns.
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <atomic>
 #include <cstdint>
@@ -61,7 +79,7 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int BT = 16;         // rows of h per block (one wmma tile; ROWS in the wrapper)
+constexpr int BT = 16;         // rows of h per block of the f32 tile path (ROWS in the wrapper)
 constexpr int THREADS = 256;   // THREADS in the wrapper
 constexpr int WARPS = THREADS / 32;
 constexpr int NC = 4;          // output columns per thread in the up-projection
@@ -91,15 +109,12 @@ __device__ __forceinline__ float activate(int act, float x) {
 
 // STAGE: the [BT, D] h tile is staged in shared memory; otherwise rows are
 // read from device memory (row indices past T clamp to the last row, whose
-// results are never stored). TC: down-projection on the tensor cores (needs
-// STAGE; bf16 h and W_down, D and m multiples of 16, m <= 128, W_down
-// 32-byte aligned).
-template <typename TE, bool TC, bool STAGE>
+// results are never stored).
+template <typename TE, bool STAGE>
 __global__ void __launch_bounds__(THREADS)
 adapter_fused_kernel(const TE* __restrict__ h, const TE* __restrict__ wd,
                      const TE* __restrict__ wu, TE* __restrict__ out, int T, int D,
                      int m, int act, int cols_per_split) {
-  static_assert(STAGE || !TC, "the tensor-core path reads the staged tile");
   extern __shared__ __align__(128) unsigned char smem[];
   float* red = reinterpret_cast<float*>(smem);  // [G][BT][m] partial sums
   float* mid = red + THREADS * BT;              // [BT][m] act(h @ W_down)
@@ -122,32 +137,10 @@ adapter_fused_kernel(const TE* __restrict__ h, const TE* __restrict__ wd,
     __syncthreads();
   }
 
-  // down-projection into G partial sums red[g][BT][m]
-  int G;
-  if constexpr (TC) {
-    // warp w: 16-column tile w % n_tiles of the output, k-steps w / n_tiles + G*i
-    namespace wmma = nvcuda::wmma;
-    const int n_tiles = m / 16;
-    G = WARPS / n_tiles;
-    const int warp = tid / 32;
-    const int nt = warp % n_tiles;
-    const int ks = warp / n_tiles;
-    if (ks < G) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-      wmma::fill_fragment(c, 0.0f);
-#pragma unroll 4
-      for (int kk = ks; kk < D / 16; kk += G) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-        wmma::load_matrix_sync(a, hs + kk * 16, D);
-        wmma::load_matrix_sync(b, wd + static_cast<long>(kk) * 16 * m + nt * 16, m);
-        wmma::mma_sync(c, a, b, c);
-      }
-      wmma::store_matrix_sync(red + ks * BT * m + nt * 16, c, m, wmma::mem_row_major);
-    }
-  } else {
-    // thread (g, j) sums d = g, g + G, ... for column j
-    G = THREADS / m;
+  // down-projection: thread (g, j) sums d = g, g + G, ... for column j into
+  // the partial sums red[g][BT][m]
+  const int G = THREADS / m;
+  {
     const int j = tid % m;
     const int g = tid / m;
     if (g < G) {
@@ -232,12 +225,12 @@ cudaError_t set_up_once(std::atomic<unsigned long long>& done, K kernel, bool bi
   return err;
 }
 
-template <typename TE, bool TC, bool STAGE>
-int launch(const void* h, const void* wd, const void* wu, void* out, int T, int D,
-           int m, int act, int n_split, cudaStream_t stream) {
+template <typename TE, bool STAGE>
+int launch(const void* h, const void* wd, const void* wu, void* out, int T, int D, int m,
+           int act, int n_split, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (THREADS * BT + BT * m) + (STAGE ? sizeof(TE) * BT * D : 0);
-  auto kernel = adapter_fused_kernel<TE, TC, STAGE>;
+  auto kernel = adapter_fused_kernel<TE, STAGE>;
   static std::atomic<unsigned long long> done{0};
   cudaError_t err = set_up_once(done, kernel, false);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -455,33 +448,503 @@ bool cluster_plan_ok(int T, int D, int m, int elem, int nt, int dc, ClusterLayou
          L.wu % 16 == 0;
 }
 
+// ------------------------------------------------ bf16 prefill: tiles on the tensor cores
+
+using bf16_t = __nv_bfloat16;
+constexpr int TILE_CLUSTER_MAX = 16;  // the largest (non-portable) cluster of the tile path
+constexpr int TILE_ROWS = 64;         // rows of h per tile: one wgmma's M (TILE_ROWS, wrapper)
+constexpr int TILE_CHUNKS = 8;        // the most 64-column chunks of D a block owns
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+// c += a b: a 16x16 bf16 (row), b 16x8 bf16 (col), c 16x8 fp32
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(bf16_t lo, bf16_t hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16;
+}
+
+// Warpgroup matrix multiply (wgmma): d[64 x 64] += a[64 x 16] b[16 x 64] for
+// the 4 warps of a warpgroup, a in registers (warp i: rows 16i.., the mma.sync
+// A fragment), b in shared memory given by a descriptor, d in the mma.sync
+// accumulator layout (warp i: rows 16i.., d[4n .. 4n + 3] its 8-column tile n)
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving reads or writes of the accumulator d
+// across a wgmma fence or wait
+__device__ __forceinline__ void wgmma_pin(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// b: 16 rows (k) of 64 bf16 columns (n) from p, in the TMA's 128-byte swizzle
+// with 128-byte rows (n contiguous: the MN-major layout; 8-row groups 1024
+// bytes apart; the next 64 columns `lbo` bytes on)
+__device__ __forceinline__ uint64_t wgmma_desc(const void* p, int lbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 | static_cast<uint64_t>(1024 >> 4) << 32 |
+         static_cast<uint64_t>(1) << 62;
+}
+__device__ __forceinline__ void wgmma_64x64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// mbarriers, and the Tensor Memory Accelerator's 2-D tile copies
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// the one arrival of the barrier's phase, announcing `bytes` of copies
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar) {  // phase 0 has completed
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], 0;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar))
+      : "memory");
+}
+// the box at (column x, row y) of `map` into dst, completed on `bar`; rows
+// and columns outside the tensor arrive as zeros
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int x, int y,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(map), "r"(x), "r"(y), "r"(smem_u32(bar))
+      : "memory");
+}
+// the box of `map` at (x, y) from src; rows and columns outside the tensor are not written
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, int x, int y, const void* src) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];\n" ::"l"(map),
+      "r"(x), "r"(y), "r"(smem_u32(src))
+      : "memory");
+}
+
+// Element offset of (r, c) in a tile stored as 64-column chunks of R rows of
+// 128 bytes, the 16-byte pieces of each row XORed with its low 3 bits (the
+// TMA's 128-byte swizzle; each chunk 1024-byte aligned): the 8 rows one
+// ldmatrix phase reads lie in 8 different bank groups.
+__device__ __forceinline__ int swz(int R, int r, int c) {
+  return (c >> 6) * R * 64 + r * 64 + ((((c >> 3) & 7) ^ (r & 7)) << 3) + (c & 7);
+}
+
+// Byte offsets into the tile path's dynamic shared memory, from its first
+// 1024-byte aligned address, planned by the wrapper alone
+// (kernels/adapter_fused.py, tile_layout) for the use below. W_down is read
+// only before the first cluster barrier, so W_up may take its buffer after
+// it (wu == wd).
+struct TileLayout {
+  int dc;    // columns of D per block (a multiple of 64, at most 64 TILE_CHUNKS)
+  int mp;    // m rounded up to 16; columns past m are zero
+  int hs;    // [dc / 64][BT][64] bf16, swizzled: the block's slice of h, then of the output
+  int wd;    // [mp64 / 64][dc][64] bf16, swizzled: the block's rows of W_down
+  int wu;    // [dc / 64][mp][64] bf16, swizzled: the block's columns of W_up
+  int part;  // [C][BT / C][mp + 8] fp32: each block's h @ W_down for this block's rows
+  int hi;    // [BT][mp + 8] bf16: bf16(act(h @ W_down))
+  int lo;    // [BT][mp + 8] bf16: bf16(act(h @ W_down) - hi)
+  int bar;   // TILE_CHUNKS + 1 mbarriers: one per chunk of h and W_down, one for W_up
+};
+
+// The tensor maps of one launch (TMA 2-D tiles, 128-byte swizzle): h [T, D]
+// in boxes of [BT, 64], W_down [D, m] in [64, 64], W_up [m, D] in [mp, 64],
+// out [T, D] in [16, 64] (one warp's piece)
+struct TileMaps {
+  CUtensorMap h, wd, wu, out;
+};
+
+// One cluster of C blocks (C = the launch's cluster size, 1 to 16) per tile
+// of BT = 64 rows; block r of a cluster owns columns [r dc, (r + 1) dc) of D
+// and sums the intermediate's rows t = r mod C. 8 warps, two warpgroups:
+// warp w takes m-tile (16 rows) w % 4 and column group w / 4: in the
+// down-projection (mma.sync) the group's 32 columns of each 64 of m, over the
+// whole of the block's D/C; in the up-projection (wgmma, one warpgroup per
+// group) its 64-column chunks. The TMA moves h, the weights and the output
+// (the launcher takes only 16-byte aligned rows).
+__global__ void __launch_bounds__(THREADS, 2)
+adapter_tile_kernel(const __grid_constant__ TileMaps maps, int D, int act, TileLayout L) {
+  constexpr int BT = TILE_ROWS;
+  constexpr int MTILES = BT / 16;
+  constexpr int NG = WARPS / MTILES;
+  constexpr int NPW = 8 / NG;  // 8-column n-tiles per warp in each 64 columns of m
+  static_assert(MTILES == 4 && NG == 2, "one warpgroup of m-tiles per column group");
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  bf16_t* hs = reinterpret_cast<bf16_t*>(smem + L.hs);
+  bf16_t* wd_s = reinterpret_cast<bf16_t*>(smem + L.wd);
+  bf16_t* wu_s = reinterpret_cast<bf16_t*>(smem + L.wu);
+  float* part = reinterpret_cast<float*>(smem + L.part);
+  bf16_t* mid_hi = reinterpret_cast<bf16_t*>(smem + L.hi);
+  bf16_t* mid_lo = reinterpret_cast<bf16_t*>(smem + L.lo);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L.bar);
+  const bool share = L.wu == L.wd;
+  const int dc = L.dc, mp = L.mp, mp64 = (mp + 63) / 64 * 64;
+  const int lw = mp + 8;  // row stride of part, hi and lo
+  const int nch = dc / 64;
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int RB = BT / C;  // rows of the intermediate each block sums
+  const int row0 = static_cast<int>(blockIdx.x / C) * BT;
+  const int d0 = rank * dc;
+  const int nd = max(0, min(dc, D - d0));  // columns of D this block owns
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;   // accumulator rows g and g + 8 of an m-tile
+  const int t4 = lane % 4;  // accumulator columns 2 t4, 2 t4 + 1 of each 8
+  const int mt = warp % MTILES;
+  const int ng = warp / MTILES;
+
+  // chunk k of h (columns 64k..) with rows 64k.. of W_down on barrier k;
+  // W_up on barrier TILE_CHUNKS, after the down-projection where it takes
+  // W_down's buffer
+  auto load_wu = [&]() {
+    mbar_expect(bar + TILE_CHUNKS, 2u * dc * mp);
+    for (int k = 0; k < nch; ++k)
+      tma_load(wu_s + k * mp * 64, &maps.wu, d0 + 64 * k, 0, bar + TILE_CHUNKS);
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i <= TILE_CHUNKS; ++i) mbar_init(bar + i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int k = 0; k < nch; ++k) {
+      mbar_expect(bar + k, 2u * 64 * (BT + mp64));
+      tma_load(hs + k * BT * 64, &maps.h, d0 + 64 * k, row0, bar + k);
+      for (int c = 0; c < mp64; c += 64)
+        tma_load(wd_s + c * dc + 64 * k * 64, &maps.wd, c, d0 + 64 * k, bar + k);
+    }
+    if (!share) load_wu();
+  }
+  __syncthreads();  // the barriers are set up
+  // The first phase of the cluster barrier: its wait, before the first store
+  // into another block's shared memory, is what guarantees that every block
+  // of the cluster has started. Arrived here, waited on after this block's
+  // first products, so the wait overlaps them.
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+
+  // down-projection, in chunks of 64 columns of m: warp (mt, ng) sums its
+  // n-tiles over all of the block's D/C for the m-tile's 16 rows, then stores
+  // each row's sums into the shared memory of the block that owns the row
+  for (int n0 = 0; n0 < mp; n0 += 64) {
+    const int nb = n0 + 8 * NPW * ng;  // the warp's first column of m
+    float acc[NPW][4];
+#pragma unroll
+    for (int n = 0; n < NPW; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+    for (int k = 0; k < nch; ++k) {
+      if (n0 == 0) mbar_wait(bar + k);  // this chunk has landed
+      if (nb >= mp) continue;
+#pragma unroll
+      for (int k4 = 0; k4 < 4; ++k4) {
+        const int kk = 4 * k + k4;  // k-step of 16
+        uint32_t a[4];
+        ldmatrix_x4(a, hs + swz(BT, mt * 16 + lane % 16, kk * 16 + (lane / 16) * 8));
+#pragma unroll
+        for (int np = 0; np < NPW / 2; ++np) {
+          if (nb + 16 * np < mp) {
+            uint32_t b[4];
+            ldmatrix_x4_trans(b, wd_s + swz(dc, kk * 16 + lane % 8 + ((lane / 8) % 2) * 8,
+                                            nb + 16 * np + (lane / 16) * 8));
+            mma_bf16(acc[2 * np], a, b[0], b[1]);
+            mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+          }
+        }
+      }
+    }
+    if (n0 == 0) asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int t = mt * 16 + g + 8 * r;
+      float* dst = cluster.map_shared_rank(part, t % C) + (rank * RB + t / C) * lw;
+#pragma unroll
+      for (int n = 0; n < NPW; ++n)
+        if (nb + 8 * n < mp)
+          *reinterpret_cast<float2*>(dst + nb + 8 * n + 2 * t4) =
+              make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
+    }
+  }
+  cluster.sync();  // every block's sums are in place; W_down is no longer read
+  if (share) {
+    // W_up into W_down's buffer, after the ldmatrix reads of W_down
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    if (threadIdx.x == 0) load_wu();
+  }
+
+  // this block's rows t = rank + C i: the C blocks' sums in rank order, the
+  // activation, and hi and lo into every block of the cluster
+  const int half = mp / 2;
+  for (int p = threadIdx.x; p < RB * half; p += THREADS) {
+    const int i = p / half;
+    const int j = 2 * (p % half);
+    float s0 = 0.0f, s1 = 0.0f;
+    for (int s = 0; s < C; ++s) {
+      const float2 x = *reinterpret_cast<const float2*>(part + (s * RB + i) * lw + j);
+      s0 += x.x;
+      s1 += x.y;
+    }
+    const float v0 = activate(act, s0), v1 = activate(act, s1);
+    const bf16_t h0 = __float2bfloat16_rn(v0), h1 = __float2bfloat16_rn(v1);
+    const uint32_t hi = pack_bf16(h0, h1);
+    const uint32_t lo = pack_bf16(__float2bfloat16_rn(v0 - __bfloat162float(h0)),
+                                  __float2bfloat16_rn(v1 - __bfloat162float(h1)));
+    const int off = (rank + C * i) * lw + j;
+    for (int r = 0; r < C; ++r) {
+      *reinterpret_cast<uint32_t*>(cluster.map_shared_rank(mid_hi, r) + off) = hi;
+      *reinterpret_cast<uint32_t*>(cluster.map_shared_rank(mid_lo, r) + off) = lo;
+    }
+  }
+  mbar_wait(bar + TILE_CHUNKS);  // W_up
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // for wgmma's reads
+  cluster.sync();  // every row of hi and lo is in place; W_up too
+
+  // up-projection, hi @ W_up + lo @ W_up in fp32 on wgmma, and the
+  // residual: warpgroup w / 4 (the m-tiles' warps of column group ng) takes
+  // the 64-column chunks ng, ng + NG, ... of the block's columns for its 64
+  // rows. The A fragments of hi and lo are loaded once where m <= 64, else
+  // per group of 4 k-steps.
+  const int MK = mp / 16;
+  const int KG = (MK + 3) / 4;
+  uint32_t ahi[4][4], alo[4][4];
+  auto load_a = [&](int kg) {
+#pragma unroll
+    for (int k4 = 0; k4 < 4; ++k4) {
+      const int kk = 4 * kg + k4;
+      if (kk < MK) {
+        const int off = (mt * 16 + lane % 16) * lw + kk * 16 + (lane / 16) * 8;
+        ldmatrix_x4(ahi[k4], mid_hi + off);
+        ldmatrix_x4(alo[k4], mid_lo + off);
+      }
+    }
+  };
+  if (KG == 1) load_a(0);
+  for (int c0 = 64 * ng; c0 < nd; c0 += 64 * NG) {
+    float d[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) d[i] = 0.0f;
+    for (int kg = 0; kg < KG; ++kg) {
+      if (KG > 1) load_a(kg);
+      wgmma_pin(d);
+      wgmma_fence();
+#pragma unroll
+      for (int k4 = 0; k4 < 4; ++k4) {
+        const int kk = 4 * kg + k4;
+        if (kk < MK) {
+          const uint64_t b = wgmma_desc(wu_s + swz(mp, kk * 16, c0), mp * 128);
+          wgmma_64x64(d, ahi[k4], b);
+          wgmma_64x64(d, alo[k4], b);
+        }
+      }
+      wgmma_wait();
+      wgmma_pin(d);
+    }
+    // the up term rounded to bf16 (as the reference casts it to h's type),
+    // plus h, into the staged slice in place
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(
+            hs + swz(BT, mt * 16 + g + 8 * r, c0 + 8 * n + 2 * t4));
+        const float2 hv = __bfloat1622float2(*p);
+        const float u0 = __bfloat162float(__float2bfloat16_rn(d[4 * n + 2 * r]));
+        const float u1 = __bfloat162float(__float2bfloat16_rn(d[4 * n + 2 * r + 1]));
+        *p = __floats2bfloat162_rn(hv.x + u0, hv.y + u1);
+      }
+    }
+    // the warp's 16 x 64 piece to device memory
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // the writes above
+    __syncwarp();
+    if (lane == 0) {
+      tma_store(&maps.out, d0 + c0, row0 + mt * 16, hs + swz(BT, mt * 16, c0));
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    }
+  }
+  // the shared memory stays until the stores have read it
+  if (lane == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// The tensor maps of a launch, or false where the driver refuses them
+bool tile_maps(TileMaps& maps, const void* h, const void* wd, const void* wu, void* out, int T,
+               int D, int m, int mp) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode encode = [] {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) fn = nullptr;
+    return reinterpret_cast<Encode>(fn);
+  }();
+  if (encode == nullptr) return false;
+  const auto make = [&](CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+    const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+    const cuuint32_t steps[2] = {1, 1};
+    return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+                  strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  };
+  return make(&maps.h, h, T, D, TILE_ROWS) && make(&maps.wd, wd, D, m, 64) &&
+         make(&maps.wu, wu, m, D, mp) && make(&maps.out, out, T, D, 16);
+}
+
+// The tile path's launch (occupancy == nullptr) or its occupancy query
+cudaError_t launch_tile(int cluster_size, const void* h, const void* wd, const void* wu, void* out,
+                        int T, int D, int m, int act, TileLayout L, size_t smem,
+                        cudaStream_t stream, int* occupancy) {
+  static std::atomic<unsigned long long> done{0};
+  cudaError_t err = set_up_once(done, adapter_tile_kernel, true);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr = {};
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster_size;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster_size * ((T + TILE_ROWS - 1) / TILE_ROWS));
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  if (occupancy != nullptr)
+    return cudaOccupancyMaxActiveClusters(occupancy, adapter_tile_kernel, &cfg);
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  TileMaps maps = {};
+  if (!aligned(h) || !aligned(wd) || !aligned(wu) || !aligned(out) ||
+      !tile_maps(maps, h, wd, wu, out, T, D, m, L.mp))
+    return cudaErrorInvalidValue;
+  err = cudaLaunchKernelEx(&cfg, adapter_tile_kernel, maps, D, act, L);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// What the tile path's kernel takes of the wrapper's plan: each region, at
+// the size the kernel uses, inside the smem bytes and 16-byte aligned
+bool tile_plan_ok(int T, int D, int m, int cluster_size, TileLayout L, int smem) {
+  const int mp64 = (L.mp + 63) / 64 * 64;
+  const long hs = 2L * TILE_ROWS * L.dc, wdb = 2L * mp64 * L.dc, wub = 2L * L.mp * L.dc;
+  const long part = 4L * TILE_ROWS * (L.mp + 8), mid = 2L * TILE_ROWS * (L.mp + 8);
+  // regions from the first 1024-byte aligned address, up to 1024 bytes in
+  const auto fits = [&](int off, long size, int align) {
+    return 0 <= off && off % align == 0 && off + size <= smem - 1024;
+  };
+  return T >= 1 && 1 <= m && m <= THREADS && D % 8 == 0 && m % 8 == 0 &&
+         L.mp == (m + 15) / 16 * 16 && L.dc >= 64 &&
+         L.dc % 64 == 0 && L.dc <= 64 * TILE_CHUNKS && 1 <= cluster_size &&
+         cluster_size <= TILE_CLUSTER_MAX && TILE_ROWS % cluster_size == 0 &&
+         static_cast<long>(L.dc) * cluster_size >= D && smem <= SMEM_LIMIT &&
+         fits(L.hs, hs, 1024) && fits(L.wd, wdb, 1024) && fits(L.wu, wub, 1024) &&
+         fits(L.part, part, 16) && fits(L.hi, mid, 16) && fits(L.lo, mid, 16) &&
+         fits(L.bar, 8 * (TILE_CHUNKS + 1), 16);
+}
+
 }  // namespace
 
 extern "C" {
 
 // h [T, D], w_down [D, m], w_up [m, D], out [T, D]; all contiguous on one device,
 // of one dtype. bf16: 1 = bfloat16, 0 = float32. act: 0 gelu, 1 relu, 2 silu.
-// stage: 1 = keep the [16, D] h tile in shared memory (the caller checks that
-// 4 * (256 * 16 + 16 * m) + sizeof(dtype) * 16 * D bytes fit), 0 = read h rows
-// from device memory (4 * (256 * 16 + 16 * m) bytes). Returns the cudaError_t
-// of the launch (0 = launched).
+// The 16-row tile kernel on the CUDA cores: f32, and bf16 shapes no tile plan
+// fits. stage: 1 = keep the [16, D] h tile in shared memory (f32 only; the
+// caller checks that 4 * (256 * 16 + 16 * m) + 4 * 16 * D bytes fit), 0 = read
+// h rows from device memory (4 * (256 * 16 + 16 * m) bytes). Returns the
+// cudaError_t of the launch (0 = launched).
 int adapter_fused_launch(const void* h, const void* w_down, const void* w_up, void* out,
                          int T, int D, int m, int bf16, int act, int stage, int n_split,
                          void* stream) {
   if (T <= 0) return 0;
-  if (m < 1 || m > THREADS || n_split < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (m < 1 || m > THREADS || n_split < 1 || (bf16 && stage))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool tc = stage && D % 16 == 0 && m % 16 == 0 && m <= 16 * WARPS &&
-                  reinterpret_cast<uintptr_t>(w_down) % 32 == 0;
-  if (bf16 && tc)
-    return launch<__nv_bfloat16, true, true>(h, w_down, w_up, out, T, D, m, act, n_split, s);
-  if (bf16 && stage)
-    return launch<__nv_bfloat16, false, true>(h, w_down, w_up, out, T, D, m, act, n_split, s);
-  if (bf16)
-    return launch<__nv_bfloat16, false, false>(h, w_down, w_up, out, T, D, m, act, n_split, s);
-  if (stage)
-    return launch<float, false, true>(h, w_down, w_up, out, T, D, m, act, n_split, s);
-  return launch<float, false, false>(h, w_down, w_up, out, T, D, m, act, n_split, s);
+  if (bf16) return launch<__nv_bfloat16, false>(h, w_down, w_up, out, T, D, m, act, n_split, s);
+  if (stage) return launch<float, true>(h, w_down, w_up, out, T, D, m, act, n_split, s);
+  return launch<float, false>(h, w_down, w_up, out, T, D, m, act, n_split, s);
+}
+
+// The bf16 prefill path: tiles of 64 rows, each one cluster of `cluster`
+// blocks (1-16, dividing 64) owning dc columns of D each, with the
+// wrapper's shared-memory plan (smem bytes; mp = m rounded up to 16; hs, wd,
+// wu, part, hi, lo, bar: byte offsets of TileLayout). The TMA moves h, the
+// weights and out (tensor maps made here, per launch), so all four must be
+// 16-byte aligned and D and m multiples of 8. Returns the cudaError_t of the
+// launch.
+int adapter_fused_tile_launch(const void* h, const void* w_down, const void* w_up, void* out,
+                              int T, int D, int m, int act, int cluster, int dc, int mp,
+                              int hs, int wd, int wu, int part, int hi, int lo, int bar,
+                              int smem, void* stream) {
+  if (T <= 0) return 0;
+  const TileLayout L{dc, mp, hs, wd, wu, part, hi, lo, bar};
+  if (!tile_plan_ok(T, D, m, cluster, L, smem)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_tile(cluster, h, w_down, w_up, out, T, D, m, act, L, smem,
+                                      static_cast<cudaStream_t>(stream), nullptr));
+}
+
+// cudaOccupancyMaxActiveClusters of the bf16 prefill kernel for clusters of
+// `cluster` blocks with smem bytes of shared memory per block (0: none can
+// launch), or minus the cudaError_t of the query.
+int adapter_fused_tile_occupancy(int cluster, int smem) {
+  if (smem < 0 || smem > SMEM_LIMIT || cluster < 1 || cluster > TILE_CLUSTER_MAX)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  int n = 0;
+  const cudaError_t err = launch_tile(cluster, nullptr, nullptr, nullptr, nullptr, TILE_ROWS, 0,
+                                      0, 0, TileLayout{}, smem, nullptr, &n);
+  return err ? -static_cast<int>(err) : n;
 }
 
 // The decode path: T <= nt <= 16 rows, one cluster of 16 blocks, each owning

@@ -1,13 +1,15 @@
 """Times the port's kernels, and its serving loop, so two checkouts can be compared in one run.
 
-    PYTHONPATH=<checkout>/src python3 src/repro_torch/launch/kernel_times.py [--serve ARCH]
+    PYTHONPATH=<checkout>/src python3 src/repro_torch/launch/kernel_times.py \
+        [--serve ARCH | --plans]
 
 Whichever ``repro_torch`` is first on the path is the one timed: run this file
 against two checkouts in turns (A, B, B, A) on one card to compare them. It
 uses only the public entries (``kernels.ops``, ``BatchServer``).
 
 Without ``--serve``: ``adapter_fused`` at decode (h [T, D] for 1-17 rows and
-the served widths) and at prefill (h [2048, 2048]), ``flash_attention`` at the served
+the served widths) and at prefill (h [2048, 2048] and [2048, 4096] in bf16
+and f32, [2292, 1600] in bf16), ``flash_attention`` at the served
 prefill shapes, ``rwkv_scan`` at rwkv6-7b's prefill (N 256 = 4 rows x 64 heads
 of 64, S 512 and 445) and ``mamba_scan`` at hymba-1.5b's ([4, 640, 1600, 16]),
 each checked against its plain version and timed three ways:
@@ -17,7 +19,12 @@ the host's rate); ``host_us``, the host time of one call (its Python and the
 launch) with the card not waited on. With ``--serve ARCH``: the architecture at
 its published width (random weights from seed 0, non-zero adapters), 4 slots, 8
 requests of 64-512 prompt tokens, 32 new tokens each, served after a warm-up,
-``--runs`` times: tokens per second, prefill ms and decode ms per step.
+``--runs`` times: tokens per second, prefill ms and decode ms per step. With
+``--plans``: the bf16 prefill path of ``adapter_fused`` at the served prefill
+shapes under every tile plan that fits and launches (blocks per cluster),
+each checked against the plain version and timed warm (``ms``, as
+above) and over copies of h that together exceed the 50 MB L2 (``cold_ms``),
+beside the plan ``tile_plan`` chooses.
 
 Prints one JSON line per measurement, then the card's name and power limit.
 It needs a CUDA card.
@@ -120,7 +127,8 @@ def kernels() -> None:
     rnd = lambda *s, dtype: torch.randn(s, generator=gen, device="cuda").to(dtype)
     adapters = [(T, D, torch.bfloat16) for D in (1600, 2048, 4096) for T in (1, 4, 16)]
     adapters += [(17, 2048, torch.bfloat16), (4, 4096, torch.float32),
-                 (2048, 2048, torch.bfloat16)]
+                 (2048, 2048, torch.bfloat16), (2048, 4096, torch.bfloat16),
+                 (2292, 1600, torch.bfloat16), (2048, 4096, torch.float32)]
     for T, D, dtype in adapters:
         h, wd, wu = rnd(T, D, dtype=dtype), 0.05 * rnd(D, 64, dtype=dtype), \
             0.05 * rnd(64, D, dtype=dtype)
@@ -159,6 +167,47 @@ def kernels() -> None:
           lambda: ops.mamba_scan(log_a, b, c), lambda: ops.mamba_scan(log_a, b, c, impl="plain"))
 
 
+def cold_ms(fn, h: torch.Tensor, l2_bytes: float = 50e6) -> float:
+    """``graph_ms`` of ``fn(x)`` over enough copies x of h that together exceed
+    the L2 cache, taken in turn, so no call finds its input in L2 from the
+    call before."""
+    copies = [h.clone() for _ in range(max(2, int(l2_bytes // (h.numel() * h.element_size())) + 2))]
+    turn = iter(range(1 << 30))
+    return graph_ms(lambda: fn(copies[next(turn) % len(copies)]))
+
+
+# the served prefill shapes of the adapter: h [T, D] of qwen2.5-3b and
+# rwkv6-7b (4 x 512, and the served batches 4 x 202 and 4 x 445) and
+# hymba-1.5b (meta tokens first: 4 x 573, 4 x 330, and 4 x 640 traced)
+PREFILL_SHAPES = [(2048, 2048), (808, 2048), (1780, 2048), (2048, 4096), (808, 4096),
+                  (1780, 4096), (2292, 1600), (1320, 1600), (2560, 1600)]
+
+
+def plans() -> None:
+    from repro_torch.kernels import adapter_fused as af
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)
+    m = 64
+    for T, D in PREFILL_SHAPES:
+        h, wd, wu = rnd(T, D), 0.05 * rnd(D, m), 0.05 * rnd(m, D)
+        want = ops.adapter_fused(h, wd, wu, impl="plain").float()
+        chosen = af.tile_plan(T, D, m)
+        for cluster in af.TILE_CLUSTERS:
+            p = af.tile_layout(D, m, cluster)
+            if p is None or af.tile_occupancy(p) == 0:
+                continue
+            run = lambda x: af.launch_tile(x, wd, wu, p)
+            err = (run(h).float() - want).abs().max().item()
+            print(json.dumps({"plan": f"h[{T},{D}] m={m} gelu bfloat16", "cluster": cluster,
+                              "smem": p.smem, "blocks_per_sm": af.blocks_per_sm(p.smem),
+                              "share": p.wu == p.wd, "clusters_at_once": af.tile_occupancy(p),
+                              "chosen": p == chosen, "max_abs_err": err,
+                              "ms": graph_ms(lambda: run(h)), "cold_ms": cold_ms(run, h)}),
+                  flush=True)
+
+
 def serve(arch: str, runs: int) -> None:
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import BatchServer, Request
@@ -195,12 +244,16 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--serve", default=None, help="serve this architecture instead")
     ap.add_argument("--runs", type=int, default=5, help="served runs after the warm-up")
+    ap.add_argument("--plans", action="store_true",
+                    help="time every tile plan of the bf16 prefill path instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.serve:
         serve(args.serve, args.runs)
+    elif args.plans:
+        plans()
     else:
         kernels()
     print(card(), flush=True)

@@ -6,9 +6,13 @@ from seed 0, non-zero adapters), a batch of 4 prompts of 512 tokens (hymba
 puts its 128 meta tokens before each: 640 prefill positions), then 4 decode steps. For prefill and for decode it prints the host wall time
 without the profiler (taken before the profiler first runs), the device time
 summed over kernels (traced), the device's idle share of the unprofiled wall
-time, the kernel launches, and the kernels that took the most device time.
+time, the kernel launches, the kernels that took the most device time, and the
+device time of each of the port's own kernels.
 
     PYTHONPATH=src python -m repro_torch.launch.trace_serve [--arch rwkv6-7b | hymba-1.5b]
+
+Run as a file (``python3 src/repro_torch/launch/trace_serve.py``) with another
+checkout's ``src`` on PYTHONPATH to trace that checkout the same way.
 
 It needs a CUDA card: the numbers are device metrics.
 """
@@ -27,6 +31,7 @@ from repro_torch.models import params as prm
 from repro_torch.models import transformer as tfm
 
 BATCH, PROMPT_LEN, STEPS, TOP, SEED = 4, 512, 4, 12, 0
+PORT_KERNELS = ("adapter_", "flash_attention", "rwkv_scan", "mamba_scan")
 
 
 def _wall_ms(fn, device: torch.device) -> float:
@@ -50,6 +55,11 @@ def _traced(fn, device: torch.device, label: str, wall_ms: float) -> None:
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:TOP]:
         print(f"[{label}]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
               f"{e.key[:90]}")
+    # the port's own kernels, wherever they rank
+    for e in events:
+        if any(name in e.key for name in PORT_KERNELS):
+            print(f"[{label}] port kernel {e.self_device_time_total / 1e3:9.3f} ms  "
+                  f"x{e.count:<5d} {e.key[:90]}")
 
 
 def main(argv=None) -> None:

@@ -10,7 +10,11 @@ Tolerances are the reference's (tests/test_kernels.py): adapter 1e-5 in f32
 and 2e-2 in bf16, attention 1e-5 in f32 and 3e-2 in bf16. The bf16 adapter
 also allows one bf16 ulp of each output (rtol 2**-7): its fp32 sums run in
 another order than the plain version's, which can move ``h + up`` across a
-rounding boundary where |h| > 4 and one ulp exceeds 2e-2.
+rounding boundary where |h| > 4 and one ulp exceeds 2e-2. The bf16 prefill
+path's cases allow one bf16 ulp of the up term on top (``_adapter_bound``):
+the plain version rounds ``up`` to bf16 before the residual add, and fp32 sums
+in another order can land that rounding one ulp apart; where h cancels a
+large up term, that ulp exceeds the tolerance of the small output.
 
 ``rwkv_scan`` and ``mamba_scan`` are held to their plain versions relative
 to the largest entry of each output (1e-4): both sum fp32 products in their
@@ -25,6 +29,22 @@ from repro_torch.kernels import ops  # noqa: E402
 
 ATOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 3e-2)}   # (adapter, attention)
 SCAN_RTOL = 1e-4     # rwkv_scan and mamba_scan, of the largest entry of each output
+ULP = 2.0 ** -7      # one bf16 ulp, relative
+
+
+def _adapter_bound(h, wd, wu, act, want):
+    """What a bf16 adapter output may differ from the plain version's
+    ``want`` by, elementwise: atol 2e-2, one bf16 ulp of the output and one of
+    the up term, which the plain version rounds to bf16 before the residual."""
+    from repro_torch.kernels import ref
+
+    up = (ref.act(act, h.float() @ wd.float()) @ wu.float()).to(torch.bfloat16).float()
+    return ATOL["bfloat16"][0] + ULP * (want.float().abs() + up.abs())
+
+
+def _assert_adapter_close(got, h, wd, wu, act, want):
+    excess = (got.float() - want.float()).abs() - _adapter_bound(h, wd, wu, act, want)
+    assert excess.max().item() <= 0, f"{excess.max().item()} beyond the tolerance"
 
 
 @pytest.mark.gpu
@@ -170,6 +190,68 @@ def test_adapter_fused_decode_cluster_on_card(D, dtype):
                 got = ops.adapter_fused(h, wd, wu, activation=act)
                 assert ops.LAUNCHES["adapter_fused"] == 1
                 torch.testing.assert_close(got.float(), want, **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scale", ["init", 0.05])
+@pytest.mark.parametrize("D", [1600, 2048, 4096, 4608])
+@pytest.mark.parametrize("m", [16, 48, 64, 128])
+def test_adapter_fused_bf16_tile_path_on_card(m, D, scale):
+    """The bf16 prefill path (tiles on the tensor cores, one cluster per tile
+    splitting D) against the plain version: every activation, ragged T (rows
+    past T masked) and widths that leave the last blocks of a cluster part or
+    wholly empty (D 1600 over 8 blocks of 256 columns); the clusters fit on
+    the card. Weights of the models' init scale (1/sqrt of the fan-in,
+    ``models/params.py``) and of std 0.05, where at m 128 and D 4096 the up
+    term reaches 8 and more: there one bf16 ulp of it (0.0625) is more than
+    atol, so the bound allows that ulp (``_adapter_bound``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.kernels import adapter_fused as af
+
+    gen = torch.Generator(device="cuda").manual_seed(D + m)
+    rnd = lambda *s, scale=1.0: (torch.randn(s, generator=gen, device="cuda")
+                                 * scale).to(torch.bfloat16)
+    if scale == "init":
+        wd, wu = rnd(D, m, scale=D ** -0.5), rnd(m, D, scale=m ** -0.5)
+    else:
+        wd, wu = rnd(D, m, scale=scale), rnd(m, D, scale=scale)
+    for T in (17, 33, 100, 808, 1320, 1780, 2292):
+        route = af.route(T, D, m, torch.bfloat16)
+        assert route.kernel == "tile" and af.tile_occupancy(route.plan) > 0
+        h = rnd(T, D)
+        for act in ("gelu", "relu", "silu"):
+            want = ops.adapter_fused(h, wd, wu, activation=act, impl="plain").float()
+            ops.reset_launches()
+            got = ops.adapter_fused(h, wd, wu, activation=act)
+            assert ops.LAUNCHES["adapter_fused"] == 1
+            _assert_adapter_close(got, h, wd, wu, act, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,D,m,kernel", [(300, 1001, 64, "rows"), (300, 1000, 50, "rows"),
+                                          (77, 200, 256, "tile"), (40, 8192, 256, "rows")])
+def test_adapter_fused_bf16_odd_shapes_on_card(T, D, m, kernel):
+    """Widths and m that are not multiples of 8 (the tile path's TMA moves
+    16-byte rows, so the 16-row CUDA-core kernel takes them), m = 256 (four
+    groups of k-steps in the up-projection), a shape no tile plan fits, and h
+    as a view at an odd offset (the 16-row kernel too)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.kernels import adapter_fused as af
+
+    assert af.route(T, D, m, torch.bfloat16).kernel == kernel
+    gen = torch.Generator(device="cuda").manual_seed(T + D + m)
+    rnd = lambda *s, scale=1.0: (torch.randn(s, generator=gen, device="cuda")
+                                 * scale).to(torch.bfloat16)
+    h, wd, wu = rnd(T, D), rnd(D, m, scale=0.05), rnd(m, D, scale=0.05)
+    got = ops.adapter_fused(h, wd, wu)
+    want = ops.adapter_fused(h, wd, wu, impl="plain")
+    _assert_adapter_close(got, h, wd, wu, "gelu", want)
+    odd = torch.empty(T * D + 1, dtype=torch.bfloat16, device="cuda")[1:].view(T, D)
+    odd.copy_(h)
+    assert af.check(odd, wd, wu, "gelu").kernel == "rows"
+    _assert_adapter_close(ops.adapter_fused(odd, wd, wu), h, wd, wu, "gelu", want)
 
 
 def _attention_cases():

@@ -161,17 +161,203 @@ def test_kernel_launchers_take_cuda_tensors_only():
                                             (5120, torch.float32, False)])
 @pytest.mark.parametrize("T", [4, 2048])
 def test_adapter_fused_launcher_takes_every_model_width(D, dtype, staged, T):
-    """The [16, D] h tile is staged in shared memory where it fits; wider f32
-    (rwkv6-7b at 4096, starcoder2-7b at 4608, llama4 at 5120) reads h rows
-    from device memory instead, so the shape check no longer refuses it. The
-    kernel itself runs only on the card (tests/test_torch_gpu.py)."""
+    """Every width takes a kernel. bf16 prefill stages each block's slice of the
+    h tile in shared memory (the tile path); f32 stages the [16, D] tile where
+    it fits and wider f32 (rwkv6-7b at 4096, starcoder2-7b at 4608, llama4 at
+    5120) reads h rows from device memory, so the shape check refuses none.
+    The kernels themselves run only on the card (tests/test_torch_gpu.py)."""
     meta = lambda *shape: torch.empty(shape, dtype=dtype, device="meta")
-    stage, smem = torch_af.check(meta(T, D), meta(D, 64), meta(64, D), "gelu")
-    assert stage == staged and smem <= torch_af.SMEM_LIMIT
-    assert smem == 4 * (256 * 16 + 16 * 64) + staged * dtype.itemsize * 16 * D
+    kernel, p = torch_af.check(meta(T, D), meta(D, 64), meta(64, D), "gelu")
+    if T <= torch_af.SMALL_T:
+        assert kernel == "cluster" and p.smem <= torch_af.SMEM_LIMIT
+    elif dtype == torch.bfloat16:
+        assert kernel == "tile" and staged and p.smem <= torch_af.SMEM_LIMIT
+        assert p.wd - p.hs >= 2 * torch_af.TILE_ROWS * p.dc   # the staged slice of h
+    else:
+        assert kernel == ("staged" if staged else "rows") and p <= torch_af.SMEM_LIMIT
+    stage, smem = torch_af.plan(D, 64, dtype)          # the 16-row CUDA-core kernel
+    assert stage == (staged and dtype == torch.float32) and smem <= torch_af.SMEM_LIMIT
+    assert smem == 4 * (256 * 16 + 16 * 64) + stage * dtype.itemsize * 16 * D
     with pytest.raises(ValueError, match="CUDA"):
         torch_af.adapter_fused(torch.zeros(T, D, dtype=dtype), torch.zeros(D, 64, dtype=dtype),
                                torch.zeros(64, D, dtype=dtype))
+
+
+SERVED_T = (17, 33, 808, 1320, 1780, 2048, 2292)    # ragged, and the served prefills
+
+
+@pytest.mark.parametrize("D", [1600, 2048, 4096, 4608])
+@pytest.mark.parametrize("m", [16, 48, 64, 128])
+def test_adapter_fused_tile_plan_at_served_shapes(m, D):
+    """The bf16 prefill path's plan at every served T and width: it fits in
+    shared memory, its cluster is one the card allows (at most 16 blocks,
+    above 8 non-portable), every row of h belongs to one tile and every
+    column to one block of the cluster, every row of the intermediate is
+    summed by one block, and the regions of the layout do not overlap.
+    Pure Python: the kernels run only on the card."""
+    for T in SERVED_T:
+        kernel, p = torch_af.route(T, D, m, torch.bfloat16)
+        assert kernel == "tile" and p == torch_af.tile_plan(T, D, m)
+        bt = torch_af.TILE_ROWS
+        assert bt == 64 and p.cluster in (1, 2, 4, 8, 16)
+        assert p.smem <= torch_af.SMEM_LIMIT
+        assert p.mp % 16 == 0 and m <= p.mp < m + 16
+        tiles = -(-T // bt)
+        assert (tiles - 1) * bt < T <= tiles * bt                   # rows: one tile each
+        # ceil(D / cluster) columns per block, rounded up to 64 (so blocks at the
+        # end of a cluster may own fewer columns, or none), at most TILE_CHUNKS x 64
+        assert p.dc == 64 * -(-(-(-D // p.cluster)) // 64) and p.cluster * p.dc >= D
+        assert p.dc <= 64 * torch_af.TILE_CHUNKS
+        owner = [d // p.dc for d in range(D)]                        # columns: one block each
+        assert owner[0] == 0 and owner[-1] < p.cluster and owner == sorted(owner)
+        summed = sorted(t for r in range(p.cluster) for t in range(r, bt, p.cluster))
+        assert summed == list(range(bt)) and bt % p.cluster == 0      # intermediate rows
+        sizes = {"hs": 2 * bt * p.dc, "wd": 2 * 64 * -(-m // 64) * p.dc, "wu": 2 * p.mp * p.dc,
+                 "part": 4 * bt * (p.mp + 8), "hi": 2 * bt * (p.mp + 8),
+                 "lo": 2 * bt * (p.mp + 8), "bar": 16 * -(-8 * (torch_af.TILE_CHUNKS + 1) // 16)}
+        for k in ("hs", "wd", "wu"):                   # the TMA's swizzled tiles
+            assert getattr(p, k) % 1024 == 0
+        # W_down's buffer is free after the first cluster barrier and W_up may
+        # take it; the plan lets the most blocks share an SM, loading W_up
+        # with h where that costs none
+        apart = 1024 + sum(sizes.values())
+        share = apart - sizes["wd"] - sizes["wu"] + max(sizes["wd"], sizes["wu"])
+        fits = [n for n in (apart, share) if n <= torch_af.SMEM_LIMIT]
+        most = max(torch_af.blocks_per_sm(n) for n in fits)
+        assert p.smem == (apart if apart in fits and torch_af.blocks_per_sm(apart) == most
+                          else share)
+        own = dict(sizes)                       # the regions with room of their own
+        if p.wu == p.wd:
+            own["wd"] = max(own["wd"], own.pop("wu"))
+        regions = sorted((getattr(p, k), n) for k, n in own.items())
+        assert regions[0][0] == 0
+        for (start, n), (nxt, _) in zip(regions, regions[1:]):
+            assert start % 16 == 0 and n % 16 == 0 and start + n <= nxt
+        assert 1024 + regions[-1][0] + regions[-1][1] == p.smem      # 1024: for alignment
+        # the plan that timed fastest: clusters of 8 where two blocks share an
+        # SM, else 16; each weight byte is read once per tile of 64 rows
+        two = [c for c in (8, 16) if torch_af.tile_layout(D, m, c)
+               and torch_af.blocks_per_sm(torch_af.tile_layout(D, m, c).smem) == 2]
+        assert p.cluster == (two[0] if two else 16)
+
+
+@pytest.mark.parametrize("T,D,m,dtype,kernel", [
+    (4, 2048, 64, torch.bfloat16, "cluster"), (16, 4096, 64, torch.bfloat16, "cluster"),
+    (17, 2048, 64, torch.bfloat16, "tile"), (2048, 5120, 64, torch.bfloat16, "tile"),
+    (300, 1000, 50, torch.bfloat16, "rows"), (77, 200, 256, torch.bfloat16, "tile"),
+    (40, 8192, 256, torch.bfloat16, "rows"), (2048, 2048, 64, torch.float32, "staged"),
+    (2048, 4096, 64, torch.float32, "rows"), (17, 3312, 16, torch.float32, "staged"),
+    (300, 1001, 64, torch.bfloat16, "rows"), (300, 1000, 64, torch.bfloat16, "tile")])
+def test_adapter_fused_route_by_shape(T, D, m, dtype, kernel):
+    """Which kernel a shape takes, by shape alone: the decode cluster up to 16
+    rows; above, bf16 takes the tile path wherever D and m are multiples of 8
+    (its TMA copies move 16-byte rows) and a plan fits (no served model's
+    shape misses it; m = 256 at D 8192 does), else the 16-row CUDA-core
+    kernel reading rows; f32 the 16-row kernel, staged where its [16, D] tile
+    fits."""
+    assert torch_af.route(T, D, m, dtype).kernel == kernel
+
+
+@pytest.mark.parametrize("which", ["h", "w_down", "w_up"])
+def test_adapter_fused_check_sends_unaligned_data_to_rows(which):
+    """The tile path's TMA takes 16-byte aligned rows only: a contiguous view
+    at an odd offset of a larger tensor goes to the 16-row kernel, by
+    ``check``, which sees the data (``route`` sees the shape alone)."""
+    T, D, m = 300, 1024, 64
+    shapes = {"h": (T, D), "w_down": (D, m), "w_up": (m, D)}
+    ts = {k: torch.zeros(s, dtype=torch.bfloat16) for k, s in shapes.items()}
+    assert torch_af.check(ts["h"], ts["w_down"], ts["w_up"], "gelu").kernel == "tile"
+    n = shapes[which][0] * shapes[which][1]
+    ts[which] = torch.zeros(n + 1, dtype=torch.bfloat16)[1:].view(shapes[which])
+    assert ts[which].is_contiguous() and ts[which].data_ptr() % 16
+    kernel, smem = torch_af.check(ts["h"], ts["w_down"], ts["w_up"], "gelu")
+    assert (kernel, smem) == ("rows", torch_af.plan(D, m, torch.bfloat16)[1])
+
+
+def test_adapter_fused_tile_plan_misses_only_what_does_not_fit():
+    """The bf16 tile path refuses a shape only where no cluster size fits, or
+    D or m is not a multiple of 8, and the 16-row kernel takes it: at m 64
+    and 128 every width of the configs (up to 5120) fits, at m 256 every
+    width up to 2048."""
+    assert torch_af.tile_plan(2048, 2044, 64) is None and torch_af.tile_plan(2048, 2048, 60) is None
+    for m, least in ((64, 6144), (128, 6144), (256, 2048)):
+        widest = max(D for D in range(32, 16385, 32) if torch_af.tile_plan(2048, D, m))
+        assert widest >= least
+        assert all(torch_af.tile_plan(2048, D, m) for D in range(32, widest + 1, 32))
+        assert torch_af.route(2048, widest + 32, m, torch.bfloat16).kernel == "rows"
+        for cluster in torch_af.TILE_CLUSTERS:
+            assert torch_af.tile_layout(widest + 32, m, cluster) is None
+
+
+@pytest.mark.parametrize("name", ["adapter_fused", "flash_attention", "rwkv_scan",
+                                  "mamba_scan"])
+def test_kernel_sources_export_what_the_launchers_bind(name):
+    """Every C entry a launcher binds with ctypes is defined in its CUDA
+    source (a missing one fails only at load time, on the card)."""
+    import re
+    from pathlib import Path
+
+    root = Path(torch_af.__file__).parent
+    text = (root / f"{name}.py").read_text()
+    bound = set(re.findall(rf"\b({name}\w*_(?:launch|occupancy))\b", text))
+    src = (root / "csrc" / f"{name}.cu").read_text()
+    exported = src[src.index('extern "C" {'):]
+    assert bound and all(re.search(rf"\b{fn}\(", exported) for fn in bound)
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """Round an fp32 tensor to bf16 (to nearest even) and back to fp32."""
+    return x.to(torch.bfloat16).float()
+
+
+def _tile_path_emulated(h, wd, wu, act, plan, parts=2):
+    """The bf16 tile path's arithmetic on the CPU: each of the plan's blocks
+    sums its columns' share of h @ W_down in fp32 (bf16 products are exact),
+    the cluster adds the partials in rank order, the fp32 intermediate goes
+    through the activation and is split into hi = bf16(mid) and
+    lo = bf16(mid - hi), each block sums hi @ W_up + lo @ W_up over its own
+    columns in fp32, the up term is rounded to bf16 and added to h. With
+    ``parts=1`` only hi is used (one bf16 product). Returns (out, up)."""
+    hf, wdf, wuf = h.float(), wd.float(), wu.float()
+    D = h.shape[1]
+    cols = [slice(r * plan.dc, min(D, (r + 1) * plan.dc)) for r in range(plan.cluster)]
+    part = [hf[:, c] @ wdf[c] for c in cols if c.start < D]
+    total = part[0]
+    for p in part[1:]:
+        total = total + p
+    mid = ref.act(act, total)
+    hi = _bf16(mid)
+    lo = _bf16(mid - hi)
+    up = torch.cat([hi @ wuf[:, c] + (lo @ wuf[:, c] if parts == 2 else 0.0)
+                    for c in cols if c.start < D], dim=1)
+    return (hf + _bf16(up)).to(torch.bfloat16), up, mid
+
+
+@pytest.mark.parametrize("T,D,m", [(33, 256, 16), (300, 200, 48), (130, 1000, 64)])
+@pytest.mark.parametrize("act", ["gelu", "relu", "silu"])
+def test_adapter_fused_tile_split_matches_jax(T, D, m, act):
+    """The hi/lo split of the bf16 tile path's up-projection, emulated on the
+    CPU, against the JAX reference (``repro.kernels.ref``) and the Pallas
+    kernel in interpret mode: within the kernel's tolerance, atol 2e-2 plus
+    one bf16 ulp (rtol 2**-7; its fp32 sums run in another order, which can
+    move h + up across a rounding boundary). Its up term stays within 2**-15
+    of |mid| @ |W_up| of the exact one; one bf16 product (hi alone) does not."""
+    rng = np.random.default_rng(T + D + m)
+    h_j, h_t = _pair(rng.standard_normal((T, D), np.float32), "bfloat16")
+    wd_j, wd_t = _pair(0.05 * rng.standard_normal((D, m), np.float32), "bfloat16")
+    wu_j, wu_t = _pair(0.05 * rng.standard_normal((m, D), np.float32), "bfloat16")
+    plan = torch_af.tile_plan(T, D, m)
+    got, up, mid = _tile_path_emulated(h_t, wd_t, wu_t, act, plan)
+    tol = dict(atol=ATOL["bfloat16"][0], rtol=2.0 ** -7)
+    np.testing.assert_allclose(_np(got), _np(jax_ref.adapter_fused(h_j, wd_j, wu_j,
+                                                                   activation=act)), **tol)
+    pallas = jax_af.adapter_fused(h_j, wd_j, wu_j, activation=act, interpret=True)
+    np.testing.assert_allclose(_np(got), _np(pallas), **tol)
+    exact = mid.double() @ wu_t.double()
+    scale = mid.double().abs() @ wu_t.double().abs()
+    assert ((up.double() - exact).abs() <= 2.0 ** -15 * scale).all()
+    _, up1, _ = _tile_path_emulated(h_t, wd_t, wu_t, act, plan, parts=1)
+    assert ((up1.double() - exact).abs() > 2.0 ** -15 * scale).any()
 
 
 @pytest.mark.parametrize("m", [16, 48, 64, 128])
