@@ -22,7 +22,13 @@ run with a non-zero exit and no result line:
      kernels (ragged lengths, sinks ending inside a tile, Sk > Sq, strided
      views, every width, m, activation and dtype); ``rwkv_scan`` also at
      decays down to -20 a step and S of 1, 7 and 33, and ``mamba_scan`` from
-     a random start state, each timed with ptxas's registers and spill;
+     a random start state, each timed with ptxas's registers and spill; the
+     backward kernels (training) against the plain backward on the same
+     inputs: ``adapter_fused_bwd`` at h [2048, 2048], m 64, bf16 and f32, and
+     ``flash_attention_bwd`` at qwen2.5-3b's training shape (4 x 512, 16 over
+     2 heads, hd 128) in bf16 and f32 and at hd 64 with a window, each with
+     its graph and eager time, bound, the plain version's time and, for
+     attention, the time of torch.autograd through SDPA (a yardstick only);
   3. qwen2.5-3b at its published width (36 layers, d_model 2048, vocab 152064
      padded), random weights from a seed with non-zero adapters, served by
      ``BatchServer`` (4 slots, 8 requests of 64-512 prompt tokens, 32 new tokens
@@ -31,6 +37,21 @@ run with a non-zero exit and no result line:
      blocks (prefill and every decode step) is held to its kernel version on the
      same input; the f32 prefill logits of the two paths are held to each other,
      beside the plain path's own gap from the CPU (another summation order);
+     then training on the same weights (``phase_train``): batches of 4 x 512
+     tokens from the port's corpus, six steps of ``make_train_step`` with the
+     unfreeze depth walking 1, 2, 36 (interval 2). Before the steps the loss
+     and the gradients of the kernel path are held against ``impl="plain"``
+     at depths 1 and 2, with the frozen trunk on the kernels in both (so both
+     get the same boundary input); at depth 36 the plain path's loss and
+     gradient norm are printed beside the kernel path's, and the gradients
+     are compared with the kernel path's with its backward kernels alone
+     swapped for their plain versions, in bf16 (printed) and in f32 (held
+     at DEEP_F32_RMS_RTOL); each step's launch counters must be
+     exactly 36 forward launches of each kernel, d of ``adapter_fused_bwd``
+     and d - 1 of ``flash_attention_bwd`` for d hot layers, and the frozen
+     layers' adapters and moments must stay bit-identical; the step time and
+     peak memory at depths 1 and 36 are printed, and the peak of the forward
+     and backward alone (the step's own peak is AdamW's);
   4. rwkv6-7b at its published width (32 layers, d_model 4096, 64 heads of 64,
      vocab 65536), random weights from the seed with non-zero adapters, served
      by ``BatchServer`` as in phase 3 (qwen2.5-3b is freed first); the counters
@@ -57,6 +78,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -77,15 +99,20 @@ import numpy as np  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 from torch.utils._pytree import tree_leaves, tree_map  # noqa: E402
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import TrainConfig, get_config  # noqa: E402
+from repro_torch.core import training  # noqa: E402
+from repro_torch.core.unfreeze import UnfreezeSchedule, boundary_schedule  # noqa: E402
+from repro_torch.data.pipeline import to_device  # noqa: E402
 from repro_torch.kernels import adapter_fused as af  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.launch.kernel_times import cold_ms, cuda_ms, graph_ms  # noqa: E402
 from repro_torch.launch.serve import BatchServer, Request  # noqa: E402
+from repro_torch.launch.train import data_source  # noqa: E402
 from repro_torch.models import params as prm  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, published
@@ -129,6 +156,23 @@ HYMBA_ATTENTION_RTOL = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7}
 # std ~8, decays near 1) the state and the outputs reach 1e3-1e5, where an
 # absolute tolerance says nothing.
 SCAN_RTOL = 1e-4
+# Backward kernels against the plain backward on the same inputs: relative to
+# each gradient's largest entry, 1e-4 in f32 (fp32 sums in another order) and
+# 2**-7 in bf16 (one bf16 ulp of the largest entry; tests/test_torch_gpu.py),
+# by the output's dtype: the adapter's fp32 mid and g_mid are held at 1e-4.
+BWD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
+# The training step, kernel path against impl="plain" with the same frozen
+# trunk (the kernels'), in bf16: the loss to 2**-7 relative (bf16's
+# tolerance), each gradient leaf by the RMS of the difference over the RMS of
+# the plain gradient, at most 2**-5: the hot blocks round activations to
+# bf16 at other places (a wrong kernel gives about 1 or more).
+TRAIN_LOSS_RTOL = 2.0 ** -7
+GRAD_RMS_RTOL = 2.0 ** -5
+# At depth 36, in f32, the backward kernels against their plain versions under
+# one forward: ten times the f32 kernels' 1e-4, for 35 blocks of backward in
+# a chain whose gradients grow 1e6-fold (a wrong kernel gives about 1).
+DEEP_F32_RMS_RTOL = 1e-3
+TRAIN_DEPTHS, TRAIN_INTERVAL, TRAIN_B, TRAIN_S = (1, 2, 36), 2, 4, 512
 SOURCES = {
     "adapter_fused": ("src/repro_torch/kernels/csrc/adapter_fused.cu",
                       "src/repro/kernels/adapter_fused.py:55"),
@@ -138,6 +182,12 @@ SOURCES = {
                   "src/repro/kernels/rwkv_scan.py:86"),
     "mamba_scan": ("src/repro_torch/kernels/csrc/mamba_scan.cu",
                    "src/repro/kernels/mamba_scan.py:76"),
+    # the backward of the TPU kernels above (which JAX differentiates through
+    # its jnp path): in the same sources
+    "adapter_fused_bwd": ("src/repro_torch/kernels/csrc/adapter_fused.cu",
+                          "src/repro/kernels/adapter_fused.py:55"),
+    "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:86"),
 }
 # Each kernel's time at its record's shape, the adapter's at decode (T = 4,
 # bf16, by D) and its bf16 tile path's at prefill, before the present
@@ -473,6 +523,103 @@ def mamba_case(B, S, D, N, gen, record=None, state=False):
                       library_ms=None, shape=f"log_a/b[{B},{S},{D},{N}] f32")
 
 
+def _bwd_excess(got, want) -> float:
+    """The largest error beyond BWD_RTOL of each output's largest entry, at the
+    output's own dtype (<= 0: agrees)."""
+    return max((a.float() - b.float()).abs().max().item()
+               - BWD_RTOL[b.dtype] * b.float().abs().max().item() for a, b in zip(got, want))
+
+
+def adapter_bwd_case(T, D, dtype, gen, record=None, act="gelu"):
+    """The adapter's backward kernel (dh, mid, g_mid) against the plain
+    version of the same function, at the non-zero adapters of phase 2."""
+    m = 64
+    h = torch.randn(T, D, generator=gen, device="cuda").to(dtype)
+    g = torch.randn(T, D, generator=gen, device="cuda").to(dtype)
+    wd = (0.05 * torch.randn(D, m, generator=gen, device="cuda")).to(dtype)
+    wu = (0.05 * torch.randn(m, D, generator=gen, device="cuda")).to(dtype)
+    kernel = lambda: af.adapter_fused_bwd(g, h, wd, wu, activation=act)
+    plain = lambda: ref.adapter_fused_bwd_terms(g, h, wd, wu, activation=act)
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+    excess = _bwd_excess(got, want)
+    ms, eager_ms, plain_ms = in_turns(plain, kernel)
+    # h and g read once, dh written once, the weights read once, mid and g_mid
+    # written once (fp32); three thin products of 2 T D m flops each
+    size = h.element_size()
+    nbytes = 3 * T * D * size + 2 * D * m * size + 2 * T * m * 4
+    rate = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+    t_ops, t_bytes = 6 * T * D * m / rate, nbytes / HBM_BYTES_PER_S
+    bound_ms = 1e3 * max(t_ops, t_bytes)
+    dt = str(dtype).removeprefix("torch.")
+    say("adapter_fused_bwd", T=T, D=D, m=m, dtype=dt, act=act, max_abs_err=f"{err:.3g}",
+        rtol_dh=BWD_RTOL[dtype], rtol_mid_g_mid=BWD_RTOL[torch.float32], ms=f"{ms:.4f}",
+        eager_ms=f"{eager_ms:.4f}", plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.5f}",
+        share_of_bound=f"{bound_ms / ms:.3f}", card=repr(CARD))
+    if not excess <= 0:
+        raise AssertionError(f"adapter_fused_bwd disagrees with its plain version: max error "
+                             f"{err}, {excess} beyond rtol (dh {BWD_RTOL[dtype]}, the fp32 mid "
+                             f"and g_mid {BWD_RTOL[torch.float32]}) of the largest entry")
+    if record is not None:
+        record.update(max_abs_err=err, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                      bound_ms=bound_ms, bound_by="operations" if t_ops > t_bytes else "bytes",
+                      library_ms=None, shape=f"h,g[{T},{D}] m={m} {act} {dt}")
+
+
+def attention_bwd_case(S, window, dtype, gen, record=None, heads=(16, 2, 128)):
+    """The attention backward kernels on 4 rows of S tokens (causal) against
+    the plain backward on the same inputs (the kernel forward's o and lse);
+    the library yardstick is torch.autograd through SDPA (eager)."""
+    B, (H, K, hd) = 4, heads
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    q, k, v, dout = rnd(B, S, H, hd), rnd(B, S, K, hd), rnd(B, S, K, hd), rnd(B, S, H, hd)
+    out, lse = fa.flash_attention(q, k, v, window=window, lse=True)
+    if not torch.equal(out, fa.flash_attention(q, k, v, window=window)):
+        raise AssertionError("the forward with lse is not the served forward")
+    kernel = lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout, window=window)
+    plain = lambda: ref.flash_attention_bwd(q, k, v, out, lse, dout, window=window)
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+    excess = _bwd_excess(got, want)
+    ms, eager_ms, plain_ms = in_turns(plain, kernel)
+    i = torch.arange(S, device="cuda")
+    seen = i[None, :] <= i[:, None]
+    if window is not None:
+        seen &= i[:, None] - i[None, :] < window
+    # yardstick only: torch.autograd through SDPA, the backward alone (never used by the port)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+    mask = dict(is_causal=True) if window is None else dict(attn_mask=seen)
+    o = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **mask)
+    dot = dout.transpose(1, 2)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True))
+    # q, k, v, o, dO read once, lse read once, dq, dk, dv written once; five
+    # products of 2 hd flops per kept (query, key) pair and head: QK^T and
+    # dO V^T recomputed, then dV, dK and dQ
+    pairs = int(seen.sum())
+    size = q.element_size()
+    nbytes = size * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
+    rate = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+    t_ops, t_bytes = 10 * B * H * hd * pairs / rate, nbytes / HBM_BYTES_PER_S
+    bound_ms = 1e3 * max(t_ops, t_bytes)
+    dt = str(dtype).removeprefix("torch.")
+    say("flash_attention_bwd", B=B, H=H, K=K, hd=hd, S=S, window=window, dtype=dt,
+        max_abs_err=f"{err:.3g}", rtol=BWD_RTOL[dtype], ms=f"{ms:.4f}",
+        eager_ms=f"{eager_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        library_eager_ms=f"{library_ms:.4f}", ms_per_library_ms=f"{ms / library_ms:.3f}",
+        bound_ms=f"{bound_ms:.5f}", card=repr(CARD))
+    if not excess <= 0:
+        raise AssertionError(f"flash_attention_bwd disagrees with its plain version: max error "
+                             f"{err}, {excess} beyond rtol {BWD_RTOL[dtype]} of the largest entry")
+    if record is not None:
+        record.update(max_abs_err=err, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                      bound_ms=bound_ms, bound_by="operations" if t_ops > t_bytes else "bytes",
+                      library_ms=library_ms, library_timer="eager (torch.autograd through SDPA)",
+                      shape=f"q,dO[{B},{S},{H},{hd}] kv[{B},{S},{K},{hd}] causal {dt}"
+                            + (f" window {window}" if window else ""))
+
+
 def phase_kernels(records) -> None:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -533,6 +680,15 @@ def phase_kernels(records) -> None:
         f"D{D}": {"ms": ms, "path": adapter_path(4, D, 64, bf16)}
         for D, ms in sorted(decode.items())}
     edge_cases(gen)
+    # the backward kernels (training), at qwen2.5-3b's training shapes
+    adapter_bwd_case(2048, 2048, bf16, gen, records["adapter_fused_bwd"])
+    adapter_bwd_case(2048, 2048, f32, gen)
+    for act in ("relu", "silu"):
+        adapter_bwd_case(300, 1000, bf16, gen, act=act)
+    attention_bwd_case(512, None, bf16, gen, records["flash_attention_bwd"])
+    attention_bwd_case(512, None, f32, gen)
+    attention_bwd_case(512, 128, bf16, gen, heads=(16, 2, 64))
+    attention_bwd_case(300, 128, f32, gen, heads=(25, 5, 64))
 
 
 # ---------------------------------------------------------------- phases 3 and 4
@@ -543,10 +699,15 @@ def count_launches(records, arch: str, launches) -> None:
         records[name].setdefault("launches_by_path", {})[arch] = n
 
 
-def phase_serve(arch: str, records, cpu_witness: bool) -> None:
+def served_config(arch: str):
+    """The architecture at its published width, with non-zero adapters."""
     cfg = get_config(arch)
-    cfg = dataclasses.replace(cfg, adapter=dataclasses.replace(cfg.adapter,
-                                                                zero_init_up=False))
+    return dataclasses.replace(cfg, adapter=dataclasses.replace(cfg.adapter, zero_init_up=False))
+
+
+def phase_serve(arch: str, records, cpu_witness: bool):
+    """Returns the served parameters."""
+    cfg = served_config(arch)
     t0 = time.perf_counter()
     params = prm.materialize(cfg, seed=SEED, device="cuda")
     torch.cuda.synchronize()
@@ -582,7 +743,8 @@ def phase_serve(arch: str, records, cpu_witness: bool) -> None:
     want = {"adapter_fused": cfg.n_layers * max_new * n_batches,
             "flash_attention": per_prefill if kinds & {"dense", "hymba"} else 0,
             "mamba_scan": per_prefill if "hymba" in kinds else 0,
-            "rwkv_scan": per_prefill if "rwkv" in kinds else 0}
+            "rwkv_scan": per_prefill if "rwkv" in kinds else 0,
+            "adapter_fused_bwd": 0, "flash_attention_bwd": 0}
     if launches != want:
         raise AssertionError(f"launch counters {launches} != expected {want}")
     count_launches(records, cfg.name, launches)
@@ -655,6 +817,159 @@ def phase_serve(arch: str, records, cpu_witness: bool) -> None:
         raise AssertionError(f"{cfg.name} f32 prefill logits: kernel path {rms(k32 - p32)} "
                              f"(RMS) from the plain path, beyond {LOGIT_RMS_FRACTION} x "
                              f"their RMS {rms(p32)}")
+    return params
+
+
+# ---------------------------------------------------------------- training
+def _grad_check(cfg, params, batch, boundary, *, backward_only=False, gate=True,
+                rtol=None) -> dict:
+    """The loss and gradients of the kernel path against impl="plain" on one
+    batch. The frozen trunk runs on the kernels in both (blocks that run with
+    no gradient), so both hot regions start from the same boundary input: the
+    random model is chaotic, and a last-digit change below would otherwise
+    reach the gradients. With ``backward_only`` the plain path is the kernel
+    path with each backward kernel swapped for its plain version (the same
+    forward, bit for bit): this holds the chain of backward launches alone,
+    at any depth. Without ``gate`` only a non-finite loss fails: the line is
+    a witness (both paths' gradient norms), for a hot region so deep that
+    the chaotic forward separates the paths. ``rtol``: the gradients' RMS
+    gap held (GRAD_RMS_RTOL by default)."""
+    rtol = GRAD_RMS_RTOL if rtol is None else rtol
+    lk, _, gk = training.loss_and_grads(params, batch, cfg, boundary, impl="kernel")
+    real = tfm.apply_block, af.adapter_fused_bwd, fa.flash_attention_bwd
+
+    def trunk_on_kernels(kind, cfg, p, h, ctx, cache=None):
+        if not torch.is_grad_enabled():
+            ctx = dataclasses.replace(ctx, impl="kernel")
+        return real[0](kind, cfg, p, h, ctx, cache)
+
+    if backward_only:
+        af.adapter_fused_bwd, fa.flash_attention_bwd = (ref.adapter_fused_bwd_terms,
+                                                        ref.flash_attention_bwd)
+    else:
+        tfm.apply_block = trunk_on_kernels
+    try:
+        lp, _, gp = training.loss_and_grads(params, batch, cfg, boundary,
+                                            impl="kernel" if backward_only else "plain")
+    finally:
+        tfm.apply_block, af.adapter_fused_bwd, fa.flash_attention_bwd = real
+    rms = lambda x: x.float().square().mean().sqrt().item()
+    leaves = {"head": (gk["head"]["w"], gp["head"]["w"])}
+    for i, (a, b) in enumerate(zip(gk["adapters"], gp["adapters"])):
+        for name in ("w_down", "w_up"):
+            leaves[f"L{cfg.n_layers - len(gk['adapters']) + i}.{name}"] = (a[name], b[name])
+    gaps = {name: rms(a.float() - b.float()) / rms(b) for name, (a, b) in leaves.items()}
+    norm = lambda g: math.sqrt(sum(t.float().square().sum().item() for t in tree_leaves(g)))
+    loss_gap = abs(lk.item() - lp.item()) / abs(lp.item())
+    worst = max(gaps, key=gaps.get)
+    say("train_vs_plain", boundary=boundary, depth=len(gk["adapters"]),
+        plain="backward kernels only" if backward_only else "whole hot region",
+        loss_kernel=f"{lk.item():.5f}", loss_plain=f"{lp.item():.5f}",
+        loss_rel_gap=f"{loss_gap:.3g}", loss_rtol=TRAIN_LOSS_RTOL if gate else "none (witness)",
+        grad_norm_kernel=f"{norm(gk):.6g}", grad_norm_plain=f"{norm(gp):.6g}",
+        worst_leaf=worst, worst_gap=f"{gaps[worst]:.3g}",
+        dtype=cfg.dtype, grad_rms_rtol=rtol if gate else "none (witness)",
+        grad_rms_gaps=json.dumps({k: float(f"{v:.3g}") for k, v in gaps.items()}).replace(" ", ""))
+    if not (torch.isfinite(lk) and torch.isfinite(lp)):
+        raise AssertionError(f"train loss: kernel {lk.item()}, plain {lp.item()}")
+    if not gate:
+        return gaps
+    if not loss_gap <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"train loss: kernel {lk.item()} against plain {lp.item()}")
+    bad = {k: v for k, v in gaps.items() if not v <= rtol}
+    if bad or not all(rms(b) > 0 for _, b in leaves.values()):
+        raise AssertionError(f"gradients of the kernel path differ from the plain path's: {bad}")
+    return gaps
+
+
+def phase_train(arch: str, params, records) -> None:
+    """Six train steps of the served weights at full width, the unfreeze depth
+    walking down (TRAIN_DEPTHS at TRAIN_INTERVAL), through make_train_step."""
+    cfg = served_config(arch)
+    tc = TrainConfig(batch_size=TRAIN_B, seq_len=TRAIN_S, seed=SEED)
+    t0 = time.perf_counter()
+    data = data_source(cfg, tc)
+    say("train_data", arch=cfg.name, batch=TRAIN_B, seq_len=TRAIN_S,
+        seconds=f"{time.perf_counter() - t0:.2f}")
+    sched = UnfreezeSchedule(depths=TRAIN_DEPTHS, interval=TRAIN_INTERVAL)
+    steps = TRAIN_INTERVAL * len(TRAIN_DEPTHS)
+    segs = boundary_schedule(cfg, sched, steps)
+    batches = [to_device(data.next(), "cuda") for _ in range(steps)]
+    # the kernel path against the plain one before any step: at depths 1 and 2
+    # held. At depth 36 two witnesses in bf16, the whole hot region's plain
+    # path (its gradient norm beside the kernel path's) and the backward
+    # kernels alone swapped for their plain versions; then both in f32, where
+    # the chain's own rounding is 2**16 times smaller, the second held
+    for _, _, boundary in segs[:2]:
+        _grad_check(cfg, params, batches[0], boundary)
+    deep = segs[-1][2]
+    _grad_check(cfg, params, batches[0], deep, gate=False)
+    _grad_check(cfg, params, batches[0], deep, backward_only=True, gate=False)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = tree_map(lambda t: t.float(), params)
+    _grad_check(cfg32, params32, batches[0], deep, gate=False)
+    _grad_check(cfg32, params32, batches[0], deep, backward_only=True, rtol=DEEP_F32_RMS_RTOL)
+    del params32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    opt = adamw.init(training.full_trainable(params, cfg))
+    launches = {name: 0 for name in ops.LAUNCHES}
+    timing = {}
+    for start, end, boundary in segs:
+        step = training.make_train_step(cfg, tc, boundary)
+        n_frozen = boundary * cfg.layers_per_repeat
+        d = cfg.n_layers - n_frozen
+        for s in range(start, end):
+            # the frozen layers' adapters and moments, and the top adapter (hot)
+            clone = lambda tree: {k: t.clone() for k, t in tree.items()}
+            frozen = [(clone(params["blocks"][i]["adapter"]), clone(opt["m"]["adapters"][i]),
+                       clone(opt["v"]["adapters"][i])) for i in range(n_frozen)]
+            top = clone(params["blocks"][-1]["adapter"])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            params, opt, metrics = step(params, opt, batches[s])
+            loss = metrics["loss"].item()                       # waits for the step
+            wall = time.perf_counter() - t0
+            got = dict(ops.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated()
+            want = {"adapter_fused": cfg.n_layers, "adapter_fused_bwd": d,
+                    "flash_attention": cfg.n_layers, "flash_attention_bwd": d - 1,
+                    "mamba_scan": 0, "rwkv_scan": 0}
+            say("train_step", step=s, depth=d, boundary=boundary, loss=f"{loss:.5f}",
+                grad_norm=f"{metrics['grad_norm'].item():.4g}", step_ms=f"{1e3 * wall:.2f}",
+                peak_gib=f"{peak / 2**30:.3f}", launches=json.dumps(got).replace(" ", ""),
+                card=repr(CARD))
+            if got != want:
+                raise AssertionError(f"step {s} launch counters {got} != expected {want}")
+            if not math.isfinite(loss):
+                raise AssertionError(f"step {s}: loss {loss}")
+            for i, trees in enumerate(frozen):
+                now = (params["blocks"][i]["adapter"], opt["m"]["adapters"][i],
+                       opt["v"]["adapters"][i])
+                if not all(torch.equal(a[k], b[k]) for a, b in zip(now, trees) for k in a):
+                    raise AssertionError(f"step {s}: frozen layer {i} moved")
+            if all(torch.equal(params["blocks"][-1]["adapter"][k], t) for k, t in top.items()):
+                raise AssertionError(f"step {s}: the top adapter did not move")
+            for name, n in got.items():
+                launches[name] += n
+            timing[d] = {"step_ms": 1e3 * wall, "peak_gib": peak / 2**30}
+        # the forward and backward alone (the step's peak is AdamW's, over the
+        # head's 311 M parameters): the early stop's memory, in the card's numbers
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        training.loss_and_grads(params, batches[0], cfg, boundary)
+        timing[d].update(resident_gib=resident / 2**30,
+                         fwd_bwd_peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    count_launches(records, f"{cfg.name}_train", launches)
+    say("train_time", arch=cfg.name, batch=TRAIN_B, seq_len=TRAIN_S,
+        **{f"depth{d}_step_ms": f"{t['step_ms']:.2f}" for d, t in timing.items()},
+        **{f"depth{d}_{k}": f"{v:.3f}" for d, t in timing.items() for k, v in t.items()
+           if k != "step_ms"},
+        card=repr(CARD))
 
 
 def _plain_run(cfg, params, requests, horizon):
@@ -702,7 +1017,9 @@ def main() -> None:
         timer=repr("rwkv_scan and adapter_fused_tile CUDA graph, others eager"),
         **{f"{name}_ms": ms for name, ms in PREVIOUS_MS.items()})
     phase_kernels(records)
-    phase_serve("qwen2.5-3b", records, cpu_witness=True)
+    params = phase_serve("qwen2.5-3b", records, cpu_witness=True)
+    phase_train("qwen2.5-3b", params, records)
+    del params
     gc.collect()                                        # free qwen2.5-3b before rwkv6-7b
     torch.cuda.empty_cache()
     say("freed", gib_on_card=f"{torch.cuda.memory_allocated() / 2**30:.2f}")

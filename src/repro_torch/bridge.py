@@ -1,17 +1,19 @@
-"""Weights carried across from the JAX package's layout to the port's.
+"""Weights and optimizer state carried between the JAX package's layout and
+the port's, both ways.
 
 The reference stacks each layer-pattern entry's leaves as ``[repeats, count,
 ...]`` (``blocks`` is a tuple aligned with ``cfg.pattern``); the port keeps one
 dict per layer. The stacking and unstacking happen here and nowhere else.
 
-Input arrays are numpy (``np.asarray`` of a JAX array). bf16 arrives as the
-``bfloat16`` numpy extension type and crosses through a 16-bit integer view, as
-the reference's checkpoints store it, so this module needs no JAX and no
-``ml_dtypes`` import.
+Arrays on the JAX side are numpy (``np.asarray`` of a JAX array). bf16 crosses
+through a 16-bit integer view, as the reference's checkpoints store it, so
+this module needs no JAX and no ``ml_dtypes`` import: on the way back a bf16
+leaf comes out as that view, or as the numpy dtype the caller passes
+(``bf16=jnp.bfloat16``).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -27,11 +29,12 @@ def to_tensor(arr: Any, device=None) -> torch.Tensor:
     arr = np.asarray(arr)
     if not arr.flags.writeable:        # e.g. a view of a JAX array
         arr = arr.copy()
+    # np.ascontiguousarray makes a 0-d array 1-d: the shape is restored
     if arr.dtype.name == "bfloat16":
         t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.ascontiguousarray(arr))
-    return t.to(device)
+    return t.reshape(arr.shape).to(device)
 
 
 def unstack_layers(entry: Dict[str, Any]) -> List[Dict[str, Any]]:
@@ -72,17 +75,82 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device=None) -> Dict
             f"{cfg.name}: the port carries dense, rwkv and hymba decoders only")
     device = dev_rule.resolve(device)
     conv = lambda x: to_tensor(x, device)
-    entries = [unstack_layers(e) for e in tree["blocks"]]
-    blocks = []
-    for r in range(cfg.repeats):
-        for entry, (_, count) in zip(entries, cfg.pattern):
-            blocks.extend(tree_map(conv, layer) for layer in entry[r * count:(r + 1) * count])
     out = {
         "embed": tree_map(conv, dict(tree["embed"])),
         "final_norm": tree_map(conv, tree["final_norm"]),
         "head": tree_map(conv, tree["head"]),
-        "blocks": blocks,
+        "blocks": _unstack_entries(tree["blocks"], cfg, conv),
     }
     if "meta" in tree:
         out["meta"] = conv(tree["meta"])
     return out
+
+
+def to_numpy(t: torch.Tensor, bf16: Optional[Any] = None) -> np.ndarray:
+    """A tensor as a numpy array (a copy on the host); bf16 as its int16 bit
+    view, or viewed as the numpy dtype ``bf16``."""
+    t = t.detach().cpu()
+    if t.dtype != torch.bfloat16:
+        return t.numpy().copy()
+    bits = t.view(torch.int16).numpy().copy()
+    return bits if bf16 is None else bits.view(bf16)
+
+
+def _layer_order(cfg: ModelConfig) -> List[List[int]]:
+    """For each pattern entry, the port's layer indices of its ``[R, C]``
+    stack in row-major order (repeat, then position in the entry)."""
+    per_rep = cfg.layers_per_repeat
+    starts = np.cumsum([0] + [c for _, c in cfg.pattern])
+    return [[r * per_rep + int(starts[e]) + c for r in range(cfg.repeats) for c in range(count)]
+            for e, (_, count) in enumerate(cfg.pattern)]
+
+
+def _stack_entries(layers: List[Any], cfg: ModelConfig, bf16) -> tuple:
+    """One tree per layer -> a tuple over pattern entries of numpy ``[R, C, ...]`` trees."""
+    out = []
+    for (_, count), idx in zip(cfg.pattern, _layer_order(cfg)):
+        def stack(*leaves, count=count):
+            arr = np.stack([to_numpy(t, bf16) for t in leaves])
+            return arr.reshape((cfg.repeats, count) + arr.shape[1:])
+        out.append(tree_map(stack, *[layers[i] for i in idx]))
+    return tuple(out)
+
+
+def _unstack_entries(entries, cfg: ModelConfig, conv) -> List[Any]:
+    """Inverse of :func:`_stack_entries`: one tree per layer, leaves through ``conv``."""
+    layers: List[Any] = [None] * cfg.n_layers
+    for entry, idx in zip(entries, _layer_order(cfg)):
+        for i, layer in zip(idx, unstack_layers(entry)):
+            layers[i] = tree_map(conv, layer)
+    return layers
+
+
+def params_to_jax(params: Dict[str, Any], cfg: ModelConfig, bf16=None) -> Dict[str, Any]:
+    """The port's parameters -> the reference's tree with numpy leaves (the
+    inverse of :func:`params_from_jax`, exact)."""
+    conv = lambda t: to_numpy(t, bf16)
+    out = {"embed": tree_map(conv, dict(params["embed"])),
+           "final_norm": tree_map(conv, params["final_norm"]),
+           "head": tree_map(conv, params["head"]),
+           "blocks": _stack_entries(params["blocks"], cfg, bf16)}
+    if "meta" in params:
+        out["meta"] = conv(params["meta"])
+    return out
+
+
+def opt_state_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device=None) -> Dict[str, Any]:
+    """The reference's AdamW state (``optim.adamw.init`` / ``update``: full-size
+    ``[R, C, ...]`` adapter moments per pattern entry, the head's, the step
+    count) -> the port's (one moment dict per layer), on ``device``."""
+    device = dev_rule.resolve(device)
+    conv = lambda x: to_tensor(x, device)
+    moments = {k: {"adapters": _unstack_entries(tree[k]["adapters"], cfg, conv),
+                   "head": tree_map(conv, tree[k]["head"])} for k in ("m", "v")}
+    return {**moments, "count": conv(np.asarray(tree["count"], np.int32))}
+
+
+def opt_state_to_jax(opt_state: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
+    """The inverse of :func:`opt_state_from_jax`, exact."""
+    out = {k: {"adapters": _stack_entries(opt_state[k]["adapters"], cfg, None),
+               "head": tree_map(to_numpy, opt_state[k]["head"])} for k in ("m", "v")}
+    return {**out, "count": to_numpy(opt_state["count"])}

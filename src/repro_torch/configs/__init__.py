@@ -1,13 +1,14 @@
 """Architecture registry of the port — importing this package registers its configs.
 
 The port registers the architectures whose block kinds it runs: the dense
-decoder qwen2.5-3b, the attention-free RWKV-6 rwkv6-7b and the hybrid
-(attention + Mamba) hymba-1.5b.
+decoders qwen2.5-3b and stablelm-3b, the attention-free RWKV-6 rwkv6-7b and
+the hybrid (attention + Mamba) hymba-1.5b.
 """
-from repro_torch.configs.base import (AdapterConfig, ModelConfig, SSMConfig, get_config,
-                                      list_configs, register)
+from repro_torch.configs.base import (AdapterConfig, ModelConfig, SSMConfig, TrainConfig,
+                                      get_config, list_configs, register)
 
-from repro_torch.configs import hymba_1p5b, qwen2p5_3b, rwkv6_7b  # noqa: F401  (registration)
+from repro_torch.configs import (hymba_1p5b, qwen2p5_3b, rwkv6_7b,  # noqa: F401  (registration)
+                                 stablelm_3b)
 
-__all__ = ["AdapterConfig", "ModelConfig", "SSMConfig", "get_config", "list_configs",
-           "register"]
+__all__ = ["AdapterConfig", "ModelConfig", "SSMConfig", "TrainConfig", "get_config",
+           "list_configs", "register"]

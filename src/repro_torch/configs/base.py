@@ -1,7 +1,7 @@
 """Model configurations for the PyTorch port (a copy of the JAX package's).
 
-The port keeps its own copy of :class:`ModelConfig`, :class:`AdapterConfig` and
-:class:`SSMConfig` so it never imports the JAX package. Field names, defaults and :meth:`ModelConfig.reduced`
+The port keeps its own copy of :class:`ModelConfig`, :class:`AdapterConfig`,
+:class:`SSMConfig` and :class:`TrainConfig` so it never imports the JAX package. Field names, defaults and :meth:`ModelConfig.reduced`
 are the same as the reference's, so a config built on either side describes the
 same model; ``tests/test_torch_*.py`` hold the two together.
 """
@@ -143,6 +143,31 @@ class ModelConfig:
             small["n_kv_heads"] = small["n_heads"]
         small.update(overrides)
         return replace(self, **small)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training setup (the paper's Algorithm 1 knobs), field for field the
+    reference's."""
+
+    learning_rate: float = 1e-3
+    weight_decay: float = 0.01
+    beta1: float = 0.9
+    beta2: float = 0.999
+    eps: float = 1e-8
+    warmup_steps: int = 20
+    batch_size: int = 8
+    seq_len: int = 128
+    steps: int = 200
+    # --- RingAda schedule (Algorithm 1) ---
+    initial_unfreeze_depth: int = 1   # d: head + top-most adapter
+    unfreeze_interval: int = 40       # k: unfreeze one more adapter every k steps
+    max_unfreeze_depth: Optional[int] = None   # default n_layers
+    local_iterations: int = 1         # I per initiator
+    # --- pipeline ---
+    n_stages: int = 4
+    n_microbatches: int = 8
+    seed: int = 0
 
 
 _REGISTRY: Dict[str, ModelConfig] = {}

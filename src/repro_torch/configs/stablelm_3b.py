@@ -1,0 +1,20 @@
+"""StableLM-3B [hf:stabilityai/stablelm-2-1_6b family] — dense MHA decoder.
+
+32L d_model=2560 32H (GQA kv=32) d_ff=6912 vocab=50304; head_dim 80, which
+the port's attention kernel does not take yet (ROADMAP.md Queue 2): on the
+card only its reduced form (head_dim 64) runs, and the full width runs where
+the plain versions do (``device="cpu"``).
+"""
+from repro_torch.configs.base import AdapterConfig, ModelConfig, register
+
+CONFIG = register(ModelConfig(
+    name="stablelm-3b",
+    family="dense",
+    n_layers=32, d_model=2560, n_heads=32, n_kv_heads=32,
+    d_ff=6912, vocab_size=50304,
+    pattern=(("dense", 1),),
+    rope=True,
+    glu=True, activation="silu",
+    adapter=AdapterConfig(bottleneck=64),
+    source="hf:stabilityai/stablelm-2-1_6b",
+))

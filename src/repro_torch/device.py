@@ -1,7 +1,8 @@
 """The device rule of the port's entry points.
 
-``BatchServer``, ``materialize`` and the serve CLI run on ``cuda`` unless the
-caller asks for the CPU. Without a card they raise instead of falling back.
+``BatchServer``, ``materialize``, the serve and train CLIs and ``train`` run
+on ``cuda`` unless the caller asks for the CPU. Without a card they raise
+instead of falling back.
 """
 from __future__ import annotations
 

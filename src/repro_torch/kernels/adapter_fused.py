@@ -8,6 +8,8 @@ cores, each tile one cluster of up to 16 blocks that splits D
 (:func:`tile_plan`); f32, and the bf16 inputs the tile path does not take,
 run one block per 16-row tile on the CUDA cores (:func:`plan`).
 :func:`route` says which by shape, :func:`check` by shape and alignment.
+:func:`adapter_fused_bwd` is the backward (training), one kernel for every
+shape.
 It takes CUDA tensors only; ``kernels.ops.adapter_fused`` is the public entry,
 which sends a CPU tensor to the plain version in ``kernels/ref.py``.
 """
@@ -100,6 +102,9 @@ def _lib():
         so.adapter_fused_tile_launch.restype = ctypes.c_int
         so.adapter_fused_tile_occupancy.argtypes = [ctypes.c_int] * 2
         so.adapter_fused_tile_occupancy.restype = ctypes.c_int
+        so.adapter_fused_bwd_launch.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                                                + [ctypes.c_void_p])
+        so.adapter_fused_bwd_launch.restype = ctypes.c_int
     return so
 
 
@@ -331,3 +336,30 @@ def adapter_fused(h: torch.Tensor, w_down: torch.Tensor, w_up: torch.Tensor, *,
             T, D, m, bf16, ACTIVATIONS[activation], int(kernel == "staged"), n_split, stream)
     build.check(NAME, err)
     return out
+
+
+def adapter_fused_bwd(g: torch.Tensor, h: torch.Tensor, w_down: torch.Tensor,
+                      w_up: torch.Tensor, *, activation: str = "gelu",
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward of :func:`adapter_fused` for the cotangent ``g`` [T, D]:
+    (dh [T, D] in h's dtype, mid = act(h @ w_down) and g_mid = (g @ w_up^T) *
+    act'(h @ w_down), both [T, m] fp32). The weight gradients are the plain
+    products mid^T g and h^T g_mid (``kernels.ops`` forms them)."""
+    check(h, w_down, w_up, activation)
+    if g.shape != h.shape or g.dtype != h.dtype or g.device != h.device or \
+            not g.is_contiguous():
+        raise ValueError(f"g must be a contiguous {tuple(h.shape)} {h.dtype} tensor on h's "
+                         f"device, got {tuple(g.shape)} {g.dtype}")
+    if h.device.type != "cuda":
+        raise ValueError("adapter_fused_bwd kernel takes CUDA tensors")
+    T, D = h.shape
+    m = w_down.shape[-1]
+    dh = torch.empty_like(h)
+    mid = torch.empty((T, m), dtype=torch.float32, device=h.device)
+    g_mid = torch.empty_like(mid)
+    err = _lib().adapter_fused_bwd_launch(
+        g.data_ptr(), h.data_ptr(), w_down.data_ptr(), w_up.data_ptr(), dh.data_ptr(),
+        mid.data_ptr(), g_mid.data_ptr(), T, D, m, int(h.dtype == torch.bfloat16),
+        ACTIVATIONS[activation], torch.cuda.current_stream(h.device).cuda_stream)
+    build.check(NAME, err)
+    return dh, mid, g_mid

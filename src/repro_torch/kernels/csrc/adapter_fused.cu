@@ -7,7 +7,8 @@
 // served model), so the work is 4*T*D*m flops against 2*T*D*2 bytes of h in
 // and out (bf16): about m flops per byte, far below the ~295 the bf16 tensor
 // cores need before they are the limit. Unfused, h would cross device memory
-// three times and the [T, m] intermediate once more. Three kernels:
+// three times and the [T, m] intermediate once more. Three forward kernels and
+// one backward kernel (adapter_bwd_kernel, at the end: training):
 //
 // bf16 prefill (T > 16, adapter_tile_kernel): one thread block cluster of C
 // blocks (8 or 16, planned by the wrapper: kernels/adapter_fused.py,
@@ -894,6 +895,184 @@ bool tile_plan_ok(int T, int D, int m, int cluster_size, TileLayout L, int smem)
          fits(L.bar, 8 * (TILE_CHUNKS + 1), 16);
 }
 
+
+// ---------------------------------------------------------------- backward
+
+// Columns of D (rows of W_down, columns of W_up) staged per chunk.
+constexpr int BWD_CHUNK = 64;
+
+// d act / dx, exact for each activation: tanh-GELU's derivative through its
+// tanh, relu's 0 at x <= 0 (as jax.nn.relu's and torch's), silu's
+// s (1 + x (1 - s)) with s = sigmoid(x).
+__device__ __forceinline__ float activate_grad(int act, float x) {
+  if (act == 0) {
+    const float k = 0.7978845608028654f;  // sqrt(2 / pi)
+    const float x2 = x * x;
+    const float t = tanhf(k * (x + 0.044715f * (x2 * x)));
+    return 0.5f * (1.0f + t) + 0.5f * x * (1.0f - t * t) * k * (1.0f + 3.0f * 0.044715f * x2);
+  }
+  if (act == 1) return x > 0.0f ? 1.0f : 0.0f;
+  const float sg = 1.0f / (1.0f + expf(-x));
+  return sg * (1.0f + x * (1.0f - sg));
+}
+
+// The adapter's backward for one tile of BT rows (adapter_bwd_kernel):
+//
+//   z = h @ W_down, mid = act(z)                       (recomputed, fp32)
+//   g_mid = (g @ W_up^T) * act'(z)                     (fp32; g is up's cotangent)
+//   dh = g + T(g_mid @ W_down^T)                       (T = h's type)
+//
+// and mid, g_mid [T, m] in fp32 for the weight gradients. The rounding is the
+// reference's gradient of its casts (src/repro/core/adapter.py): the up term is
+// cast to h's type before the residual add, so its cotangent is g in fp32, and
+// the input term comes back through h.astype(f32) as one rounding to h's type
+// before it is added to g. The weight gradients dW_up = mid^T g and
+// dW_down = h^T g_mid are two plain products that the wrapper leaves to
+// torch.matmul: the reference's autodiff forms them outside its Pallas kernel,
+// whose body never computes them.
+//
+// Simple and right, on the CUDA cores: phase 1 streams D in chunks of
+// BWD_CHUNK columns (the [BT, chunk] slices of h and g, the chunk's rows of
+// W_down and columns of W_up, all staged by coalesced loads) and thread (grp,
+// j) sums both thin products for column j of the intermediate over the
+// chunk's columns grp, grp + G, ...; the G partial sums are added in order.
+// Phase 2 streams W_down again: thread (column, row group) forms 4 rows of one
+// output column. Bytes: h, g and dh once each, the weights once per tile.
+// What bounds it on the H100: bytes in bf16 (h, g and dh cross device memory
+// once each against 6 T D m flops of three thin products); in f32 the flops
+// at the CUDA-core rate. Not fast: the products are fp32 FMAs from shared
+// memory (PERF.md section 6).
+template <typename TE>
+__global__ void __launch_bounds__(THREADS)
+adapter_bwd_kernel(const TE* __restrict__ g, const TE* __restrict__ h,
+                   const TE* __restrict__ wd, const TE* __restrict__ wu, TE* __restrict__ dh,
+                   float* __restrict__ mid_out, float* __restrict__ gmid_out, int T, int D,
+                   int m, int act) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* red_z = reinterpret_cast<float*>(smem);  // [G][BT][m] partial sums of h W_down
+  float* red_u = red_z + THREADS * BT;            // [G][BT][m] partial sums of g W_up^T
+  float* gms = red_u + THREADS * BT;              // [BT][m] g_mid
+  float* hs = gms + BT * m;                       // [BT][BWD_CHUNK] h's chunk
+  float* gs = hs + BT * BWD_CHUNK;                // [BT][BWD_CHUNK] g's chunk
+  float* wds = gs + BT * BWD_CHUNK;               // [BWD_CHUNK][m] W_down's rows
+  float* wus = wds + BWD_CHUNK * m;               // [m][BWD_CHUNK + 1] W_up's columns
+  float* wdp = wds;                               // phase 2: [BWD_CHUNK][m + 1] W_down's rows
+  constexpr int WLD = BWD_CHUNK + 1;
+  const int tid = threadIdx.x;
+  const long row0 = static_cast<long>(blockIdx.x) * BT;
+  const int rows = min(BT, T - static_cast<int>(blockIdx.x) * BT);
+  const int G = THREADS / m;
+  const int j = tid % m;
+  const int grp = tid / m;
+
+  float az[BT], au[BT];
+#pragma unroll
+  for (int t = 0; t < BT; ++t) az[t] = au[t] = 0.0f;
+  for (int c0 = 0; c0 < D; c0 += BWD_CHUNK) {
+    const int nc = min(BWD_CHUNK, D - c0);
+    __syncthreads();  // the previous chunk is no longer read
+    for (int i = tid; i < BT * BWD_CHUNK; i += THREADS) {
+      const int t = i / BWD_CHUNK;
+      const int c = i - t * BWD_CHUNK;
+      const bool ok = t < rows && c < nc;
+      const long at = (row0 + t) * D + c0 + c;
+      hs[i] = ok ? to_f(h[at]) : 0.0f;
+      gs[i] = ok ? to_f(g[at]) : 0.0f;
+    }
+    for (int i = tid; i < BWD_CHUNK * m; i += THREADS)
+      wds[i] = i < nc * m ? to_f(wd[static_cast<long>(c0) * m + i]) : 0.0f;
+    for (int i = tid; i < m * BWD_CHUNK; i += THREADS) {
+      const int jj = i / BWD_CHUNK;
+      const int c = i - jj * BWD_CHUNK;
+      wus[jj * WLD + c] = c < nc ? to_f(wu[static_cast<long>(jj) * D + c0 + c]) : 0.0f;
+    }
+    __syncthreads();
+    if (grp < G) {
+      for (int c = grp; c < nc; c += G) {
+        const float wdv = wds[c * m + j];
+        const float wuv = wus[j * WLD + c];
+#pragma unroll
+        for (int t = 0; t < BT; ++t) {
+          az[t] = fmaf(hs[t * BWD_CHUNK + c], wdv, az[t]);
+          au[t] = fmaf(gs[t * BWD_CHUNK + c], wuv, au[t]);
+        }
+      }
+    }
+  }
+  if (grp < G) {
+#pragma unroll
+    for (int t = 0; t < BT; ++t) {
+      red_z[(grp * BT + t) * m + j] = az[t];
+      red_u[(grp * BT + t) * m + j] = au[t];
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < BT * m; i += THREADS) {
+    const int t = i / m;
+    const int jj = i - t * m;
+    float z = 0.0f, u = 0.0f;
+    for (int gg = 0; gg < G; ++gg) {
+      z += red_z[(gg * BT + t) * m + jj];
+      u += red_u[(gg * BT + t) * m + jj];
+    }
+    const float gm = u * activate_grad(act, z);
+    gms[i] = gm;
+    if (t < rows) {
+      mid_out[(row0 + t) * m + jj] = activate(act, z);
+      gmid_out[(row0 + t) * m + jj] = gm;
+    }
+  }
+
+  // phase 2: thread (dl, rq) forms rows 4 rq .. 4 rq + 3 of column c0 + dl
+  const int dl = tid % BWD_CHUNK;
+  const int rq = tid / BWD_CHUNK;
+  static_assert(THREADS == BWD_CHUNK * BT / 4, "4 rows of one column per thread");
+  for (int c0 = 0; c0 < D; c0 += BWD_CHUNK) {
+    const int nc = min(BWD_CHUNK, D - c0);
+    __syncthreads();  // g_mid is written; the previous chunk is no longer read
+    for (int i = tid; i < BWD_CHUNK * m; i += THREADS) {
+      const int r = i / m;
+      wdp[r * (m + 1) + (i - r * m)] = i < nc * m ? to_f(wd[static_cast<long>(c0) * m + i]) : 0.0f;
+    }
+    __syncthreads();
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int jj = 0; jj < m; ++jj) {
+      const float w = wdp[dl * (m + 1) + jj];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[r] = fmaf(gms[(4 * rq + r) * m + jj], w, acc[r]);
+    }
+    if (dl < nc) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int t = 4 * rq + r;
+        if (t < rows) {
+          const long at = (row0 + t) * D + c0 + dl;
+          dh[at] = from_f<TE>(to_f(g[at]) + to_f(from_f<TE>(acc[r])));
+        }
+      }
+    }
+  }
+}
+
+// shared memory of adapter_bwd_kernel for bottleneck m, in bytes
+constexpr size_t bwd_smem(int m) {
+  return sizeof(float) * (2 * THREADS * BT + BT * m + 2 * BT * BWD_CHUNK + BWD_CHUNK * m +
+                          m * (BWD_CHUNK + 1));
+}
+
+template <typename TE>
+int launch_bwd(const void* g, const void* h, const void* wd, const void* wu, void* dh,
+               float* mid, float* gmid, int T, int D, int m, int act, cudaStream_t stream) {
+  auto kernel = adapter_bwd_kernel<TE>;
+  static std::atomic<unsigned long long> done{0};
+  cudaError_t err = set_up_once(done, kernel, false);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<(T + BT - 1) / BT, THREADS, bwd_smem(m), stream>>>(
+      static_cast<const TE*>(g), static_cast<const TE*>(h), static_cast<const TE*>(wd),
+      static_cast<const TE*>(wu), static_cast<TE*>(dh), mid, gmid, T, D, m, act);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -981,6 +1160,23 @@ int adapter_fused_cluster_occupancy(int nt, int bf16, int smem) {
            : launch_cluster<float>(nt, nullptr, nullptr, nullptr, nullptr, 0, 0, 0, 0, 0, L,
                                    smem, nullptr, &n);
   return err ? -static_cast<int>(err) : n;
+}
+
+// The adapter's backward (adapter_bwd_kernel): g (out's cotangent), h [T, D],
+// w_down [D, m], w_up [m, D] in, dh [T, D] (h's dtype) and mid, g_mid [T, m]
+// (fp32) out; all contiguous on one device. bf16: 1 = bfloat16, 0 = float32;
+// act: 0 gelu, 1 relu, 2 silu. Returns the cudaError_t of the launch.
+int adapter_fused_bwd_launch(const void* g, const void* h, const void* w_down,
+                             const void* w_up, void* dh, void* mid, void* g_mid, int T, int D,
+                             int m, int bf16, int act, void* stream) {
+  if (T <= 0) return 0;
+  if (m < 1 || m > THREADS || D < 1 || act < 0 || act > 2 || bwd_smem(m) > SMEM_LIMIT)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* mo = static_cast<float*>(mid);
+  float* go = static_cast<float*>(g_mid);
+  if (bf16) return launch_bwd<__nv_bfloat16>(g, h, w_down, w_up, dh, mo, go, T, D, m, act, s);
+  return launch_bwd<float>(g, h, w_down, w_up, dh, mo, go, T, D, m, act, s);
 }
 
 const char* cuda_error_string(int err) {

@@ -1,6 +1,7 @@
-// Flash attention forward: causal (end-aligned), optional sliding window with
-// attention sinks, GQA. Two kernels: bf16 on the tensor cores, f32 on the
-// CUDA cores.
+// Flash attention: causal (end-aligned), optional sliding window with
+// attention sinks, GQA. Two forward kernels, bf16 on the tensor cores and f32
+// on the CUDA cores, each of which can also write the row logsumexp for
+// training; and the backward for training (no sinks), at the end.
 //
 // Replaces: the Pallas TPU kernel src/repro/kernels/flash_attention.py
 //           (flash_attention / _kernel, pallas_call at line 86). In the port it
@@ -69,8 +70,14 @@ constexpr float NEG_INF = -1e30f;
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
 
 struct Strides {
   long long b, s, h;  // in elements; the head dim has stride 1
@@ -87,12 +94,14 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, Strides st, 
   }
 }
 
-template <typename T, int HD, bool SINKS>
+// LSE: also write each row's logsumexp of the scaled scores (fp32, [B, H, Sq]
+// contiguous; -inf for a row that sees no key) for the backward.
+template <typename T, int HD, bool SINKS, bool LSE>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
-                       int group, Strides sq, Strides sk, Strides sv, Strides so,
-                       float scale, int causal, int window, int n_sink) {
+                       const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+                       int Sq, int Sk, int group, Strides sq, Strides sk, Strides sv,
+                       Strides so, float scale, int causal, int window, int n_sink) {
   constexpr int LD = HD + 1;       // padded rows: no bank conflicts on columns
   constexpr int PLD = BK + 1;
   constexpr int NE = HD / 8;       // output dims per thread
@@ -216,6 +225,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float l = fmaxf(l_i[r], 1e-20f);  // fully masked rows give 0
 #pragma unroll
     for (int e = 0; e < NE; ++e) op[qi * so.s + cl + 8 * e] = from_f<T>(acc[r][e] / l);
+    if constexpr (LSE) {
+      if (cl == 0)
+        lse[(static_cast<long long>(b) * gridDim.y + h) * Sq + qi] =
+            l_i[r] > 0.0f ? m_i[r] + logf(l_i[r]) : -INFINITY;
+    }
   }
 }
 
@@ -303,13 +317,16 @@ __device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst, const __nv_b
 // feeds MT products, and each warp has an early and a late m-tile on the
 // causal diagonal. With MT * HD <= 128 the Q fragments stay in registers,
 // else they are read from the Q tile at every k-step.
-template <int HD, int MT, bool SINKS>
+// LSE as in the scalar kernel: a template parameter, so the serving
+// instantiations (LSE = false) compile as they did without it.
+template <int HD, int MT, bool SINKS, bool LSE>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                          int Sq, int Sk, int group, Strides sq, Strides sk, Strides sv,
-                          Strides so, float scale, int causal, int window, int n_sink) {
+                          float* __restrict__ lse, int Sq, int Sk, int group, Strides sq,
+                          Strides sk, Strides sv, Strides so, float scale, int causal,
+                          int window, int n_sink) {
   static_assert(BK == 64 && THREADS == 128, "4 warps of 16-row m-tiles, 64-key tiles");
   constexpr int BQT = 64 * MT;       // query rows per block
   constexpr int KS = HD / 16;        // k-steps of QK^T
@@ -541,6 +558,16 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int r = 0; r < 2; ++r) inv[r] = l_r[i][r] > 0.0f ? 1.0f / l_r[i][r] : 0.0f;
     const int r0 = rowt[i] + g;
+    if constexpr (LSE) {
+      // the row's 4 lanes hold the same m and l; lane t = 0 writes
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int qi = q0 + r0 + 8 * r;
+        if (t == 0 && qi < Sq)
+          lse[(static_cast<long long>(b) * gridDim.x + h) * Sq + qi] =
+              l_r[i][r] > 0.0f ? m_r[i][r] + logf(l_r[i][r]) : -INFINITY;
+      }
+    }
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
       *reinterpret_cast<uint32_t*>(qs + swz<HD>(r0, n) + 2 * t) =
@@ -585,72 +612,419 @@ template <int HD> float softmax_scale() {
   return static_cast<float>(1.0 / sqrt(static_cast<double>(HD)));
 }
 
-template <int HD, bool SINKS>
-int launch_scalar(const void* q, const void* k, const void* v, void* o, int B, int H, int Sq,
-                  int Sk, int group, Strides sq, Strides sk, Strides sv, Strides so,
-                  int causal, int window, int n_sink, cudaStream_t stream) {
+template <int HD, bool SINKS, bool LSE>
+int launch_scalar(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                  int H, int Sq, int Sk, int group, Strides sq, Strides sk, Strides sv,
+                  Strides so, int causal, int window, int n_sink, cudaStream_t stream) {
   constexpr int LD = HD + 1;
   constexpr int smem = sizeof(float) * ((BQ + 2 * BK) * LD + BQ * (BK + 1));
-  auto kernel = flash_attention_kernel<float, HD, SINKS>;
+  auto kernel = flash_attention_kernel<float, HD, SINKS, LSE>;
   static std::atomic<unsigned long long> done{0};
   cudaError_t err = smem_limit_once(done, kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, group, sq, sk, sv, so,
-      softmax_scale<HD>(), causal, window, n_sink);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, Sq, Sk, group, sq, sk, sv,
+      so, softmax_scale<HD>(), causal, window, n_sink);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HD, int MT, bool SINKS>
-int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int H, int Sq,
-              int Sk, int group, Strides sq, Strides sk, Strides sv, Strides so, int causal,
-              int window, int n_sink, cudaStream_t stream) {
+template <int HD, int MT, bool SINKS, bool LSE>
+int launch_tc(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+              int Sq, int Sk, int group, Strides sq, Strides sk, Strides sv, Strides so,
+              int causal, int window, int n_sink, cudaStream_t stream) {
   constexpr int smem = sizeof(__nv_bfloat16) * (64 * MT + 4 * BK) * HD;
-  auto kernel = flash_attention_tc_kernel<HD, MT, SINKS>;
+  auto kernel = flash_attention_tc_kernel<HD, MT, SINKS, LSE>;
   static std::atomic<unsigned long long> done{0};
   cudaError_t err = smem_limit_once(done, kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(H, B, (Sq + 64 * MT - 1) / (64 * MT));
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq, Sk, group, sq,
-      sk, sv, so, softmax_scale<HD>(), causal, window, n_sink);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, Sq, Sk, group,
+      sq, sk, sv, so, softmax_scale<HD>(), causal, window, n_sink);
   return static_cast<int>(cudaGetLastError());
 }
 
-using Launch = int (*)(const void*, const void*, const void*, void*, int, int, int, int, int,
-                       Strides, Strides, Strides, Strides, int, int, int, cudaStream_t);
+using Launch = int (*)(const void*, const void*, const void*, void*, float*, int, int, int,
+                       int, int, Strides, Strides, Strides, Strides, int, int, int,
+                       cudaStream_t);
 
-// the instantiation for (hd, sinks) of a launcher family. The tensor-core
+// the instantiation for (hd, sinks, lse) of a launcher family (the row
+// logsumexp is written for training, which takes no sinks). The tensor-core
 // kernel runs 2 m-tiles per warp at hd 128 (each K/V fragment feeds two
 // products; 246-255 registers) and 1 at hd 64, where two made the served
 // hymba prefill slower (more registers, fewer blocks per SM).
 template <bool TC>
-Launch pick(int hd, bool sinks) {
-  if (hd == 64)
-    return TC ? (sinks ? &launch_tc<64, 1, true> : &launch_tc<64, 1, false>)
-              : (sinks ? &launch_scalar<64, true> : &launch_scalar<64, false>);
-  if (hd == 128)
-    return TC ? (sinks ? &launch_tc<128, 2, true> : &launch_tc<128, 2, false>)
-              : (sinks ? &launch_scalar<128, true> : &launch_scalar<128, false>);
+Launch pick(int hd, bool sinks, bool lse) {
+  if (lse && sinks) return nullptr;
+  if (hd == 64) {
+    if (TC) return lse ? &launch_tc<64, 1, false, true>
+                       : (sinks ? &launch_tc<64, 1, true, false> : &launch_tc<64, 1, false, false>);
+    return lse ? &launch_scalar<64, false, true>
+               : (sinks ? &launch_scalar<64, true, false> : &launch_scalar<64, false, false>);
+  }
+  if (hd == 128) {
+    if (TC) return lse ? &launch_tc<128, 2, false, true>
+                       : (sinks ? &launch_tc<128, 2, true, false>
+                                : &launch_tc<128, 2, false, false>);
+    return lse ? &launch_scalar<128, false, true>
+               : (sinks ? &launch_scalar<128, true, false> : &launch_scalar<128, false, false>);
+  }
   return nullptr;
 }
 
 template <bool TC>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int K, int Sq,
-           int Sk, int hd, long long qb, long long qs, long long qh, long long kb,
-           long long ks, long long kh, long long vb, long long vs, long long vh,
+int launch(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H,
+           int K, int Sq, int Sk, int hd, long long qb, long long qs, long long qh,
+           long long kb, long long ks, long long kh, long long vb, long long vs, long long vh,
            long long ob, long long os, long long oh, int causal, int window, int n_sink,
            void* stream) {
   if (B <= 0 || Sq <= 0) return 0;
   if (K <= 0 || H % K != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const Launch fn = pick<TC>(hd, window > 0 && n_sink > 0);
+  const Launch fn = pick<TC>(hd, window > 0 && n_sink > 0, lse != nullptr);
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return fn(q, k, v, o, B, H, Sq, Sk, H / K, Strides{qb, qs, qh}, Strides{kb, ks, kh},
-            Strides{vb, vs, vh}, Strides{ob, os, oh}, causal, window, n_sink,
-            static_cast<cudaStream_t>(stream));
+  return fn(q, k, v, o, static_cast<float*>(lse), B, H, Sq, Sk, H / K, Strides{qb, qs, qh},
+            Strides{kb, ks, kh}, Strides{vb, vs, vh}, Strides{ob, os, oh}, causal, window,
+            n_sink, static_cast<cudaStream_t>(stream));
+}
+
+
+// ---------------------------------------------------------------- backward
+//
+// The FlashAttention-2 backward in the forward's mask (causal end-aligned,
+// optional window; no sinks), for T = float or bf16, on the CUDA cores with
+// fp32 sums. Inputs contiguous: q, o, dO [B, Sq, H, hd]; k, v [B, Sk, K, hd];
+// lse and delta fp32 [B, H, Sq]. P is recomputed per tile from the forward's
+// row logsumexp, P = exp(scale q.k - lse), 0 where masked (a row that sees no
+// key has lse = -inf and every key masked, so it gives 0, never NaN);
+//   dV = P^T dO (P rounded to T, as the forward's PV took it),
+//   dP = dO V^T,  dS = P (dP - delta),  delta = rowsum(dO o),
+//   dQ = scale dS K,  dK = scale dS^T Q.
+// Three launches: attention_bwd_delta_kernel; attention_bwd_dkdv_kernel, one
+// block per (key tile, KV head, batch row), which loops over the group's
+// query heads and their query tiles and sums dK and dV in registers (the GQA
+// sum without atomics, so the result is deterministic); and
+// attention_bwd_dq_kernel, one block per (query tile, query head, batch row),
+// looping over the key tiles the forward visits. What bounds it on the H100:
+// operations (about 2.5 times the forward's: QK^T and dO V^T recomputed, then
+// three more products); simple, not fast: the products are fp32 FMAs from
+// shared memory, not the tensor cores (PERF.md section 6).
+
+constexpr int BWD_THREADS = 256;
+constexpr int BQB = 64;  // query rows per tile
+constexpr int BKB = 32;  // keys per tile
+
+template <int HD>
+constexpr int bwd_smem_bytes() {
+  return sizeof(float) * ((2 * BQB + 2 * BKB) * (HD + 1) + 2 * BQB * (BKB + 1) + 2 * BQB);
+}
+
+// delta[b, h, i] = sum_d dO[b, i, h, d] o[b, i, h, d]: one warp per (b, i, h)
+template <typename T, int HD>
+__global__ void __launch_bounds__(BWD_THREADS)
+attention_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                           float* __restrict__ delta, int H, int Sq, long long rows) {
+  const long long row = static_cast<long long>(blockIdx.x) * (BWD_THREADS / 32) +
+                        threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  float acc = 0.0f;
+  for (int d = lane; d < HD; d += 32)
+    acc = fmaf(to_f(o[row * HD + d]), to_f(dout[row * HD + d]), acc);
+#pragma unroll
+  for (int x = 16; x > 0; x >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, x);
+  if (lane == 0) {
+    const long long bi = row / H;  // b * Sq + i
+    const int h = static_cast<int>(row - bi * H);
+    const long long b = bi / Sq;
+    delta[(b * H + h) * Sq + (bi - b * Sq)] = acc;
+  }
+}
+
+// rows [row0, row0 + n) of head `head` of a contiguous [B, S, heads, HD]
+// tensor (batch row already applied) into dst [n][HD + 1] as fp32, rows at or
+// past S zero
+template <typename T, int HD>
+__device__ __forceinline__ void bwd_load(float* dst, const T* src, int heads, int head, int row0,
+                                         int n, int S) {
+  for (int i = threadIdx.x; i < n * HD; i += BWD_THREADS) {
+    const int r = i / HD;
+    const int d = i - r * HD;
+    dst[r * (HD + 1) + d] =
+        row0 + r < S ? to_f(src[(static_cast<long long>(row0 + r) * heads + head) * HD + d])
+                     : 0.0f;
+  }
+}
+
+// One [BQB, BKB] tile: thread (rg, cl) forms S and dP for rows 2 rg, 2 rg + 1
+// and keys cl + 8 c (c < 4), then writes P (rounded to T) into ps, where ps
+// is not null, and dS into dss, both [BQB][BKB + 1].
+template <typename T, int HD>
+__device__ __forceinline__ void bwd_tile(const float* qs, const float* dos, const float* ks,
+                                         const float* vs, const float* lse_s,
+                                         const float* delta_s, float* ps, float* dss, int q0,
+                                         int k0, int Sq, int Sk, float scale, int causal,
+                                         int window) {
+  constexpr int LD = HD + 1;
+  constexpr int PLD = BKB + 1;
+  const int rg = threadIdx.x / 8;
+  const int cl = threadIdx.x % 8;
+  float s[2][4], dp[2][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[r][c] = dp[r][c] = 0.0f;
+#pragma unroll 4
+  for (int d = 0; d < HD; ++d) {
+    float qv[2], dov[2], kv[4], vv[4];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      qv[r] = qs[(2 * rg + r) * LD + d];
+      dov[r] = dos[(2 * rg + r) * LD + d];
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      kv[c] = ks[(cl + 8 * c) * LD + d];
+      vv[c] = vs[(cl + 8 * c) * LD + d];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[r][c] = fmaf(qv[r], kv[c], s[r][c]);
+        dp[r][c] = fmaf(dov[r], vv[c], dp[r][c]);
+      }
+  }
+  const int off = Sk - Sq;  // align the last query with the last key
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = 2 * rg + r;
+    const int qpos = q0 + row + off;
+    const float l = lse_s[row];
+    const float dl = delta_s[row];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int kj = k0 + cl + 8 * c;
+      const bool ok = q0 + row < Sq && kj < Sk && (!causal || kj <= qpos) &&
+                      (window <= 0 || qpos - kj < window);
+      const float p = ok ? expf(s[r][c] * scale - l) : 0.0f;
+      if (ps != nullptr) ps[row * PLD + cl + 8 * c] = to_f(from_f<T>(p));
+      dss[row * PLD + cl + 8 * c] = p * (dp[r][c] - dl);
+    }
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(BWD_THREADS)
+attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const T* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          T* __restrict__ dk, T* __restrict__ dv, int H, int Sq, int Sk,
+                          int group, float scale, int causal, int window) {
+  constexpr int LD = HD + 1;
+  constexpr int PLD = BKB + 1;
+  constexpr int NE = HD / 32;  // dims per thread: dl + 32 e
+  extern __shared__ __align__(16) float bsm[];
+  float* ks = bsm;                  // [BKB][LD]
+  float* vs = ks + BKB * LD;        // [BKB][LD]
+  float* qs = vs + BKB * LD;        // [BQB][LD]
+  float* dos = qs + BQB * LD;       // [BQB][LD]
+  float* ps = dos + BQB * LD;       // [BQB][PLD]
+  float* dss = ps + BQB * PLD;      // [BQB][PLD]
+  float* lse_s = dss + BQB * PLD;   // [BQB]
+  float* delta_s = lse_s + BQB;     // [BQB]
+
+  const int k0 = blockIdx.x * BKB;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int K = H / group;
+  const T* qb = q + static_cast<long long>(b) * Sq * H * HD;
+  const T* dob = dout + static_cast<long long>(b) * Sq * H * HD;
+  bwd_load<T, HD>(ks, k + static_cast<long long>(b) * Sk * K * HD, K, kvh, k0, BKB, Sk);
+  bwd_load<T, HD>(vs, v + static_cast<long long>(b) * Sk * K * HD, K, kvh, k0, BKB, Sk);
+
+  // the query tiles that see a key of this tile
+  const int off = Sk - Sq;
+  int q_begin = causal ? max(0, k0 - off) : 0;
+  q_begin = (q_begin / BQB) * BQB;
+  int q_end = Sq;
+  if (window > 0) q_end = min(Sq, max(0, k0 + BKB - 1 + window - off));
+
+  const int kr = threadIdx.x / 32;  // keys 4 kr .. 4 kr + 3
+  const int dl = threadIdx.x % 32;
+  float adk[4][NE], adv[4][NE];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int e = 0; e < NE; ++e) adk[r][e] = adv[r][e] = 0.0f;
+
+  for (int j = 0; j < group; ++j) {
+    const int h = kvh * group + j;
+    for (int q0 = q_begin; q0 < q_end; q0 += BQB) {
+      __syncthreads();  // the previous tile is no longer read
+      bwd_load<T, HD>(qs, qb, H, h, q0, BQB, Sq);
+      bwd_load<T, HD>(dos, dob, H, h, q0, BQB, Sq);
+      for (int r = threadIdx.x; r < BQB; r += BWD_THREADS) {
+        const bool in = q0 + r < Sq;
+        lse_s[r] = in ? lse[(static_cast<long long>(b) * H + h) * Sq + q0 + r] : -INFINITY;
+        delta_s[r] = in ? delta[(static_cast<long long>(b) * H + h) * Sq + q0 + r] : 0.0f;
+      }
+      __syncthreads();
+      bwd_tile<T, HD>(qs, dos, ks, vs, lse_s, delta_s, ps, dss, q0, k0, Sq, Sk, scale, causal,
+                      window);
+      __syncthreads();
+#pragma unroll 4
+      for (int i = 0; i < BQB; ++i) {
+        float pv[4], dsv[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          pv[r] = ps[i * PLD + 4 * kr + r];
+          dsv[r] = dss[i * PLD + 4 * kr + r];
+        }
+#pragma unroll
+        for (int e = 0; e < NE; ++e) {
+          const float dov = dos[i * LD + dl + 32 * e];
+          const float qv = qs[i * LD + dl + 32 * e];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            adv[r][e] = fmaf(pv[r], dov, adv[r][e]);
+            adk[r][e] = fmaf(dsv[r], qv, adk[r][e]);
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int kj = k0 + 4 * kr + r;
+    if (kj >= Sk) continue;
+    const long long at = ((static_cast<long long>(b) * Sk + kj) * K + kvh) * HD;
+#pragma unroll
+    for (int e = 0; e < NE; ++e) {
+      dk[at + dl + 32 * e] = from_f<T>(adk[r][e] * scale);
+      dv[at + dl + 32 * e] = from_f<T>(adv[r][e]);
+    }
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(BWD_THREADS)
+attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        T* __restrict__ dq, int H, int Sq, int Sk, int group, float scale,
+                        int causal, int window) {
+  constexpr int LD = HD + 1;
+  constexpr int PLD = BKB + 1;
+  constexpr int NE = HD / 32;
+  extern __shared__ __align__(16) float bsm[];
+  float* ks = bsm;
+  float* vs = ks + BKB * LD;
+  float* qs = vs + BKB * LD;
+  float* dos = qs + BQB * LD;
+  float* dss = dos + BQB * LD + BQB * PLD;  // the dK/dV kernel's layout; no P here
+  float* lse_s = dss + BQB * PLD;
+  float* delta_s = lse_s + BQB;
+
+  const int q0 = blockIdx.x * BQB;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int K = H / group;
+  const int kvh = h / group;
+  bwd_load<T, HD>(qs, q + static_cast<long long>(b) * Sq * H * HD, H, h, q0, BQB, Sq);
+  bwd_load<T, HD>(dos, dout + static_cast<long long>(b) * Sq * H * HD, H, h, q0, BQB, Sq);
+  for (int r = threadIdx.x; r < BQB; r += BWD_THREADS) {
+    const bool in = q0 + r < Sq;
+    lse_s[r] = in ? lse[(static_cast<long long>(b) * H + h) * Sq + q0 + r] : -INFINITY;
+    delta_s[r] = in ? delta[(static_cast<long long>(b) * H + h) * Sq + q0 + r] : 0.0f;
+  }
+  const T* kb = k + static_cast<long long>(b) * Sk * K * HD;
+  const T* vb = v + static_cast<long long>(b) * Sk * K * HD;
+
+  // keys that any row of this tile sees (as the forward)
+  const int off = Sk - Sq;
+  const int last_q = min(q0 + BQB, Sq) - 1;
+  int k_end = Sk;
+  if (causal) k_end = min(Sk, last_q + off + 1);
+  int k_begin = 0;
+  if (window > 0) k_begin = max(0, q0 + off - window + 1);
+  k_begin = (k_begin / BKB) * BKB;
+
+  const int qr = threadIdx.x / 32;  // rows 8 qr .. 8 qr + 7
+  const int dl = threadIdx.x % 32;
+  float adq[8][NE];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int e = 0; e < NE; ++e) adq[r][e] = 0.0f;
+
+  for (int k0 = k_begin; k0 < k_end; k0 += BKB) {
+    __syncthreads();  // the previous tile is no longer read
+    bwd_load<T, HD>(ks, kb, K, kvh, k0, BKB, Sk);
+    bwd_load<T, HD>(vs, vb, K, kvh, k0, BKB, Sk);
+    __syncthreads();
+    bwd_tile<T, HD>(qs, dos, ks, vs, lse_s, delta_s, nullptr, dss, q0, k0, Sq, Sk, scale,
+                    causal, window);
+    __syncthreads();
+#pragma unroll 4
+    for (int jj = 0; jj < BKB; ++jj) {
+      float kv[NE];
+#pragma unroll
+      for (int e = 0; e < NE; ++e) kv[e] = ks[jj * LD + dl + 32 * e];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const float dsv = dss[(8 * qr + r) * PLD + jj];
+#pragma unroll
+        for (int e = 0; e < NE; ++e) adq[r][e] = fmaf(dsv, kv[e], adq[r][e]);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int qi = q0 + 8 * qr + r;
+    if (qi >= Sq) continue;
+    const long long at = ((static_cast<long long>(b) * Sq + qi) * H + h) * HD;
+#pragma unroll
+    for (int e = 0; e < NE; ++e) dq[at + dl + 32 * e] = from_f<T>(adq[r][e] * scale);
+  }
+}
+
+template <typename T, int HD>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
+               const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int H,
+               int K, int Sq, int Sk, int causal, int window, cudaStream_t stream) {
+  constexpr int smem = bwd_smem_bytes<HD>();
+  auto dkdv = attention_bwd_dkdv_kernel<T, HD>;
+  auto dqk = attention_bwd_dq_kernel<T, HD>;
+  static std::atomic<unsigned long long> done_dkdv{0}, done_dq{0};
+  cudaError_t err = smem_limit_once(done_dkdv, dkdv, smem);
+  if (err == cudaSuccess) err = smem_limit_once(done_dq, dqk, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* dot = static_cast<const T*>(dout);
+  const long long rows = static_cast<long long>(B) * Sq * H;
+  constexpr int WARPS_PER_BLOCK = BWD_THREADS / 32;
+  if (rows > 0) {
+    attention_bwd_delta_kernel<T, HD>
+        <<<static_cast<unsigned>((rows + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK), BWD_THREADS, 0,
+           stream>>>(static_cast<const T*>(o), dot, delta, H, Sq, rows);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const float scale = softmax_scale<HD>();
+  dkdv<<<dim3((Sk + BKB - 1) / BKB, K, B), BWD_THREADS, smem, stream>>>(
+      qt, kt, vt, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), H, Sq, Sk, H / K,
+      scale, causal, window);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || Sq <= 0) return static_cast<int>(err);
+  dqk<<<dim3((Sq + BQB - 1) / BQB, H, B), BWD_THREADS, smem, stream>>>(
+      qt, kt, vt, dot, lse, delta, static_cast<T*>(dq), H, Sq, Sk, H / K, scale, causal,
+      window);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -660,30 +1034,58 @@ extern "C" {
 // q [B, Sq, H, hd], k and v [B, Sk, K, hd], o [B, Sq, H, hd] with H = K * group,
 // given by pointers and (batch, seq, head) strides in elements; hd is 64 or 128
 // with unit stride. window <= 0 means no window; with a window, keys below
-// n_sink (>= 0) are seen by every query the causal mask lets see them.
+// n_sink (>= 0) are seen by every query the causal mask lets see them. lse:
+// null (serving), or fp32 [B, H, Sq] contiguous for each row's logsumexp of
+// the scaled scores (-inf where the row sees no key; no sinks with it).
 // Returns the cudaError_t of the launch.
 
 // float32 q, k, v, o: the scalar kernel
-int flash_attention_launch(const void* q, const void* k, const void* v, void* o, int B,
-                           int H, int K, int Sq, int Sk, int hd, long long qb, long long qs,
-                           long long qh, long long kb, long long ks, long long kh,
-                           long long vb, long long vs, long long vh, long long ob,
-                           long long os, long long oh, int causal, int window, int n_sink,
-                           void* stream) {
-  return launch<false>(q, k, v, o, B, H, K, Sq, Sk, hd, qb, qs, qh, kb, ks, kh, vb, vs, vh,
-                       ob, os, oh, causal, window, n_sink, stream);
+int flash_attention_launch(const void* q, const void* k, const void* v, void* o, void* lse,
+                           int B, int H, int K, int Sq, int Sk, int hd, long long qb,
+                           long long qs, long long qh, long long kb, long long ks,
+                           long long kh, long long vb, long long vs, long long vh,
+                           long long ob, long long os, long long oh, int causal, int window,
+                           int n_sink, void* stream) {
+  return launch<false>(q, k, v, o, lse, B, H, K, Sq, Sk, hd, qb, qs, qh, kb, ks, kh, vb, vs,
+                       vh, ob, os, oh, causal, window, n_sink, stream);
 }
 
 // bfloat16 q, k, v, o: the tensor-core kernel. Every pointer 16-byte aligned
 // and every stride a multiple of 8 elements.
-int flash_attention_tc_launch(const void* q, const void* k, const void* v, void* o, int B,
-                              int H, int K, int Sq, int Sk, int hd, long long qb,
+int flash_attention_tc_launch(const void* q, const void* k, const void* v, void* o, void* lse,
+                              int B, int H, int K, int Sq, int Sk, int hd, long long qb,
                               long long qs, long long qh, long long kb, long long ks,
                               long long kh, long long vb, long long vs, long long vh,
                               long long ob, long long os, long long oh, int causal,
                               int window, int n_sink, void* stream) {
-  return launch<true>(q, k, v, o, B, H, K, Sq, Sk, hd, qb, qs, qh, kb, ks, kh, vb, vs, vh,
-                      ob, os, oh, causal, window, n_sink, stream);
+  return launch<true>(q, k, v, o, lse, B, H, K, Sq, Sk, hd, qb, qs, qh, kb, ks, kh, vb, vs,
+                      vh, ob, os, oh, causal, window, n_sink, stream);
+}
+
+// The backward of the attention above (no sinks): q, o, dout [B, Sq, H, hd],
+// k, v [B, Sk, K, hd], lse fp32 [B, H, Sq] (the forward's), all contiguous;
+// delta fp32 [B, H, Sq] scratch; dq, dk, dv written, of q's dtype. bf16: 1 =
+// bfloat16, 0 = float32. hd 64 or 128. Returns the cudaError_t of the launches.
+int flash_attention_bwd_launch(const void* q, const void* k, const void* v, const void* o,
+                               const void* dout, const void* lse, void* delta, void* dq,
+                               void* dk, void* dv, int B, int H, int K, int Sq, int Sk, int hd,
+                               int bf16, int causal, int window, void* stream) {
+  if (B <= 0 || Sk <= 0) return 0;
+  if (K <= 0 || H % K != 0 || Sq < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const float* l = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hd == 64)
+    return bf16 ? launch_bwd<__nv_bfloat16, 64>(q, k, v, o, dout, l, dl, dq, dk, dv, B, H, K,
+                                                Sq, Sk, causal, window, s)
+                : launch_bwd<float, 64>(q, k, v, o, dout, l, dl, dq, dk, dv, B, H, K, Sq, Sk,
+                                        causal, window, s);
+  if (hd == 128)
+    return bf16 ? launch_bwd<__nv_bfloat16, 128>(q, k, v, o, dout, l, dl, dq, dk, dv, B, H, K,
+                                                 Sq, Sk, causal, window, s)
+                : launch_bwd<float, 128>(q, k, v, o, dout, l, dl, dq, dk, dv, B, H, K, Sq, Sk,
+                                         causal, window, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 const char* cuda_error_string(int err) {

@@ -3,14 +3,15 @@
 The port of the reference's Pallas ``kernels/flash_attention.py``, in the
 model's layout: q [B, Sq, H, hd], k and v [B, Sk, K, hd], query head n reading
 KV head n // (H // K). bf16 runs the tensor-core kernel, f32 the scalar one
-(:func:`kernel_for`). It takes CUDA tensors only; ``kernels.ops.flash_attention``
-is the public entry, which sends a CPU tensor to the plain version in
-``kernels/ref.py``.
+(:func:`kernel_for`); with ``lse=True`` it also returns each row's logsumexp
+for :func:`flash_attention_bwd`, the backward (training; no sinks). It takes
+CUDA tensors only; ``kernels.ops.flash_attention`` is the public entry, which
+sends a CPU tensor to the plain versions in ``kernels/ref.py``.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -26,8 +27,16 @@ KERNELS = {torch.bfloat16: ("tensor_cores", "flash_attention_tc_launch"),
 def _launcher(dtype: torch.dtype):
     fn = getattr(build.lib(NAME), KERNELS[dtype][1])
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
                        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _bwd_launcher():
+    fn = build.lib(NAME).flash_attention_bwd_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -61,10 +70,13 @@ def _aligned(t: torch.Tensor) -> bool:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    n_sink: int = 0) -> torch.Tensor:
+                    n_sink: int = 0, lse: bool = False,
+                    ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Causal (end-aligned), optionally windowed GQA attention; returns [B, Sq, H, hd].
 
-    With a window, the first ``n_sink`` keys (attention sinks) pass the window test.
+    With a window, the first ``n_sink`` keys (attention sinks) pass the window
+    test. ``lse=True`` (training, no sinks) also returns each row's logsumexp
+    of the scaled scores, fp32 [B, H, Sq] (-inf where a row sees no key).
     """
     if q.device.type != "cuda":
         raise ValueError("flash_attention kernel takes CUDA tensors")
@@ -76,13 +88,53 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"window must be positive, got {window}")
     if n_sink < 0:
         raise ValueError(f"n_sink must be >= 0, got {n_sink}")
+    if lse and n_sink and window is not None:
+        raise ValueError("the row logsumexp (training) is not written with attention sinks")
     B, Sq, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    row_lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if lse else None
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     err = _launcher(q.dtype)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if row_lse is None else row_lse.data_ptr(),
         B, H, K, Sq, Sk, hd, *strides, int(causal), window or 0, n_sink,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(NAME, err)
-    return out
+    return (out, row_lse) if lse else out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                        lse: torch.Tensor, dout: torch.Tensor, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of :func:`flash_attention` (no sinks) from its output
+    ``out``, its row logsumexp ``lse`` [B, H, Sq] fp32 and the cotangent
+    ``dout`` [B, Sq, H, hd]; shapes and dtypes as the forward's. Inputs are
+    made contiguous (the kernels read the model's layout with fixed strides).
+    Raises ValueError for inputs the kernels do not take (any device first,
+    then anything but CUDA tensors)."""
+    kernel_for(q, k, v)
+    B, Sq, H, hd = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} does not match q "
+                             f"{tuple(q.shape)} {q.dtype}")
+    if lse.shape != (B, H, Sq) or lse.dtype != torch.float32 or lse.device != q.device:
+        raise ValueError(f"lse must be fp32 [B, H, Sq] = {(B, H, Sq)} on q's device, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    if window is not None and window <= 0:
+        raise ValueError(f"window must be positive, got {window}")
+    if q.device.type != "cuda":
+        raise ValueError("flash_attention_bwd kernel takes CUDA tensors")
+    q, k, v, out, dout, lse = (t.contiguous() for t in (q, k, v, out, dout, lse))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    err = _bwd_launcher()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        B, H, K, Sq, Sk, hd, int(q.dtype == torch.bfloat16), int(causal), window or 0,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(NAME, err)
+    return dq, dk, dv

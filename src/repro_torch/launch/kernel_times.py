@@ -5,13 +5,19 @@
 
 Whichever ``repro_torch`` is first on the path is the one timed: run this file
 against two checkouts in turns (A, B, B, A) on one card to compare them. It
-uses only the public entries (``kernels.ops``, ``BatchServer``).
+uses only the public entries (``kernels.ops``, ``BatchServer``, and the
+backward launchers ``adapter_fused_bwd`` and ``flash_attention_bwd``, which a
+checkout from before training lacks: it then says so and times the rest).
 
 Without ``--serve``: ``adapter_fused`` at decode (h [T, D] for 1-17 rows and
 the served widths) and at prefill (h [2048, 2048] and [2048, 4096] in bf16
 and f32, [2292, 1600] in bf16), ``flash_attention`` at the served
 prefill shapes, ``rwkv_scan`` at rwkv6-7b's prefill (N 256 = 4 rows x 64 heads
 of 64, S 512 and 445) and ``mamba_scan`` at hymba-1.5b's ([4, 640, 1600, 16]),
+and the backward kernels at qwen2.5-3b's training shapes (the adapter at h
+[2048, 2048] in bf16 and f32; attention at 4 x 512, 16 over 2 heads of 128, in
+bf16 and f32, and hd 64 with a window of 128), each on the same inputs as its
+plain version (attention: the kernel forward's o and row logsumexp),
 each checked against its plain version and timed three ways:
 ``ms``, the device time of launches captured in one CUDA graph and replayed;
 ``eager_ms``, launches issued from Python (for a kernel of a few microseconds,
@@ -165,6 +171,38 @@ def kernels() -> None:
     c = rnd(B, S, N, dtype=torch.float32)
     _time("mamba_scan", f"log_a/b[{B},{S},{D},{N}] f32",
           lambda: ops.mamba_scan(log_a, b, c), lambda: ops.mamba_scan(log_a, b, c, impl="plain"))
+    backward(rnd)
+
+
+def backward(rnd) -> None:
+    """The backward kernels (training), where this checkout has them."""
+    from repro_torch.kernels import adapter_fused as af
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    if not hasattr(fa, "flash_attention_bwd"):
+        print(json.dumps({"kernel": "backward", "note": "no backward kernels in this checkout"}),
+              flush=True)
+        return
+    for dtype in (torch.bfloat16, torch.float32):
+        T, D = 2048, 2048
+        h, g = rnd(T, D, dtype=dtype), rnd(T, D, dtype=dtype)
+        wd, wu = 0.05 * rnd(D, 64, dtype=dtype), 0.05 * rnd(64, D, dtype=dtype)
+        _time("adapter_fused_bwd", f"h,g[{T},{D}] m=64 gelu {str(dtype)[6:]}",
+              lambda: af.adapter_fused_bwd(g, h, wd, wu),
+              lambda: ref.adapter_fused_bwd_terms(g, h, wd, wu))
+    for (H, K, hd), window, dtype in (((16, 2, 128), None, torch.bfloat16),
+                                      ((16, 2, 128), None, torch.float32),
+                                      ((16, 2, 64), 128, torch.bfloat16)):
+        S = 512
+        q, k, v = rnd(4, S, H, hd, dtype=dtype), rnd(4, S, K, hd, dtype=dtype), \
+            rnd(4, S, K, hd, dtype=dtype)
+        dout = rnd(4, S, H, hd, dtype=dtype)
+        out, lse = fa.flash_attention(q, k, v, window=window, lse=True)
+        _time("flash_attention_bwd", f"q,dO[4,{S},{H},{hd}] kv heads {K} window {window} "
+              f"{str(dtype)[6:]}",
+              lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout, window=window),
+              lambda: ref.flash_attention_bwd(q, k, v, out, lse, dout, window=window))
 
 
 def cold_ms(fn, h: torch.Tensor, l2_bytes: float = 50e6) -> float:

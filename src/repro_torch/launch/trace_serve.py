@@ -31,10 +31,10 @@ from repro_torch.models import params as prm
 from repro_torch.models import transformer as tfm
 
 BATCH, PROMPT_LEN, STEPS, TOP, SEED = 4, 512, 4, 12, 0
-PORT_KERNELS = ("adapter_", "flash_attention", "rwkv_scan", "mamba_scan")
+PORT_KERNELS = ("adapter_", "flash_attention", "attention_bwd", "rwkv_scan", "mamba_scan")
 
 
-def _wall_ms(fn, device: torch.device) -> float:
+def wall_ms(fn, device: torch.device) -> float:
     torch.cuda.synchronize(device)
     t0 = time.perf_counter()
     fn()
@@ -42,15 +42,15 @@ def _wall_ms(fn, device: torch.device) -> float:
     return 1e3 * (time.perf_counter() - t0)
 
 
-def _traced(fn, device: torch.device, label: str, wall_ms: float) -> None:
-    """Profile ``fn``; ``wall_ms`` is its wall time measured before any profiling."""
+def traced(fn, device: torch.device, label: str, unprofiled_ms: float) -> None:
+    """Profile ``fn``; ``unprofiled_ms`` is its wall time measured before any profiling."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        traced_wall_ms = _wall_ms(fn, device)
+        traced_wall_ms = wall_ms(fn, device)
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
     launches = sum(e.count for e in events)
-    print(f"[{label}] wall_ms={wall_ms:.3f} traced_wall_ms={traced_wall_ms:.3f} "
-          f"device_ms={device_ms:.3f} idle_share={1 - device_ms / wall_ms:.3f} "
+    print(f"[{label}] wall_ms={unprofiled_ms:.3f} traced_wall_ms={traced_wall_ms:.3f} "
+          f"device_ms={device_ms:.3f} idle_share={1 - device_ms / unprofiled_ms:.3f} "
           f"kernel_launches={launches}")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:TOP]:
         print(f"[{label}]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
@@ -90,9 +90,9 @@ def main(argv=None) -> None:
               f"prompt_len={PROMPT_LEN} meta_tokens={tfm.n_meta(cfg)} decode_steps={STEPS} "
               f"device={device}")
         # wall times before the profiler first runs, then the traced runs
-        walls = [_wall_ms(prefill, device), _wall_ms(decode, device)]
-        _traced(prefill, device, "prefill", walls[0])
-        _traced(decode, device, "decode", walls[1])
+        walls = [wall_ms(prefill, device), wall_ms(decode, device)]
+        traced(prefill, device, "prefill", walls[0])
+        traced(decode, device, "decode", walls[1])
 
 
 if __name__ == "__main__":

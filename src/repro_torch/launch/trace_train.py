@@ -1,0 +1,73 @@
+"""Where a training step's time goes, at two unfreeze depths, under torch.profiler.
+
+One architecture at its published width (qwen2.5-3b by default; random
+weights from seed 0, non-zero adapters), batches of 4 x 512 tokens from the
+merged synthetic client corpora. For each depth (``--depths``, default 1 and
+36: the top block only, and every block) it runs one train step to warm up,
+then prints the step's host wall time without the profiler, the memory
+resident before it, its peak device memory (``torch.cuda.max_memory_allocated``)
+and the peak of its forward and backward alone, then the traced step's
+device time summed over kernels, the device's idle share of the unprofiled
+wall time, the kernels that took the most device time and the port's own
+kernels (forward and backward).
+
+    PYTHONPATH=src python -m repro_torch.launch.trace_train [--depths 1 36]
+
+It needs a CUDA card: the numbers are device metrics.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+import torch
+
+from repro_torch import device as dev_rule
+from repro_torch.configs import TrainConfig, get_config
+from repro_torch.core import training
+from repro_torch.core.unfreeze import depth_to_boundary
+from repro_torch.data.pipeline import to_device
+from repro_torch.launch.trace_serve import traced, wall_ms
+from repro_torch.launch.train import data_source
+from repro_torch.models import params as prm
+from repro_torch.optim import adamw
+
+SEED = 0
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2.5-3b", help="a dense port architecture")
+    ap.add_argument("--depths", type=int, nargs="+", default=[1, 36])
+    ap.add_argument("--batch-size", type=int, default=4)
+    ap.add_argument("--seq-len", type=int, default=512)
+    args = ap.parse_args(argv)
+    device = dev_rule.resolve("cuda")
+    cfg = get_config(args.arch)
+    cfg = dataclasses.replace(cfg, adapter=dataclasses.replace(cfg.adapter, zero_init_up=False))
+    tc = TrainConfig(batch_size=args.batch_size, seq_len=args.seq_len, seed=SEED)
+    params = prm.materialize(cfg, seed=SEED, device=device)
+    opt_state = adamw.init(training.full_trainable(params, cfg))
+    batch = to_device(data_source(cfg, tc).next(), device)
+    for depth in args.depths:
+        boundary = depth_to_boundary(cfg, depth)
+        step = training.make_train_step(cfg, tc, boundary)
+        run = lambda: step(params, opt_state, batch)        # the same step, from the same state
+        run()                                               # warm-up: kernel build, cuBLAS
+        resident = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        unprofiled = wall_ms(run, device)
+        peak = torch.cuda.max_memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        training.loss_and_grads(params, batch, cfg, boundary)
+        fwd_bwd = torch.cuda.max_memory_allocated(device)
+        print(f"[trace] arch={cfg.name} depth={depth} boundary={boundary} "
+              f"batch={args.batch_size} seq_len={args.seq_len} "
+              f"resident_gib={resident / 2**30:.3f} step_peak_gib={peak / 2**30:.3f} "
+              f"fwd_bwd_peak_gib={fwd_bwd / 2**30:.3f} "
+              f"device={torch.cuda.get_device_name(device)}")
+        traced(run, device, f"train depth {depth}", unprofiled)
+
+
+if __name__ == "__main__":
+    main()

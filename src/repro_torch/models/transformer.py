@@ -1,11 +1,12 @@
-"""Decoder for serving (dense, RWKV-6 and Hymba blocks): embed, blocks, head;
-prefill and decode.
+"""Decoder (dense, RWKV-6 and Hymba blocks): embed, blocks, head; the training
+forward with RingAda's unfreeze boundary, prefill and decode.
 
 Parameters follow ``models/params.py`` (one dict per layer). The functions
-mirror the reference's ``models/transformer.py``: ``forward`` is its inference
-forward over a full sequence (no unfreeze ``boundary``, which belongs to
-training), ``prefill`` runs a prompt and fills the cache (KV by gathers,
-recurrent state by the scan), and ``decode_step`` adds one token per row.
+mirror the reference's ``models/transformer.py``: ``forward`` runs a full
+sequence, with the static unfreeze ``boundary`` (frozen repeats from the
+bottom) when training, ``prefill`` runs a prompt and fills the cache (KV by
+gathers, recurrent state by the scan), and ``decode_step`` adds one token per
+row.
 
 A model with hymba blocks puts its ``n_meta`` = 128 learned meta tokens
 before every prompt: positions run over the ``n_meta + S`` tokens, the meta
@@ -14,7 +15,7 @@ before the head.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -74,14 +75,41 @@ def _run(cfg: ModelConfig, params, h: torch.Tensor, ctx: BlockCtx, caches=None):
     return h, new_caches
 
 
-def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
+def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *, boundary: int = 0,
+            hot_adapters: Optional[List[Dict[str, torch.Tensor]]] = None,
+            head_params: Optional[Dict[str, torch.Tensor]] = None,
             impl: str = "kernel") -> torch.Tensor:
-    """Logits [B, S, V] of a full sequence (inference only)."""
+    """Logits [B, S, V] of a full sequence.
+
+    ``boundary`` counts frozen repeats from the bottom. Their layers run under
+    ``torch.no_grad()`` and h is detached after them: RingAda's early-stop
+    point, below which no gradient flows and nothing is saved for one. When
+    training, the differentiated leaves come separately: ``hot_adapters``, the
+    adapters of the layers above the boundary in order, and ``head_params``.
+    The frozen weights of hot layers need no gradient, so autograd forms only
+    input gradients through them.
+    """
     _check(cfg)
     h, pos = _embed_prompt(cfg, params, tokens)
     ctx = BlockCtx(cfg=cfg, mode="seq", positions=pos, impl=impl)
-    h, _ = _run(cfg, params, h, ctx)
-    return head(cfg, params, h[:, n_meta(cfg):])
+    kinds = kvcache.layer_kinds(cfg)
+    blocks = params["blocks"]
+    n_frozen = boundary * cfg.layers_per_repeat
+    if hot_adapters is not None and len(hot_adapters) != len(blocks) - n_frozen:
+        raise ValueError(f"{len(hot_adapters)} hot adapters for {len(blocks) - n_frozen} "
+                         f"layers above boundary {boundary}")
+    with torch.no_grad():
+        for i in range(n_frozen):
+            h, _ = apply_block(kinds[i], cfg, blocks[i], h, ctx)
+    # === RingAda early-stop point: no gradients flow below this line ===
+    h = h.detach()
+    for i in range(n_frozen, len(blocks)):
+        layer = blocks[i]
+        if hot_adapters is not None:
+            layer = {**layer, "adapter": hot_adapters[i - n_frozen]}
+        h, _ = apply_block(kinds[i], cfg, layer, h, ctx)
+    hp = params if head_params is None else {**params, "head": head_params}
+    return head(cfg, hp, h[:, n_meta(cfg):])
 
 
 def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, *,

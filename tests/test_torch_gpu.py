@@ -20,6 +20,17 @@ large up term, that ulp exceeds the tolerance of the small output.
 to the largest entry of each output (1e-4): both sum fp32 products in their
 own order along a serial recurrence, and on the served models the outputs
 reach 1e3 and more, where an absolute tolerance says nothing.
+
+The backward kernels (training) are held to the plain backward versions on
+the same inputs relative to each gradient's largest entry: 1e-4 in f32 (fp32
+sums over up to 2048 rows in another order) and 2**-7 in bf16 (one bf16 ulp
+of the largest entry: each gradient is rounded once to bf16, and dh twice, as
+the reference rounds it). The row logsumexp to 1e-4 (the bf16 kernel sums
+exponentials from ex2.approx). Through autograd, kernel forward and backward
+against plain forward and backward, bf16 attention allows two ulps (2**-6):
+the two forwards round o differently (the kernel's PV takes the unnormalised
+exp(s - m) in bf16, the plain version the normalised P), and the backward's
+rowsum(dO o) inherits that.
 """
 import pytest
 
@@ -29,6 +40,8 @@ from repro_torch.kernels import ops  # noqa: E402
 
 ATOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 3e-2)}   # (adapter, attention)
 SCAN_RTOL = 1e-4     # rwkv_scan and mamba_scan, of the largest entry of each output
+BWD_RTOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}   # backward, of each gradient's largest entry
+PIPE_RTOL = {"float32": 1e-4, "bfloat16": 2.0 ** -6}  # attention forward and backward through autograd
 ULP = 2.0 ** -7      # one bf16 ulp, relative
 
 
@@ -301,3 +314,136 @@ def test_flash_attention_not_causal_on_card(Sq, Sk, window, dtype):
     got = ops.flash_attention(q, k, v, causal=False, window=window)
     want = ops.flash_attention(q, k, v, causal=False, window=window, impl="plain")
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=ATOL[dtype][1])
+
+
+def _assert_grad_close(got, want, dtype, what, rtol=BWD_RTOL):
+    got, want = got.float(), want.float()
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    assert torch.isfinite(got).all() and err <= rtol[dtype] * scale, \
+        f"{what}: {err} beyond {rtol[dtype]} x {scale}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("act", ["gelu", "relu", "silu"])
+@pytest.mark.parametrize("T,D,m", [(2048, 2048, 64), (300, 1000, 48), (4, 256, 16),
+                                   (37, 4096, 64)])
+def test_adapter_fused_backward_on_card(T, D, m, act, dtype):
+    """The backward kernel through ops' autograd Function against the plain
+    backward (impl="plain") on the same inputs and cotangent: dh, dW_down,
+    dW_up; and the kernel's mid and g_mid against their plain formulas."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.kernels import adapter_fused as af
+    from repro_torch.kernels import ref
+
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(T + D + m)
+    rnd = lambda *s, std=1.0: (std * torch.randn(s, generator=gen, device="cuda")).to(dt)
+    h, g = rnd(T, D), rnd(T, D)
+    wd, wu = rnd(D, m, std=0.05), rnd(m, D, std=0.05)
+    grads = {}
+    for impl in ("kernel", "plain"):
+        leaves = [t.clone().requires_grad_(True) for t in (h, wd, wu)]
+        ops.reset_launches()
+        out = ops.adapter_fused(*leaves, activation=act, impl=impl)
+        grads[impl] = torch.autograd.grad(out, leaves, g)
+        if impl == "kernel":
+            assert ops.LAUNCHES["adapter_fused"] == 1 and ops.LAUNCHES["adapter_fused_bwd"] == 1
+    for name, a, b in zip(("dh", "dw_down", "dw_up"), grads["kernel"], grads["plain"]):
+        assert a.dtype == dt
+        _assert_grad_close(a, b, dtype, name)
+    if dt == torch.bfloat16:
+        # dh rounds as the reference does (tests/test_torch_train.py pins the
+        # plain version to it): equal bit for bit but where the fp32 sums of
+        # the input term round to bf16 on either side of a boundary
+        assert (grads["kernel"][0] == grads["plain"][0]).float().mean().item() >= 0.99
+    _, mid, g_mid = af.adapter_fused_bwd(g, h, wd, wu, activation=act)
+    z = h.float() @ wd.float()
+    _assert_grad_close(mid, ref.act(act, z), "float32", "mid")
+    _assert_grad_close(g_mid, (g.float() @ wu.float().t()) * ref.act_grad(act, z), "float32",
+                       "g_mid")
+
+
+def _backward_cases():
+    """(Sq, Sk, window, causal): qwen2.5-3b's training shape, lengths around the
+    64-row and 32-key tiles, a window, Sk > Sq, Sq > Sk (fully masked rows),
+    not causal."""
+    return [(512, 512, None, True), (65, 65, None, True), (130, 130, 48, True),
+            (37, 100, None, True), (100, 37, None, True), (70, 90, 40, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("heads", [(16, 2, 128), (25, 5, 64)], ids=["qwen", "hymba"])
+@pytest.mark.parametrize("Sq,Sk,window,causal", _backward_cases())
+def test_flash_attention_backward_on_card(Sq, Sk, window, causal, heads, dtype):
+    """The backward kernels against the plain backward on the same inputs (q,
+    k, v, the kernel forward's o and lse, the cotangent); then through ops'
+    autograd Function, kernels against plain versions. The forward's output
+    with the row logsumexp is the served output, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    H, K, hd = heads
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(Sq * 1000 + Sk + H)
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dt)
+    q, k, v, dout = rnd(2, Sq, H, hd), rnd(2, Sk, K, hd), rnd(2, Sk, K, hd), rnd(2, Sq, H, hd)
+    out, lse = fa.flash_attention(q, k, v, causal=causal, window=window, lse=True)
+    assert torch.equal(out, fa.flash_attention(q, k, v, causal=causal, window=window))
+    _, want_lse = ref.flash_attention(q, k, v, causal=causal, window=window, lse=True)
+    finite = torch.isfinite(want_lse)
+    assert torch.equal(finite, torch.isfinite(lse))
+    assert (lse[finite] - want_lse[finite]).abs().max().item() <= 1e-4
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal, window=window)
+    want = ref.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal, window=window)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        _assert_grad_close(a, b, dtype, name)
+    grads = {}
+    for impl in ("kernel", "plain"):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        ops.reset_launches()
+        o = ops.flash_attention(*leaves, causal=causal, window=window, impl=impl)
+        grads[impl] = torch.autograd.grad(o, leaves, dout)
+        if impl == "kernel":
+            assert ops.LAUNCHES["flash_attention"] == 1
+            assert ops.LAUNCHES["flash_attention_bwd"] == 1
+    for name, a, b in zip(("dq", "dk", "dv"), grads["kernel"], grads["plain"]):
+        assert a.dtype == dt
+        _assert_grad_close(a, b, dtype, f"{name} through autograd", PIPE_RTOL)
+    if Sq > Sk and causal:
+        assert torch.all(grads["kernel"][0][:, :Sq - Sk] == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_backward_kernels_are_deterministic_on_card(dtype):
+    """Both backward kernels sum in a fixed order (no atomics): the same inputs
+    give the same outputs bit for bit, call after call, at the adapter's
+    widest shape of the card tests and at qwen2.5-3b's attention shape."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.kernels import adapter_fused as af
+    from repro_torch.kernels import flash_attention as fa
+
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    rnd = lambda *s, std=1.0: (std * torch.randn(s, generator=gen, device="cuda")).to(dt)
+    h, g = rnd(37, 4096), rnd(37, 4096)
+    wd, wu = rnd(4096, 64, std=0.05), rnd(64, 4096, std=0.05)
+    q, k, v, dout = rnd(4, 512, 16, 128), rnd(4, 512, 2, 128), rnd(4, 512, 2, 128), \
+        rnd(4, 512, 16, 128)
+    out, lse = fa.flash_attention(q, k, v, lse=True)
+    for act in ("gelu", "relu", "silu"):
+        first = af.adapter_fused_bwd(g, h, wd, wu, activation=act)
+        for _ in range(4):
+            again = af.adapter_fused_bwd(g, h, wd, wu, activation=act)
+            assert all(torch.equal(a, b) for a, b in zip(first, again)), act
+    first = fa.flash_attention_bwd(q, k, v, out, lse, dout)
+    for _ in range(4):
+        again = fa.flash_attention_bwd(q, k, v, out, lse, dout)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))

@@ -69,8 +69,8 @@ def test_adapter_fused_flattens_leading_dims_and_counts_no_cpu_launch():
     out = ops.adapter_fused(h, wd, wu)
     want = ref.adapter_fused(h.reshape(-1, 64), wd, wu).reshape(h.shape)
     torch.testing.assert_close(out, want, rtol=0, atol=0)
-    assert ops.LAUNCHES == {"adapter_fused": 0, "flash_attention": 0, "mamba_scan": 0,
-                            "rwkv_scan": 0}
+    assert ops.LAUNCHES == {"adapter_fused": 0, "adapter_fused_bwd": 0, "flash_attention": 0,
+                            "flash_attention_bwd": 0, "mamba_scan": 0, "rwkv_scan": 0}
 
 
 def _heads_first(x):
@@ -289,11 +289,19 @@ def test_adapter_fused_tile_plan_misses_only_what_does_not_fit():
             assert torch_af.tile_layout(widest + 32, m, cluster) is None
 
 
-@pytest.mark.parametrize("name", ["adapter_fused", "flash_attention", "rwkv_scan",
-                                  "mamba_scan"])
-def test_kernel_sources_export_what_the_launchers_bind(name):
+@pytest.mark.parametrize("name,entries", [
+    pytest.param("adapter_fused", {"adapter_fused_launch", "adapter_fused_cluster_launch",
+                                   "adapter_fused_cluster_occupancy", "adapter_fused_tile_launch",
+                                   "adapter_fused_tile_occupancy", "adapter_fused_bwd_launch"},
+                 id="adapter_fused"),
+    pytest.param("flash_attention", {"flash_attention_launch", "flash_attention_tc_launch",
+                                     "flash_attention_bwd_launch"}, id="flash_attention"),
+    pytest.param("rwkv_scan", {"rwkv_scan_launch"}, id="rwkv_scan"),
+    pytest.param("mamba_scan", {"mamba_scan_launch"}, id="mamba_scan")])
+def test_kernel_sources_export_what_the_launchers_bind(name, entries):
     """Every C entry a launcher binds with ctypes is defined in its CUDA
-    source (a missing one fails only at load time, on the card)."""
+    source (a missing one fails only at load time, on the card); the
+    backward entries among them."""
     import re
     from pathlib import Path
 
@@ -302,7 +310,8 @@ def test_kernel_sources_export_what_the_launchers_bind(name):
     bound = set(re.findall(rf"\b({name}\w*_(?:launch|occupancy))\b", text))
     src = (root / "csrc" / f"{name}.cu").read_text()
     exported = src[src.index('extern "C" {'):]
-    assert bound and all(re.search(rf"\b{fn}\(", exported) for fn in bound)
+    assert bound == entries
+    assert all(re.search(rf"\b{fn}\(", exported) for fn in bound)
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -436,3 +445,74 @@ def test_flash_attention_launcher_refuses_what_no_kernel_takes(case):
         q = meta(1, 64, 128, 8).transpose(2, 3)
     with pytest.raises(ValueError):
         torch_fa.kernel_for(q, k, v)
+
+
+@pytest.mark.parametrize("case", ["cpu", "hd80", "mixed_dtypes", "lse_dtype", "dout_shape"])
+def test_flash_attention_bwd_launcher_refuses_what_no_kernel_takes(case):
+    """The backward launcher checks shapes and dtypes on any device, then
+    refuses anything but CUDA tensors: no fallback."""
+    dev = "cpu" if case == "cpu" else "meta"
+    t = lambda *s, dtype=torch.bfloat16: torch.zeros(s, dtype=dtype, device=dev)
+    q, k, v = t(1, 64, 8, 128), t(1, 64, 2, 128), t(1, 64, 2, 128)
+    out, dout, lse = t(1, 64, 8, 128), t(1, 64, 8, 128), t(1, 8, 64, dtype=torch.float32)
+    if case == "hd80":
+        q, out, dout = t(1, 64, 8, 80), t(1, 64, 8, 80), t(1, 64, 8, 80)
+        k = v = t(1, 64, 2, 80)
+    elif case == "mixed_dtypes":
+        dout = t(1, 64, 8, 128, dtype=torch.float32)
+    elif case == "lse_dtype":
+        lse = t(1, 8, 64)
+    elif case == "dout_shape":
+        dout = t(1, 63, 8, 128)
+    with pytest.raises(ValueError, match="CUDA" if case == "cpu" else None):
+        torch_fa.flash_attention_bwd(q, k, v, out, lse, dout)
+
+
+@pytest.mark.parametrize("case", ["cpu", "mixed_dtypes", "g_shape", "m_too_large"])
+def test_adapter_fused_bwd_launcher_refuses_what_no_kernel_takes(case):
+    h, g = torch.zeros(32, 64), torch.zeros(32, 64)
+    wd, wu = torch.zeros(64, 16), torch.zeros(16, 64)
+    if case == "mixed_dtypes":
+        g = g.to(torch.bfloat16)
+    elif case == "g_shape":
+        g = torch.zeros(31, 64)
+    elif case == "m_too_large":
+        wd, wu = torch.zeros(64, 300), torch.zeros(300, 64)
+    with pytest.raises(ValueError, match="CUDA" if case == "cpu" else None):
+        torch_af.adapter_fused_bwd(g, h, wd, wu)
+
+
+def test_attention_gradient_with_sinks_is_refused_and_serving_saves_nothing():
+    """n_sink > 0 with a gradient raises (hymba training waits); where no input
+    needs a gradient the call is the forward alone, as served."""
+    q = torch.randn(1, 8, 2, 64, requires_grad=True)
+    k = torch.randn(1, 8, 1, 64)
+    with pytest.raises(NotImplementedError, match="sinks"):
+        ops.flash_attention(q, k, k, window=4, n_sink=2)
+    with torch.no_grad():
+        out = ops.flash_attention(q, k, k, window=4, n_sink=2)
+    assert out.grad_fn is None
+    assert ops.adapter_fused(k, torch.zeros(64, 4), torch.zeros(4, 64)).grad_fn is None
+    assert ops.flash_attention(q, k, k).grad_fn is not None
+
+
+@pytest.mark.parametrize("scan", ["rwkv_scan", "mamba_scan"])
+def test_scan_kernel_gradient_is_refused(scan):
+    """The scans have no backward kernel: off the CPU (a meta tensor stands for
+    the card's; the refusal comes before any launch) a call that needs a
+    gradient raises, where the plain version on the CPU stays differentiable;
+    with no gradient needed the refusal does not apply."""
+    shapes = {"rwkv_scan": [(2, 4, 8)] * 4 + [(2, 1, 8), (2, 8, 8)],
+              "mamba_scan": [(1, 4, 3, 2), (1, 4, 3, 2), (1, 4, 2), (1, 3, 2)]}[scan]
+    fn = getattr(ops, scan)
+    meta = [torch.zeros(s, device="meta") for s in shapes]
+    meta[1].requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="Queue 1, item 12"):
+        fn(*meta)
+    cpu = [torch.randn(s) * 0.1 for s in shapes]
+    cpu[1].requires_grad_(True)
+    ops.reset_launches()
+    out = fn(*cpu)[0]
+    assert out.grad_fn is not None and ops.LAUNCHES[scan] == 0
+    out.sum().backward()
+    assert cpu[1].grad is not None and torch.isfinite(cpu[1].grad).all()
