@@ -1,9 +1,8 @@
 """StableLM-3B [hf:stabilityai/stablelm-2-1_6b family] — dense MHA decoder.
 
-32L d_model=2560 32H (GQA kv=32) d_ff=6912 vocab=50304; head_dim 80, which
-the port's attention kernel does not take yet (ROADMAP.md Queue 2): on the
-card only its reduced form (head_dim 64) runs, and the full width runs where
-the plain versions do (``device="cpu"``).
+32L d_model=2560 32H (GQA kv=32) d_ff=6912 vocab=50304; head_dim 80. The
+main path's arch: it trains at full width on the card (the attention kernels
+take head_dim 80), its reduced form has head_dim 64.
 """
 from repro_torch.configs.base import AdapterConfig, ModelConfig, register
 

@@ -6,6 +6,7 @@ instead of falling back.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Union
 
 import torch
@@ -21,3 +22,13 @@ def resolve(device: Optional[Union[str, torch.device]] = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (the kernels size grids by it)."""
+    return _sm_count(device.index if device.index is not None else torch.cuda.current_device())

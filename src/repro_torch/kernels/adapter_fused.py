@@ -21,6 +21,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import device as dev_rule
 from repro_torch.kernels import build
 
 NAME = "adapter_fused"
@@ -106,11 +107,6 @@ def _lib():
                                                 + [ctypes.c_void_p])
         so.adapter_fused_bwd_launch.restype = ctypes.c_int
     return so
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: int) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @functools.lru_cache(maxsize=None)
@@ -328,8 +324,7 @@ def adapter_fused(h: torch.Tensor, w_down: torch.Tensor, w_up: torch.Tensor, *,
     else:
         # too few row tiles to fill the card: split the output columns
         row_tiles = -(-T // ROWS)
-        sms = _sm_count(h.device.index if h.device.index is not None
-                        else torch.cuda.current_device())
+        sms = dev_rule.sm_count(h.device)
         n_split = max(1, min(sms // max(row_tiles, 1), -(-D // 256)))
         err = so.adapter_fused_launch(
             h.data_ptr(), w_down.data_ptr(), w_up.data_ptr(), out.data_ptr(),

@@ -4,7 +4,9 @@ The port of the reference's Pallas ``kernels/flash_attention.py``, in the
 model's layout: q [B, Sq, H, hd], k and v [B, Sk, K, hd], query head n reading
 KV head n // (H // K). bf16 runs the tensor-core kernel, f32 the scalar one
 (:func:`kernel_for`); with ``lse=True`` it also returns each row's logsumexp
-for :func:`flash_attention_bwd`, the backward (training; no sinks). It takes
+for :func:`flash_attention_bwd`, the backward (training; no sinks): bf16 on
+the tensor cores, its dK/dV blocks splitting the GQA group where the card
+would otherwise sit idle (:func:`bwd_parts`), f32 the scalar kernels. It takes
 CUDA tensors only; ``kernels.ops.flash_attention`` is the public entry, which
 sends a CPU tensor to the plain versions in ``kernels/ref.py``.
 """
@@ -15,10 +17,15 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from repro_torch import device as dev_rule
 from repro_torch.kernels import build
 
 NAME = "flash_attention"
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 80, 128)
+# rows of the bf16 backward's tiles: keys per dK/dV block. BT in the source,
+# which the library returns (flash_attention_bwd_tile); _bwd_launcher checks
+# the two agree when it first loads the library
+BWD_TILE = 64
 # dtype -> (kernel, its C launcher in csrc/flash_attention.cu)
 KERNELS = {torch.bfloat16: ("tensor_cores", "flash_attention_tc_launch"),
            torch.float32: ("scalar", "flash_attention_launch")}
@@ -34,9 +41,13 @@ def _launcher(dtype: torch.dtype):
 
 
 def _bwd_launcher():
-    fn = build.lib(NAME).flash_attention_bwd_launch
+    lib = build.lib(NAME)
+    fn = lib.flash_attention_bwd_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        if lib.flash_attention_bwd_tile() != BWD_TILE:
+            raise RuntimeError(f"csrc/flash_attention.cu's BT is "
+                               f"{lib.flash_attention_bwd_tile()}, BWD_TILE {BWD_TILE}")
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -104,6 +115,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return (out, row_lse) if lse else out
 
 
+def bwd_parts(B: int, Sk: int, K: int, group: int, sms: int) -> int:
+    """How many slices of each GQA group the bf16 backward's dK/dV blocks
+    take: the fewest (dividing ``group``) that start at least two blocks per
+    SM (one block per (64-key tile, slice, KV head, batch row)), else one per
+    query head. One slice writes dK and dV directly; more write fp32 partial
+    sums that a second pass adds in order. qwen2.5-3b's training shape (B 4,
+    Sk 512, K 2, group 8): 8 slices, 512 blocks; stablelm-3b's (group 1): 1.
+
+    "Two blocks per SM" rests on csrc/flash_attention.cu's
+    attention_bwd_dkdv_tc_kernel: THREADS = 128 threads under
+    ``__launch_bounds__(THREADS)`` (at most 255 registers, so two blocks fit
+    in the 64 K registers), and launch_bwd_tc's ``smem_dkdv`` = 6 BT tile_ld
+    bf16 + 4 BT fp32 (99 KB at hd 128, the widest; two fit in 228 KB). A
+    change to either there changes this rule."""
+    blocks = -(-Sk // BWD_TILE) * K * B
+    return next(p for p in range(1, group + 1)
+                if group % p == 0 and (blocks * p >= 2 * sms or p == group))
+
+
+def _dense16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned (the bf16 kernels' cp.async rows)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
                         lse: torch.Tensor, dout: torch.Tensor, *, causal: bool = True,
                         window: Optional[int] = None,
@@ -112,8 +148,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
     ``out``, its row logsumexp ``lse`` [B, H, Sq] fp32 and the cotangent
     ``dout`` [B, Sq, H, hd]; shapes and dtypes as the forward's. Inputs are
     made contiguous (the kernels read the model's layout with fixed strides).
-    Raises ValueError for inputs the kernels do not take (any device first,
-    then anything but CUDA tensors)."""
+    bf16 splits the GQA group into :func:`bwd_parts` parts. Raises ValueError
+    for inputs the kernels do not take (any device first, then anything but
+    CUDA tensors)."""
     kernel_for(q, k, v)
     B, Sq, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]
@@ -128,13 +165,18 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
         raise ValueError(f"window must be positive, got {window}")
     if q.device.type != "cuda":
         raise ValueError("flash_attention_bwd kernel takes CUDA tensors")
-    q, k, v, out, dout, lse = (t.contiguous() for t in (q, k, v, out, dout, lse))
+    bf16 = q.dtype == torch.bfloat16
+    parts = bwd_parts(B, Sk, K, H // K, dev_rule.sm_count(q.device)) if bf16 else 1
+    q, k, v, out, dout, lse = (_dense16(t) for t in (q, k, v, out, dout, lse))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    work = torch.empty((2, parts, B, Sk, K, hd), dtype=torch.float32,
+                       device=q.device) if parts > 1 else None
     err = _bwd_launcher()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        B, H, K, Sq, Sk, hd, int(q.dtype == torch.bfloat16), int(causal), window or 0,
+        None if work is None else work.data_ptr(),
+        B, H, K, Sq, Sk, hd, int(bf16), int(causal), window or 0, parts,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(NAME, err)
     return dq, dk, dv

@@ -12,13 +12,15 @@ checkout from before training lacks: it then says so and times the rest).
 Without ``--serve``: ``adapter_fused`` at decode (h [T, D] for 1-17 rows and
 the served widths) and at prefill (h [2048, 2048] and [2048, 4096] in bf16
 and f32, [2292, 1600] in bf16), ``flash_attention`` at the served
-prefill shapes, ``rwkv_scan`` at rwkv6-7b's prefill (N 256 = 4 rows x 64 heads
-of 64, S 512 and 445) and ``mamba_scan`` at hymba-1.5b's ([4, 640, 1600, 16]),
-and the backward kernels at qwen2.5-3b's training shapes (the adapter at h
-[2048, 2048] in bf16 and f32; attention at 4 x 512, 16 over 2 heads of 128, in
-bf16 and f32, and hd 64 with a window of 128), each on the same inputs as its
-plain version (attention: the kernel forward's o and row logsumexp),
-each checked against its plain version and timed three ways:
+prefill shapes and at stablelm-3b's (4 x 512, 32 heads of 80), ``rwkv_scan`` at
+rwkv6-7b's prefill (N 256 = 4 rows x 64 heads of 64, S 512 and 445) and
+``mamba_scan`` at hymba-1.5b's ([4, 640, 1600, 16]), and the backward kernels
+at the training shapes (the adapter at h [2048, 2048] in bf16 and f32;
+attention at qwen2.5-3b's 4 x 512, 16 over 2 heads of 128, in bf16 and f32,
+at stablelm-3b's 4 x 512, 32 over 32 heads of 80, in bf16 and f32, and hd 64
+with a window of 128), each on the same inputs as its plain version
+(attention: the kernel forward's o and row logsumexp), each checked against
+its plain version and timed three ways:
 ``ms``, the device time of launches captured in one CUDA graph and replayed;
 ``eager_ms``, launches issued from Python (for a kernel of a few microseconds,
 the host's rate); ``host_us``, the host time of one call (its Python and the
@@ -153,6 +155,12 @@ def kernels() -> None:
               f"n_sink {n_sink} {str(dtype)[6:]}",
               lambda: ops.flash_attention(q, k, v, **kw),
               lambda: ops.flash_attention(q, k, v, impl="plain", **kw))
+    # stablelm-3b's prefill and training forward: hd 80
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (rnd(4, 512, 32, 80, dtype=dtype) for _ in range(3))
+        _time("flash_attention", f"q[4,512,32,80] kv heads 32 window None n_sink 0 "
+              f"{str(dtype)[6:]}", lambda: ops.flash_attention(q, k, v),
+              lambda: ops.flash_attention(q, k, v, impl="plain"))
     # the scans at the served models' scale (as in chip_smoke.py), called as
     # every version of the port takes them
     for S in (512, 445):
@@ -193,6 +201,8 @@ def backward(rnd) -> None:
               lambda: ref.adapter_fused_bwd_terms(g, h, wd, wu))
     for (H, K, hd), window, dtype in (((16, 2, 128), None, torch.bfloat16),
                                       ((16, 2, 128), None, torch.float32),
+                                      ((32, 32, 80), None, torch.bfloat16),
+                                      ((32, 32, 80), None, torch.float32),
                                       ((16, 2, 64), 128, torch.bfloat16)):
         S = 512
         q, k, v = rnd(4, S, H, hd, dtype=dtype), rnd(4, S, K, hd, dtype=dtype), \

@@ -1,9 +1,10 @@
 """Where a training step's time goes, at two unfreeze depths, under torch.profiler.
 
 One architecture at its published width (qwen2.5-3b by default; random
-weights from seed 0, non-zero adapters), batches of 4 x 512 tokens from the
-merged synthetic client corpora. For each depth (``--depths``, default 1 and
-36: the top block only, and every block) it runs one train step to warm up,
+weights from seed 0, non-zero adapters; ``--arch stablelm-3b`` for the main
+path's arch), batches of 4 x 512 tokens from the merged synthetic client
+corpora. For each depth (``--depths``, default 1 and the layer count: the top
+block only, and every block) it runs one train step to warm up,
 then prints the step's host wall time without the profiler, the memory
 resident before it, its peak device memory (``torch.cuda.max_memory_allocated``)
 and the peak of its forward and backward alone, then the traced step's
@@ -11,7 +12,7 @@ device time summed over kernels, the device's idle share of the unprofiled
 wall time, the kernels that took the most device time and the port's own
 kernels (forward and backward).
 
-    PYTHONPATH=src python -m repro_torch.launch.trace_train [--depths 1 36]
+    PYTHONPATH=src python -m repro_torch.launch.trace_train [--arch stablelm-3b] [--depths 1 32]
 
 It needs a CUDA card: the numbers are device metrics.
 """
@@ -38,7 +39,8 @@ SEED = 0
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2.5-3b", help="a dense port architecture")
-    ap.add_argument("--depths", type=int, nargs="+", default=[1, 36])
+    ap.add_argument("--depths", type=int, nargs="+", default=None,
+                    help="unfreeze depths (default: 1 and every layer)")
     ap.add_argument("--batch-size", type=int, default=4)
     ap.add_argument("--seq-len", type=int, default=512)
     args = ap.parse_args(argv)
@@ -49,7 +51,7 @@ def main(argv=None) -> None:
     params = prm.materialize(cfg, seed=SEED, device=device)
     opt_state = adamw.init(training.full_trainable(params, cfg))
     batch = to_device(data_source(cfg, tc).next(), device)
-    for depth in args.depths:
+    for depth in args.depths or (1, cfg.n_layers):
         boundary = depth_to_boundary(cfg, depth)
         step = training.make_train_step(cfg, tc, boundary)
         run = lambda: step(params, opt_state, batch)        # the same step, from the same state

@@ -207,7 +207,7 @@ def test_adapter_fused_decode_cluster_on_card(D, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("scale", ["init", 0.05])
-@pytest.mark.parametrize("D", [1600, 2048, 4096, 4608])
+@pytest.mark.parametrize("D", [1600, 2048, 2560, 4096, 4608])
 @pytest.mark.parametrize("m", [16, 48, 64, 128])
 def test_adapter_fused_bf16_tile_path_on_card(m, D, scale):
     """The bf16 prefill path (tiles on the tensor cores, one cluster per tile
@@ -277,11 +277,17 @@ def _attention_cases():
     return cases
 
 
+# (query heads, KV heads, head_dim): qwen2.5-3b's, hymba-1.5b's, stablelm-3b's
+# (MHA, head dim 80) and hd 80 with a GQA group of 8
+HEADS = [(16, 2, 128), (25, 5, 64), (32, 32, 80), (16, 2, 80)]
+HEAD_IDS = ["qwen", "hymba", "stablelm", "hd80_gqa"]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("heads", [(16, 2, 128), (25, 5, 64)], ids=["qwen", "hymba"])
+@pytest.mark.parametrize("heads", HEADS, ids=HEAD_IDS)
 @pytest.mark.parametrize("Sq,Sk,window,n_sink", _attention_cases())
 def test_flash_attention_tensor_cores_on_card(Sq, Sk, window, n_sink, heads):
-    """The bf16 tensor-core kernel (GQA groups 8 and 5) against the plain
+    """The bf16 tensor-core kernel (GQA groups 8, 5 and 1) against the plain
     version, with q, k and v taken as strided views of one fused
     [B, S, 3, H, hd] tensor."""
     if not torch.cuda.is_available():
@@ -298,6 +304,28 @@ def test_flash_attention_tensor_cores_on_card(Sq, Sk, window, n_sink, heads):
     assert ops.LAUNCHES["flash_attention"] == 1
     want = ops.flash_attention(q, k, v, window=window, n_sink=n_sink, impl="plain")
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=ATOL["bfloat16"][1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("Sq,Sk,window", [(512, 512, None), (130, 130, 64), (37, 100, None)])
+def test_flash_attention_hd80_on_card(Sq, Sk, window, dtype):
+    """Head dim 80 (stablelm-3b's) against the plain version: the scalar
+    kernel in f32, the tensor-core kernel in bf16; the forward with the row
+    logsumexp returns the same output."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.kernels import flash_attention as fa
+
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(Sq + Sk + 80)
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dt)
+    q, k, v = rnd(2, Sq, 8, 80), rnd(2, Sk, 8, 80), rnd(2, Sk, 8, 80)
+    want = ops.flash_attention(q, k, v, window=window, impl="plain")
+    got = fa.flash_attention(q, k, v, window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=ATOL[dtype][1])
+    out, _ = fa.flash_attention(q, k, v, window=window, lse=True)
+    assert torch.equal(out, got)
 
 
 @pytest.mark.gpu
@@ -327,8 +355,8 @@ def _assert_grad_close(got, want, dtype, what, rtol=BWD_RTOL):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("act", ["gelu", "relu", "silu"])
-@pytest.mark.parametrize("T,D,m", [(2048, 2048, 64), (300, 1000, 48), (4, 256, 16),
-                                   (37, 4096, 64)])
+@pytest.mark.parametrize("T,D,m", [(2048, 2048, 64), (2048, 2560, 64), (300, 1000, 48),
+                                   (4, 256, 16), (37, 4096, 64)])
 def test_adapter_fused_backward_on_card(T, D, m, act, dtype):
     """The backward kernel through ops' autograd Function against the plain
     backward (impl="plain") on the same inputs and cotangent: dh, dW_down,
@@ -369,14 +397,15 @@ def test_adapter_fused_backward_on_card(T, D, m, act, dtype):
 def _backward_cases():
     """(Sq, Sk, window, causal): qwen2.5-3b's training shape, lengths around the
     64-row and 32-key tiles, a window, Sk > Sq, Sq > Sk (fully masked rows),
-    not causal."""
+    not causal, and Sk a few 64-key tiles and a ragged one past Sq."""
     return [(512, 512, None, True), (65, 65, None, True), (130, 130, 48, True),
-            (37, 100, None, True), (100, 37, None, True), (70, 90, 40, False)]
+            (37, 100, None, True), (100, 37, None, True), (70, 90, 40, False),
+            (200, 331, None, True)]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("heads", [(16, 2, 128), (25, 5, 64)], ids=["qwen", "hymba"])
+@pytest.mark.parametrize("heads", HEADS, ids=HEAD_IDS)
 @pytest.mark.parametrize("Sq,Sk,window,causal", _backward_cases())
 def test_flash_attention_backward_on_card(Sq, Sk, window, causal, heads, dtype):
     """The backward kernels against the plain backward on the same inputs (q,
@@ -417,6 +446,38 @@ def test_flash_attention_backward_on_card(Sq, Sk, window, causal, heads, dtype):
         _assert_grad_close(a, b, dtype, f"{name} through autograd", PIPE_RTOL)
     if Sq > Sk and causal:
         assert torch.all(grads["kernel"][0][:, :Sq - Sk] == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads", HEADS, ids=HEAD_IDS)
+def test_flash_attention_backward_split_on_card(heads):
+    """The bf16 dK/dV blocks with the GQA group in every count of parts that
+    bwd_parts chooses on this card (fp32 partial sums added in order by a
+    second pass) against the plain backward: 64 queries against ragged key
+    lengths, from one 64-key tile up to as many as it takes to choose one
+    part."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch import device as dev_rule
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    H, K, hd = heads
+    group, sms = H // K, dev_rule.sm_count(torch.device("cuda"))
+    lengths = {}  # parts -> the first key length that gives it
+    for n in range(1, sms + 1):
+        lengths.setdefault(fa.bwd_parts(2, 64 * n - 17, K, group, sms), 64 * n - 17)
+    assert sorted(lengths) == [p for p in range(1, group + 1) if group % p == 0]
+    gen = torch.Generator(device="cuda").manual_seed(H + hd)
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)
+    for parts, Sk in sorted(lengths.items()):
+        q, k, v, dout = rnd(2, 64, H, hd), rnd(2, Sk, K, hd), rnd(2, Sk, K, hd), \
+            rnd(2, 64, H, hd)
+        out, lse = fa.flash_attention(q, k, v, lse=True)
+        got = fa.flash_attention_bwd(q, k, v, out, lse, dout)
+        want = ref.flash_attention_bwd(q, k, v, out, lse, dout)
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            _assert_grad_close(a, b, "bfloat16", f"{name}, {parts} parts, Sk {Sk}")
 
 
 @pytest.mark.gpu

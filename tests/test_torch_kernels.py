@@ -79,10 +79,13 @@ def _heads_first(x):
     return jnp.transpose(x, (0, 2, 1, 3)).reshape(B * H, S, hd)
 
 
-@pytest.mark.parametrize("S,window", [(128, None), (128, 32), (192, 128)])
+@pytest.mark.parametrize("S,window,hd", [
+    pytest.param(128, None, 64, id="128-None"), pytest.param(128, 32, 64, id="128-32"),
+    pytest.param(192, 128, 64, id="192-128"), pytest.param(128, None, 80, id="128-None-hd80")])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-def test_flash_attention_matches_pallas(S, window, dtype):
-    B, H, K, hd = 2, 4, 2, 64                      # GQA group 2, reduced qwen head_dim
+def test_flash_attention_matches_pallas(S, window, hd, dtype):
+    """GQA group 2 at the reduced qwen head_dim 64, and at stablelm-3b's 80."""
+    B, H, K = 2, 4, 2
     rng = np.random.default_rng(S + (window or 0))
     q_j, q_t = _pair(rng.standard_normal((B, S, H, hd), np.float32), dtype)
     k_j, k_t = _pair(rng.standard_normal((B, S, K, hd), np.float32), dtype)
@@ -295,19 +298,20 @@ def test_adapter_fused_tile_plan_misses_only_what_does_not_fit():
                                    "adapter_fused_tile_occupancy", "adapter_fused_bwd_launch"},
                  id="adapter_fused"),
     pytest.param("flash_attention", {"flash_attention_launch", "flash_attention_tc_launch",
-                                     "flash_attention_bwd_launch"}, id="flash_attention"),
+                                     "flash_attention_bwd_launch", "flash_attention_bwd_tile"},
+                 id="flash_attention"),
     pytest.param("rwkv_scan", {"rwkv_scan_launch"}, id="rwkv_scan"),
     pytest.param("mamba_scan", {"mamba_scan_launch"}, id="mamba_scan")])
 def test_kernel_sources_export_what_the_launchers_bind(name, entries):
     """Every C entry a launcher binds with ctypes is defined in its CUDA
     source (a missing one fails only at load time, on the card); the
-    backward entries among them."""
+    backward entries among them, and the bf16 backward's tile size."""
     import re
     from pathlib import Path
 
     root = Path(torch_af.__file__).parent
     text = (root / f"{name}.py").read_text()
-    bound = set(re.findall(rf"\b({name}\w*_(?:launch|occupancy))\b", text))
+    bound = set(re.findall(rf"\b({name}\w*_(?:launch|occupancy|bwd_tile))\b", text))
     src = (root / "csrc" / f"{name}.cu").read_text()
     exported = src[src.index('extern "C" {'):]
     assert bound == entries
@@ -421,7 +425,9 @@ def test_adapter_fused_decode_path_refuses_what_does_not_fit():
 @pytest.mark.parametrize("hd,dtype,kernel", [(64, torch.bfloat16, "tensor_cores"),
                                              (128, torch.bfloat16, "tensor_cores"),
                                              (64, torch.float32, "scalar"),
-                                             (128, torch.float32, "scalar")])
+                                             (128, torch.float32, "scalar"),
+                                             (80, torch.bfloat16, "tensor_cores"),
+                                             (80, torch.float32, "scalar")])
 def test_flash_attention_launcher_picks_kernel_by_dtype(hd, dtype, kernel):
     """bf16 runs the tensor-core kernel and f32 the scalar one, also for q as a
     strided view of a fused [B, S, 3, H, hd] tensor. Pure Python: no card."""
@@ -430,13 +436,13 @@ def test_flash_attention_launcher_picks_kernel_by_dtype(hd, dtype, kernel):
     assert torch_fa.kernel_for(q, k, v) == kernel
 
 
-@pytest.mark.parametrize("case", ["hd80", "mixed_dtypes", "gqa_mismatch", "last_stride"])
+@pytest.mark.parametrize("case", ["hd96", "mixed_dtypes", "gqa_mismatch", "last_stride"])
 def test_flash_attention_launcher_refuses_what_no_kernel_takes(case):
     meta = lambda *s, dtype=torch.bfloat16: torch.empty(s, dtype=dtype, device="meta")
     q, k = meta(1, 64, 8, 128), meta(1, 64, 2, 128)
     v = k
-    if case == "hd80":
-        q, k, v = meta(1, 64, 8, 80), meta(1, 64, 2, 80), meta(1, 64, 2, 80)
+    if case == "hd96":
+        q, k, v = meta(1, 64, 8, 96), meta(1, 64, 2, 96), meta(1, 64, 2, 96)
     elif case == "mixed_dtypes":
         v = meta(1, 64, 2, 128, dtype=torch.float32)
     elif case == "gqa_mismatch":
@@ -447,7 +453,7 @@ def test_flash_attention_launcher_refuses_what_no_kernel_takes(case):
         torch_fa.kernel_for(q, k, v)
 
 
-@pytest.mark.parametrize("case", ["cpu", "hd80", "mixed_dtypes", "lse_dtype", "dout_shape"])
+@pytest.mark.parametrize("case", ["cpu", "hd96", "mixed_dtypes", "lse_dtype", "dout_shape"])
 def test_flash_attention_bwd_launcher_refuses_what_no_kernel_takes(case):
     """The backward launcher checks shapes and dtypes on any device, then
     refuses anything but CUDA tensors: no fallback."""
@@ -455,9 +461,9 @@ def test_flash_attention_bwd_launcher_refuses_what_no_kernel_takes(case):
     t = lambda *s, dtype=torch.bfloat16: torch.zeros(s, dtype=dtype, device=dev)
     q, k, v = t(1, 64, 8, 128), t(1, 64, 2, 128), t(1, 64, 2, 128)
     out, dout, lse = t(1, 64, 8, 128), t(1, 64, 8, 128), t(1, 8, 64, dtype=torch.float32)
-    if case == "hd80":
-        q, out, dout = t(1, 64, 8, 80), t(1, 64, 8, 80), t(1, 64, 8, 80)
-        k = v = t(1, 64, 2, 80)
+    if case == "hd96":
+        q, out, dout = t(1, 64, 8, 96), t(1, 64, 8, 96), t(1, 64, 8, 96)
+        k = v = t(1, 64, 2, 96)
     elif case == "mixed_dtypes":
         dout = t(1, 64, 8, 128, dtype=torch.float32)
     elif case == "lse_dtype":
@@ -466,6 +472,21 @@ def test_flash_attention_bwd_launcher_refuses_what_no_kernel_takes(case):
         dout = t(1, 63, 8, 128)
     with pytest.raises(ValueError, match="CUDA" if case == "cpu" else None):
         torch_fa.flash_attention_bwd(q, k, v, out, lse, dout)
+
+
+@pytest.mark.parametrize("B,Sk,K,group,parts", [(4, 512, 2, 8, 8),     # qwen2.5-3b training
+                                                (4, 512, 32, 1, 1),    # stablelm-3b (MHA)
+                                                (4, 512, 5, 5, 5),     # hymba-1.5b heads
+                                                (16, 2048, 2, 8, 1),   # blocks enough unsplit
+                                                (3, 4096, 2, 8, 1),
+                                                (4, 2048, 2, 8, 2),
+                                                (2, 2112, 2, 8, 2),    # 2 blocks per SM exactly
+                                                (4, 1024, 2, 8, 4)])
+def test_flash_attention_bwd_parts_fill_the_card(B, Sk, K, group, parts):
+    """The bf16 dK/dV blocks split each GQA group into the fewest parts that
+    start two blocks per SM of a 132-SM card, or one part per query head."""
+    assert torch_fa.bwd_parts(B, Sk, K, group, 132) == parts
+    assert group % parts == 0
 
 
 @pytest.mark.parametrize("case", ["cpu", "mixed_dtypes", "g_shape", "m_too_large"])

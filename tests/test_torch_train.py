@@ -399,14 +399,19 @@ def _attention_vjp(q, k, v, g, causal, window):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("Sq,Sk,window,causal", [(24, 24, None, True), (24, 24, 7, True),
-                                                 (12, 24, None, True), (20, 9, None, True),
-                                                 (16, 16, 5, False)])
-def test_attention_plain_backward_matches_jax_vjp(Sq, Sk, window, causal, dtype):
+@pytest.mark.parametrize("Sq,Sk,window,causal,hd", [
+    pytest.param(24, 24, None, True, 64, id="24-24-None-True"),
+    pytest.param(24, 24, 7, True, 64, id="24-24-7-True"),
+    pytest.param(12, 24, None, True, 64, id="12-24-None-True"),
+    pytest.param(20, 9, None, True, 64, id="20-9-None-True"),
+    pytest.param(16, 16, 5, False, 64, id="16-16-5-False"),
+    pytest.param(24, 24, None, True, 80, id="24-24-None-True-hd80")])
+def test_attention_plain_backward_matches_jax_vjp(Sq, Sk, window, causal, hd, dtype):
     """GQA (4 query heads over 2 KV heads), a window, Sk > Sq, Sq > Sk (the
-    first Sq - Sk rows see no key: lse -inf, gradient 0), not causal."""
+    first Sq - Sk rows see no key: lse -inf, gradient 0), not causal; head
+    dim 64, and stablelm-3b's 80."""
     rng = np.random.default_rng(Sq * 100 + Sk)
-    H, K, hd = 4, 2, 64
+    H, K = 4, 2
     jq, q = _bf16_pair(rng.standard_normal((2, Sq, H, hd)).astype(np.float32), dtype)
     jk, k = _bf16_pair(rng.standard_normal((2, Sk, K, hd)).astype(np.float32), dtype)
     jv, v = _bf16_pair(rng.standard_normal((2, Sk, K, hd)).astype(np.float32), dtype)
