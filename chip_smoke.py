@@ -9,9 +9,10 @@ run with a non-zero exit and no result line:
   1. environment: card name and power limit, torch and nvcc versions, and the
      build of every kernel from ``src/repro_torch/kernels/csrc`` (nvcc for
      sm_90a, one process per source, all at once) with ptxas register/spill
-     counts per function, and how many of ``adapter_fused``'s decode clusters
-     and of its bf16 prefill path's clusters (at the served shapes' plans) the
-     card holds at once (``cudaOccupancyMaxActiveClusters``);
+     counts per function, and how many of ``adapter_fused``'s decode clusters,
+     of its bf16 prefill path's clusters (at the served shapes' plans) and of
+     its bf16 backward's clusters (at the training shapes' plans) the card
+     holds at once (``cudaOccupancyMaxActiveClusters``);
   2. every kernel against its plain PyTorch version on the card, at the serving
      path's shapes, with its time by CUDA events beside the plain version's
      (and, for attention, SDPA's) and the kernel or path that ran (the
@@ -25,6 +26,9 @@ run with a non-zero exit and no result line:
      a random start state, each timed with ptxas's registers and spill; the
      backward kernels (training) against the plain backward on the same
      inputs: ``adapter_fused_bwd`` at h [2048, 2048], m 64, bf16 and f32, and
+     at stablelm-3b's h [2048, 2560] in bf16 (each with the path it ran: bf16
+     the 64-row cluster tiles, f32 the 16-row kernel; and ptxas's registers
+     and spill), and
      ``flash_attention_bwd`` at qwen2.5-3b's training shape (4 x 512, 16 over
      2 heads, hd 128) and stablelm-3b's (4 x 512, 32 over 32 heads of 80) in
      bf16 and f32 and at hd 64 with a window, each with its graph and eager
@@ -207,16 +211,18 @@ SOURCES = {
                             "src/repro/kernels/flash_attention.py:86"),
 }
 # Each kernel's time at its record's shape, the adapter's at decode (T = 4,
-# bf16, by D) and its bf16 tile path's at prefill, before the present
-# versions of adapter_fused, flash_attention and rwkv_scan: copied from
-# PERF.md section 6 (earlier chip runs, NVIDIA H100 80GB HBM3, 700 W;
-# rwkv_scan's and the tile path's CUDA-graph times, the others launches issued
+# bf16, by D), its bf16 tile path's at prefill and its bf16 backward's at the
+# training shapes, before the present versions of adapter_fused,
+# adapter_fused_bwd, flash_attention and rwkv_scan: copied from PERF.md
+# section 6 (earlier chip runs, NVIDIA H100 80GB HBM3, 700 W; rwkv_scan's, the
+# tile path's and the backward's CUDA-graph times, the others launches issued
 # from Python) and printed on a line of their own, never as this run's numbers.
 PREVIOUS_MS = {"adapter_fused": 0.0736, "flash_attention": 0.3453, "rwkv_scan": 0.2717,
                "mamba_scan": 0.2677, "adapter_fused_T4_D1600": 0.0356,
                "adapter_fused_T4_D2048": 0.0572, "adapter_fused_T4_D4096": 0.0672,
                "adapter_fused_tile_T2048_D2048": 0.0574, "adapter_fused_tile_T2048_D4096": 0.1243,
-               "adapter_fused_tile_T2292_D1600": 0.0963}
+               "adapter_fused_tile_T2292_D1600": 0.0963,
+               "adapter_fused_bwd_T2048_D2048": 0.2483, "adapter_fused_bwd_T2048_D2560": 0.3213}
 CARD = ""                        # nvidia-smi's name and power limit, beside every time
 PTXAS = {}                       # mangled function name -> ptxas's register and spill lines
 
@@ -268,6 +274,10 @@ def phase_environment() -> None:
         p = af.tile_plan(T, D, 64)
         say("tile_occupancy", T=T, D=D, m=64, dtype="bfloat16", rows=af.TILE_ROWS,
             cluster=p.cluster, smem=p.smem, clusters=af.tile_occupancy(p))
+    for D in (2048, 2560):
+        p = af.bwd_tile_plan(2048, D, 64)
+        say("bwd_tile_occupancy", T=2048, D=D, m=64, dtype="bfloat16", rows=af.TILE_ROWS,
+            cluster=p.cluster, smem=p.smem, clusters=af.bwd_tile_occupancy(p))
 
 
 def _demangle(name: str) -> str:
@@ -300,6 +310,19 @@ def adapter_ptxas(T, D, m, dtype) -> str:
         te = "13__nv_bfloat16" if dtype == torch.bfloat16 else "f"
         key += f"{te}Lb{int(kernel == 'staged')}E"
     return "; ".join(info for fn, lines in PTXAS.items() if key in fn for info in lines)
+
+
+def adapter_bwd_path(T, D, m, dtype) -> tuple:
+    """Which backward kernel the launcher runs for a shape, with ptxas's
+    register and spill lines: the bf16 tile path (tiles of 64 rows, blocks
+    per cluster) or the 16-row CUDA-core kernel."""
+    kernel, p = af.bwd_route(T, D, m, dtype)
+    if kernel == "tile":
+        path, key = f"tc_tile{af.TILE_ROWS}_c{p.cluster}", "adapter_bwd_tile_kernel"
+    else:
+        te = "13__nv_bfloat16" if dtype == torch.bfloat16 else "f"
+        path, key = "tile16_cuda_cores", f"adapter_bwd_kernelI{te}E"
+    return path, "; ".join(info for fn, lines in PTXAS.items() if key in fn for info in lines)
 
 
 def adapter_excess(got, want, h, wd, wu, act, dtype) -> float:
@@ -572,10 +595,12 @@ def adapter_bwd_case(T, D, dtype, gen, record=None, act="gelu"):
     t_ops, t_bytes = 6 * T * D * m / rate, nbytes / HBM_BYTES_PER_S
     bound_ms = 1e3 * max(t_ops, t_bytes)
     dt = str(dtype).removeprefix("torch.")
-    say("adapter_fused_bwd", T=T, D=D, m=m, dtype=dt, act=act, max_abs_err=f"{err:.3g}",
-        rtol_dh=BWD_RTOL[dtype], rtol_mid_g_mid=BWD_RTOL[torch.float32], ms=f"{ms:.4f}",
-        eager_ms=f"{eager_ms:.4f}", plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.5f}",
-        share_of_bound=f"{bound_ms / ms:.3f}", card=repr(CARD))
+    path, ptxas = adapter_bwd_path(T, D, m, dtype)
+    say("adapter_fused_bwd", T=T, D=D, m=m, dtype=dt, act=act, path=path,
+        max_abs_err=f"{err:.3g}", rtol_dh=BWD_RTOL[dtype],
+        rtol_mid_g_mid=BWD_RTOL[torch.float32], ms=f"{ms:.4f}", eager_ms=f"{eager_ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.5f}",
+        share_of_bound=f"{bound_ms / ms:.3f}", ptxas=repr(ptxas), card=repr(CARD))
     if not excess <= 0:
         raise AssertionError(f"adapter_fused_bwd disagrees with its plain version: max error "
                              f"{err}, {excess} beyond rtol (dh {BWD_RTOL[dtype]}, the fp32 mid "
@@ -583,7 +608,7 @@ def adapter_bwd_case(T, D, dtype, gen, record=None, act="gelu"):
     if record is not None:
         record.update(max_abs_err=err, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
                       bound_ms=bound_ms, bound_by="operations" if t_ops > t_bytes else "bytes",
-                      library_ms=None, shape=f"h,g[{T},{D}] m={m} {act} {dt}")
+                      library_ms=None, shape=f"h,g[{T},{D}] m={m} {act} {dt}", path=path)
 
 
 @functools.lru_cache(maxsize=None)
@@ -763,6 +788,7 @@ def phase_kernels(records) -> None:
                      records["adapter_fused_bwd"].setdefault("stablelm_D2560", {}))
     for act in ("relu", "silu"):
         adapter_bwd_case(300, 1000, bf16, gen, act=act)
+    adapter_bwd_case(2047, 2560, bf16, gen)                      # a ragged last tile
     attention_bwd_case(512, None, bf16, gen, records["flash_attention_bwd"])
     attention_bwd_case(512, None, f32, gen)
     rec = records["flash_attention_bwd"].setdefault("stablelm_hd80", {})

@@ -8,8 +8,10 @@ cores, each tile one cluster of up to 16 blocks that splits D
 (:func:`tile_plan`); f32, and the bf16 inputs the tile path does not take,
 run one block per 16-row tile on the CUDA cores (:func:`plan`).
 :func:`route` says which by shape, :func:`check` by shape and alignment.
-:func:`adapter_fused_bwd` is the backward (training), one kernel for every
-shape.
+:func:`adapter_fused_bwd` is the backward (training): bf16 on 64-row tiles,
+each one cluster that splits D, on the tensor cores (:func:`bwd_tile_plan`);
+f32, and the bf16 inputs no plan takes, on the 16-row CUDA-core kernel
+(:func:`bwd_route` by shape, :func:`bwd_check` by shape and alignment).
 It takes CUDA tensors only; ``kernels.ops.adapter_fused`` is the public entry,
 which sends a CPU tensor to the plain version in ``kernels/ref.py``.
 """
@@ -78,6 +80,27 @@ class TilePlan(NamedTuple):
     smem: int
 
 
+class BwdTilePlan(NamedTuple):
+    """One launch of the bf16 backward's tile path: tiles of ``TILE_ROWS``
+    rows, each one cluster of ``cluster`` blocks owning ``dc`` columns of D (a
+    multiple of 64), m padded to ``mp`` (a multiple of 16), and the block's
+    shared memory in bytes: the offsets of its regions (``BwdTileLayout`` in
+    the source) and the total."""
+    cluster: int
+    dc: int
+    mp: int
+    hs: int
+    gs: int
+    wd: int
+    wu: int
+    pz: int
+    pu: int
+    hi: int
+    lo: int
+    bar: int
+    smem: int
+
+
 class Route(NamedTuple):
     """Which kernel a call takes: ``"cluster"`` (decode, ``plan`` a
     :class:`ClusterPlan`), ``"tile"`` (bf16 prefill, a :class:`TilePlan`), or
@@ -106,6 +129,11 @@ def _lib():
         so.adapter_fused_bwd_launch.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                                                 + [ctypes.c_void_p])
         so.adapter_fused_bwd_launch.restype = ctypes.c_int
+        so.adapter_fused_bwd_tile_launch.argtypes = ([ctypes.c_void_p] * 7
+                                                     + [ctypes.c_int] * 17 + [ctypes.c_void_p])
+        so.adapter_fused_bwd_tile_launch.restype = ctypes.c_int
+        so.adapter_fused_bwd_tile_occupancy.argtypes = [ctypes.c_int] * 2
+        so.adapter_fused_bwd_tile_occupancy.restype = ctypes.c_int
     return so
 
 
@@ -333,20 +361,134 @@ def adapter_fused(h: torch.Tensor, w_down: torch.Tensor, w_up: torch.Tensor, *,
     return out
 
 
-def adapter_fused_bwd(g: torch.Tensor, h: torch.Tensor, w_down: torch.Tensor,
-                      w_up: torch.Tensor, *, activation: str = "gelu",
-                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The backward of :func:`adapter_fused` for the cotangent ``g`` [T, D]:
-    (dh [T, D] in h's dtype, mid = act(h @ w_down) and g_mid = (g @ w_up^T) *
-    act'(h @ w_down), both [T, m] fp32). The weight gradients are the plain
-    products mid^T g and h^T g_mid (``kernels.ops`` forms them)."""
+@functools.lru_cache(maxsize=None)
+def bwd_tile_layout(D: int, m: int, cluster: int) -> Optional[BwdTilePlan]:
+    """The bf16 backward's shared memory for tiles of ``TILE_ROWS`` rows split
+    over clusters of ``cluster`` blocks, or None where it does not fit.
+
+    Each block owns ceil(D / cluster) columns rounded up to 64 (``dc``, at
+    most ``TILE_CHUNKS`` chunks of 64); m is padded to 16 (``mp``). The
+    regions, in bytes from the first 1024-byte aligned address of the block's
+    shared memory (1024 bytes are set aside for that), each with room of its
+    own: the block's slices of h ``hs`` and of g ``gs`` [64, dc] (g's then
+    stages dh), its rows of W_down ``wd`` [dc, m padded to 64] and its columns
+    of W_up ``wu`` [mp, dc], each in bf16 as 64-column chunks of 128-byte rows
+    in the TMA's 128-byte swizzle (1024-byte aligned); the cluster's partial
+    sums of the block's rows of z = h @ W_down ``pz`` and of u = g @ W_up^T
+    ``pu``, each [cluster][64 / cluster][mp + 8] in fp32; g_mid's bf16 parts
+    ``hi`` and ``lo`` [64][mp + 8]; ``bar``, the mbarriers.
+    """
+    if cluster not in TILE_CLUSTERS or not 1 <= m <= MAX_M:
+        return None
+    bt, mp, mp64 = TILE_ROWS, _up16(m), _up16(m, 64)
+    dc = _up16(-(-D // cluster), 64)
+    if dc > 64 * TILE_CHUNKS:
+        return None
+    part_n, mid_n = 4 * bt * (mp + 8), 2 * bt * (mp + 8)
+    hs, gs = 0, 2 * bt * dc
+    wd = gs + 2 * bt * dc
+    wu = wd + 2 * mp64 * dc
+    pz = wu + 2 * mp * dc
+    pu = pz + part_n
+    hi = pu + part_n
+    lo = hi + mid_n
+    bar = lo + mid_n
+    smem = 1024 + bar + _up16(8 * TILE_CHUNKS)
+    if smem > SMEM_LIMIT:
+        return None
+    return BwdTilePlan(cluster, dc, mp, hs, gs, wd, wu, pz, pu, hi, lo, bar, smem)
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_tile_plan(T: int, D: int, m: int) -> Optional[BwdTilePlan]:
+    """The bf16 backward's tile launch for g, h [T, D] (any T: up to 64 rows
+    are one ragged tile), or None where the tile path does not take the
+    shape: D or m not a multiple of 8 (the TMA moves 16-byte rows), or no
+    plan fits (m 128 above D 2048, m 256 at any D; no model of the configs
+    has such a shape). The 16-row CUDA-core kernel takes those.
+
+    Clusters of 8 blocks where they fit, else of 16: every plan that fits
+    gives one block an SM (its shared memory), and 8 timed faster than 16 at
+    every training width where both fit (1600, 2048, 2560:
+    ``launch/kernel_times.py --plans``, PERF.md).
+    """
+    if D % 8 or m % 8:
+        return None
+    for cluster in (8, 16):
+        p = bwd_tile_layout(D, m, cluster)
+        if p is not None:
+            return p
+    return None
+
+
+def bwd_route(T: int, D: int, m: int, dtype: torch.dtype) -> Route:
+    """The backward kernel that runs g, h [T, D] with bottleneck m, decided by
+    shape alone: ``"tile"`` (bf16 wherever :func:`bwd_tile_plan` fits,
+    ``plan`` a :class:`BwdTilePlan`) or ``"rows"``, the 16-row CUDA-core
+    kernel (f32, and the bf16 shapes no plan takes; ``plan`` None: its
+    launcher sizes its shared memory)."""
+    if dtype == torch.bfloat16:
+        p = bwd_tile_plan(T, D, m)
+        if p is not None:
+            return Route("tile", p)
+    return Route("rows", None)
+
+
+def bwd_check(g: torch.Tensor, h: torch.Tensor, w_down: torch.Tensor, w_up: torch.Tensor,
+              activation: str) -> Route:
+    """Raise unless the backward kernels take these inputs (any device);
+    return :func:`bwd_route`, but the 16-row kernel for tile-path inputs
+    whose data is not 16-byte aligned."""
     check(h, w_down, w_up, activation)
     if g.shape != h.shape or g.dtype != h.dtype or g.device != h.device or \
             not g.is_contiguous():
         raise ValueError(f"g must be a contiguous {tuple(h.shape)} {h.dtype} tensor on h's "
                          f"device, got {tuple(g.shape)} {g.dtype}")
-    if h.device.type != "cuda":
-        raise ValueError("adapter_fused_bwd kernel takes CUDA tensors")
+    T, D = h.shape
+    m = w_down.shape[-1]
+    r = bwd_route(T, D, m, h.dtype)
+    if r.kernel == "tile" and any(t.data_ptr() % 16 for t in (g, h, w_down, w_up)):
+        return Route("rows", None)    # the TMA takes 16-byte aligned rows only
+    return r
+
+
+def bwd_tile_occupancy(p: BwdTilePlan) -> int:
+    """How many clusters of the bf16 backward's tile path with plan ``p`` the
+    current card holds at once (``cudaOccupancyMaxActiveClusters``); 0: none
+    launch."""
+    n = _lib().adapter_fused_bwd_tile_occupancy(p.cluster, p.smem)
+    build.check(NAME, -n if n < 0 else 0)
+    return n
+
+
+def launch_bwd_tile(g: torch.Tensor, h: torch.Tensor, w_down: torch.Tensor,
+                    w_up: torch.Tensor, p: BwdTilePlan, *, activation: str = "gelu",
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The bf16 backward's tile path with plan ``p`` (:func:`bwd_tile_plan`
+    chooses it; ``launch/kernel_times.py --plans`` times the others); inputs
+    and outputs as :func:`adapter_fused_bwd`'s, bf16, checked by the kernel's
+    launcher."""
+    T, D = h.shape
+    m = w_down.shape[-1]
+    dh = torch.empty_like(h)
+    mid = torch.empty((T, m), dtype=torch.float32, device=h.device)
+    g_mid = torch.empty_like(mid)
+    err = _lib().adapter_fused_bwd_tile_launch(
+        g.data_ptr(), h.data_ptr(), w_down.data_ptr(), w_up.data_ptr(), dh.data_ptr(),
+        mid.data_ptr(), g_mid.data_ptr(), T, D, m, ACTIVATIONS[activation], *p,
+        torch.cuda.current_stream(h.device).cuda_stream)
+    build.check(NAME, err)
+    return dh, mid, g_mid
+
+
+def launch_bwd_rows(g: torch.Tensor, h: torch.Tensor, w_down: torch.Tensor,
+                    w_up: torch.Tensor, *, activation: str = "gelu",
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The 16-row CUDA-core backward (``adapter_bwd_kernel``), bf16 or f32:
+    the route of f32 and of the bf16 inputs no tile plan takes
+    (``launch/grad_gap.py`` also runs it where the tile path would); inputs
+    and outputs as :func:`adapter_fused_bwd`'s, checked by the kernel's
+    launcher."""
     T, D = h.shape
     m = w_down.shape[-1]
     dh = torch.empty_like(h)
@@ -358,3 +500,19 @@ def adapter_fused_bwd(g: torch.Tensor, h: torch.Tensor, w_down: torch.Tensor,
         ACTIVATIONS[activation], torch.cuda.current_stream(h.device).cuda_stream)
     build.check(NAME, err)
     return dh, mid, g_mid
+
+
+def adapter_fused_bwd(g: torch.Tensor, h: torch.Tensor, w_down: torch.Tensor,
+                      w_up: torch.Tensor, *, activation: str = "gelu",
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward of :func:`adapter_fused` for the cotangent ``g`` [T, D]:
+    (dh [T, D] in h's dtype, mid = act(h @ w_down) and g_mid = (g @ w_up^T) *
+    act'(h @ w_down), both [T, m] fp32). The weight gradients are the plain
+    products mid^T g and h^T g_mid (``kernels.ops`` forms them). The kernel is
+    :func:`bwd_check`'s."""
+    kernel, p = bwd_check(g, h, w_down, w_up, activation)
+    if h.device.type != "cuda":
+        raise ValueError("adapter_fused_bwd kernel takes CUDA tensors")
+    if kernel == "tile":
+        return launch_bwd_tile(g, h, w_down, w_up, p, activation=activation)
+    return launch_bwd_rows(g, h, w_down, w_up, activation=activation)

@@ -8,7 +8,8 @@
 // and out (bf16): about m flops per byte, far below the ~295 the bf16 tensor
 // cores need before they are the limit. Unfused, h would cross device memory
 // three times and the [T, m] intermediate once more. Three forward kernels and
-// one backward kernel (adapter_bwd_kernel, at the end: training):
+// two backward kernels (training, at the end: adapter_bwd_tile_kernel for
+// bf16 in the tile path's shape, adapter_bwd_kernel for the rest):
 //
 // bf16 prefill (T > 16, adapter_tile_kernel): one thread block cluster of C
 // blocks (8 or 16, planned by the wrapper: kernels/adapter_fused.py,
@@ -575,6 +576,92 @@ __device__ __forceinline__ int swz(int R, int r, int c) {
   return (c >> 6) * R * 64 + r * 64 + ((((c >> 3) & 7) ^ (r & 7)) << 3) + (c & 7);
 }
 
+// mma.sync operands of this lane from a swizzled tile t of R rows (swz): the A
+// fragment of rows r0.. and columns c0.. (16 x 16)
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16_t* t, int R, int r0, int c0) {
+  const int lane = threadIdx.x % 32;
+  ldmatrix_x4(a, t + swz(R, r0 + lane % 16, c0 + (lane / 16) * 8));
+}
+// the B fragments of the 8-column n-tiles n0.. (b[0], b[1]) and n0 + 8.. (b[2],
+// b[3]) over k0 .. k0 + 15, from a tile whose rows are k (n contiguous)
+__device__ __forceinline__ void load_b_kn(uint32_t (&b)[4], const bf16_t* t, int R, int k0, int n0) {
+  const int lane = threadIdx.x % 32;
+  ldmatrix_x4_trans(b, t + swz(R, k0 + lane % 8 + ((lane / 8) % 2) * 8, n0 + (lane / 16) * 8));
+}
+// the same from a tile whose rows are n (k contiguous)
+__device__ __forceinline__ void load_b_nk(uint32_t (&b)[4], const bf16_t* t, int R, int n0, int k0) {
+  const int lane = threadIdx.x % 32;
+  ldmatrix_x4(b, t + swz(R, n0 + (lane / 16) * 8 + lane % 8, k0 + ((lane / 8) % 2) * 8));
+}
+// the A fragment of rows r0.. and columns c0.. of a row-major tile with row
+// stride ld (16-byte aligned rows)
+__device__ __forceinline__ void load_a_rows(uint32_t (&a)[4], const bf16_t* t, int ld, int r0,
+                                            int c0) {
+  const int lane = threadIdx.x % 32;
+  ldmatrix_x4(a, t + (r0 + lane % 16) * ld + c0 + (lane / 16) * 8);
+}
+
+// The first phase of the cluster barrier of a tile path: a block arrives once
+// its copies are issued and waits before its first store into another block's
+// shared memory, which the wait guarantees has started.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// A warp's mma.sync partial sums acc of a [64, m] product (rows r0 + g and
+// r0 + g + 8, the 8-column n-tiles from column nb; columns from mp on are
+// padding) into the shared memory of the blocks that own the rows: row t is
+// summed by block t % C, which keeps the C blocks' partial sums of its rows
+// part [C][64 / C][lw], this block's at its rank.
+template <int N>
+__device__ __forceinline__ void scatter_partial(cg::cluster_group& cluster, float* part,
+                                                const float (&acc)[N][4], int r0, int nb, int mp,
+                                                int lw) {
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int RB = TILE_ROWS / C;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = r0 + g + 8 * r;
+    float* dst = cluster.map_shared_rank(part, t % C) + (rank * RB + t / C) * lw;
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+      if (nb + 8 * n < mp)
+        *reinterpret_cast<float2*>(dst + nb + 8 * n + 2 * t4) =
+            make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
+  }
+}
+// columns j, j + 1 of the block's row i of the intermediate: the C blocks'
+// partial sums (scatter_partial) added in rank order
+__device__ __forceinline__ float2 sum_partials(const float* part, int C, int lw, int i, int j) {
+  const int RB = TILE_ROWS / C;
+  float s0 = 0.0f, s1 = 0.0f;
+  for (int s = 0; s < C; ++s) {
+    const float2 x = *reinterpret_cast<const float2*>(part + (s * RB + i) * lw + j);
+    s0 += x.x;
+    s1 += x.y;
+  }
+  return make_float2(s0, s1);
+}
+// v0, v1 split into hi = bf16(v) and lo = bf16(v - hi), stored as bf16 pairs at
+// element off of hi and of lo in every block of the cluster
+__device__ __forceinline__ void broadcast_hi_lo(cg::cluster_group& cluster, bf16_t* hi, bf16_t* lo,
+                                                int off, float v0, float v1) {
+  const bf16_t h0 = __float2bfloat16_rn(v0), h1 = __float2bfloat16_rn(v1);
+  const uint32_t vh = pack_bf16(h0, h1);
+  const uint32_t vl = pack_bf16(__float2bfloat16_rn(v0 - __bfloat162float(h0)),
+                                __float2bfloat16_rn(v1 - __bfloat162float(h1)));
+  for (int r = 0; r < static_cast<int>(cluster.num_blocks()); ++r) {
+    *reinterpret_cast<uint32_t*>(cluster.map_shared_rank(hi, r) + off) = vh;
+    *reinterpret_cast<uint32_t*>(cluster.map_shared_rank(lo, r) + off) = vl;
+  }
+}
+
 // Byte offsets into the tile path's dynamic shared memory, from its first
 // 1024-byte aligned address, planned by the wrapper alone
 // (kernels/adapter_fused.py, tile_layout) for the use below. W_down is read
@@ -661,11 +748,8 @@ adapter_tile_kernel(const __grid_constant__ TileMaps maps, int D, int act, TileL
     if (!share) load_wu();
   }
   __syncthreads();  // the barriers are set up
-  // The first phase of the cluster barrier: its wait, before the first store
-  // into another block's shared memory, is what guarantees that every block
-  // of the cluster has started. Arrived here, waited on after this block's
-  // first products, so the wait overlaps them.
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  // waited on after this block's first products, so the wait overlaps them
+  cluster_arrive_relaxed();
 
   // down-projection, in chunks of 64 columns of m: warp (mt, ng) sums its
   // n-tiles over all of the block's D/C for the m-tile's 16 rows, then stores
@@ -684,30 +768,20 @@ adapter_tile_kernel(const __grid_constant__ TileMaps maps, int D, int act, TileL
       for (int k4 = 0; k4 < 4; ++k4) {
         const int kk = 4 * k + k4;  // k-step of 16
         uint32_t a[4];
-        ldmatrix_x4(a, hs + swz(BT, mt * 16 + lane % 16, kk * 16 + (lane / 16) * 8));
+        load_a(a, hs, BT, mt * 16, kk * 16);
 #pragma unroll
         for (int np = 0; np < NPW / 2; ++np) {
           if (nb + 16 * np < mp) {
             uint32_t b[4];
-            ldmatrix_x4_trans(b, wd_s + swz(dc, kk * 16 + lane % 8 + ((lane / 8) % 2) * 8,
-                                            nb + 16 * np + (lane / 16) * 8));
+            load_b_kn(b, wd_s, dc, kk * 16, nb + 16 * np);
             mma_bf16(acc[2 * np], a, b[0], b[1]);
             mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
           }
         }
       }
     }
-    if (n0 == 0) asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int t = mt * 16 + g + 8 * r;
-      float* dst = cluster.map_shared_rank(part, t % C) + (rank * RB + t / C) * lw;
-#pragma unroll
-      for (int n = 0; n < NPW; ++n)
-        if (nb + 8 * n < mp)
-          *reinterpret_cast<float2*>(dst + nb + 8 * n + 2 * t4) =
-              make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
-    }
+    if (n0 == 0) cluster_wait();
+    scatter_partial(cluster, part, acc, mt * 16, nb, mp, lw);
   }
   cluster.sync();  // every block's sums are in place; W_down is no longer read
   if (share) {
@@ -722,22 +796,9 @@ adapter_tile_kernel(const __grid_constant__ TileMaps maps, int D, int act, TileL
   for (int p = threadIdx.x; p < RB * half; p += THREADS) {
     const int i = p / half;
     const int j = 2 * (p % half);
-    float s0 = 0.0f, s1 = 0.0f;
-    for (int s = 0; s < C; ++s) {
-      const float2 x = *reinterpret_cast<const float2*>(part + (s * RB + i) * lw + j);
-      s0 += x.x;
-      s1 += x.y;
-    }
-    const float v0 = activate(act, s0), v1 = activate(act, s1);
-    const bf16_t h0 = __float2bfloat16_rn(v0), h1 = __float2bfloat16_rn(v1);
-    const uint32_t hi = pack_bf16(h0, h1);
-    const uint32_t lo = pack_bf16(__float2bfloat16_rn(v0 - __bfloat162float(h0)),
-                                  __float2bfloat16_rn(v1 - __bfloat162float(h1)));
-    const int off = (rank + C * i) * lw + j;
-    for (int r = 0; r < C; ++r) {
-      *reinterpret_cast<uint32_t*>(cluster.map_shared_rank(mid_hi, r) + off) = hi;
-      *reinterpret_cast<uint32_t*>(cluster.map_shared_rank(mid_lo, r) + off) = lo;
-    }
+    const float2 s = sum_partials(part, C, lw, i, j);
+    broadcast_hi_lo(cluster, mid_hi, mid_lo, (rank + C * i) * lw + j, activate(act, s.x),
+                    activate(act, s.y));
   }
   mbar_wait(bar + TILE_CHUNKS);  // W_up
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // for wgmma's reads
@@ -756,9 +817,8 @@ adapter_tile_kernel(const __grid_constant__ TileMaps maps, int D, int act, TileL
     for (int k4 = 0; k4 < 4; ++k4) {
       const int kk = 4 * kg + k4;
       if (kk < MK) {
-        const int off = (mt * 16 + lane % 16) * lw + kk * 16 + (lane / 16) * 8;
-        ldmatrix_x4(ahi[k4], mid_hi + off);
-        ldmatrix_x4(alo[k4], mid_lo + off);
+        load_a_rows(ahi[k4], mid_hi, lw, mt * 16, kk * 16);
+        load_a_rows(alo[k4], mid_lo, lw, mt * 16, kk * 16);
       }
     }
   };
@@ -809,9 +869,10 @@ adapter_tile_kernel(const __grid_constant__ TileMaps maps, int D, int act, TileL
   if (lane == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
-// The tensor maps of a launch, or false where the driver refuses them
-bool tile_maps(TileMaps& maps, const void* h, const void* wd, const void* wu, void* out, int T,
-               int D, int m, int mp) {
+// A TMA map of the bf16 [rows, cols] row-major tensor at base, in boxes of
+// box_rows x 64 columns in the 128-byte swizzle, or false where the driver
+// refuses it
+bool tile_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -829,19 +890,33 @@ bool tile_maps(TileMaps& maps, const void* h, const void* wd, const void* wu, vo
     if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) fn = nullptr;
     return reinterpret_cast<Encode>(fn);
   }();
-  if (encode == nullptr) return false;
-  const auto make = [&](CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
-    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
-    const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
-    const cuuint32_t steps[2] = {1, 1};
-    return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
-                  strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                  CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-  };
-  return make(&maps.h, h, T, D, TILE_ROWS) && make(&maps.wd, wd, D, m, 64) &&
-         make(&maps.wu, wu, m, D, mp) && make(&maps.out, out, T, D, 16);
+  if (encode == nullptr || reinterpret_cast<uintptr_t>(base) % 16) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t steps[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
+                box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+// The launch configuration of a tile path for T rows: one cluster of
+// `cluster` blocks per tile of TILE_ROWS rows (cfg points at attr)
+void tile_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, int cluster, int T,
+                 size_t smem, cudaStream_t stream) {
+  attr = {};
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg = {};
+  cfg.gridDim = dim3(cluster * ((T + TILE_ROWS - 1) / TILE_ROWS));
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
 }
 
 // The tile path's launch (occupancy == nullptr) or its occupancy query
@@ -851,24 +926,14 @@ cudaError_t launch_tile(int cluster_size, const void* h, const void* wd, const v
   static std::atomic<unsigned long long> done{0};
   cudaError_t err = set_up_once(done, adapter_tile_kernel, true);
   if (err != cudaSuccess) return err;
-  cudaLaunchAttribute attr = {};
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = cluster_size;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster_size * ((T + TILE_ROWS - 1) / TILE_ROWS));
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  tile_config(cfg, attr, cluster_size, T, smem, stream);
   if (occupancy != nullptr)
     return cudaOccupancyMaxActiveClusters(occupancy, adapter_tile_kernel, &cfg);
-  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
   TileMaps maps = {};
-  if (!aligned(h) || !aligned(wd) || !aligned(wu) || !aligned(out) ||
-      !tile_maps(maps, h, wd, wu, out, T, D, m, L.mp))
+  if (!tile_map(&maps.h, h, T, D, TILE_ROWS) || !tile_map(&maps.wd, wd, D, m, 64) ||
+      !tile_map(&maps.wu, wu, m, D, L.mp) || !tile_map(&maps.out, out, T, D, 16))
     return cudaErrorInvalidValue;
   err = cudaLaunchKernelEx(&cfg, adapter_tile_kernel, maps, D, act, L);
   if (err != cudaSuccess) return err;
@@ -931,7 +996,8 @@ __device__ __forceinline__ float activate_grad(int act, float x) {
 // torch.matmul: the reference's autodiff forms them outside its Pallas kernel,
 // whose body never computes them.
 //
-// Simple and right, on the CUDA cores: phase 1 streams D in chunks of
+// It runs f32, and the bf16 shapes no plan of adapter_bwd_tile_kernel (below)
+// takes. Simple and right, on the CUDA cores: phase 1 streams D in chunks of
 // BWD_CHUNK columns (the [BT, chunk] slices of h and g, the chunk's rows of
 // W_down and columns of W_up, all staged by coalesced loads) and thread (grp,
 // j) sums both thin products for column j of the intermediate over the
@@ -1073,6 +1139,309 @@ int launch_bwd(const void* g, const void* h, const void* wd, const void* wu, voi
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ------------------------------------------- bf16 backward: tiles on the tensor cores
+
+// Byte offsets into the bf16 backward's dynamic shared memory, from its first
+// 1024-byte aligned address, planned by the wrapper alone
+// (kernels/adapter_fused.py, bwd_tile_layout) for the use below. Every
+// region has room of its own: W_down is read by the first and the last
+// product, g from the first product to the store of dh.
+struct BwdTileLayout {
+  int dc;    // columns of D per block (a multiple of 64, at most 64 TILE_CHUNKS)
+  int mp;    // m rounded up to 16; columns past m are zero
+  int hs;    // [dc / 64][BT][64] bf16, swizzled: the block's slice of h
+  int gs;    // [dc / 64][BT][64] bf16, swizzled: the block's slice of g, then of dh
+  int wd;    // [mp64 / 64][dc][64] bf16, swizzled: the block's rows of W_down
+  int wu;    // [dc / 64][mp][64] bf16, swizzled: the block's columns of W_up
+  int pz;    // [C][BT / C][mp + 8] fp32: each block's h @ W_down for this block's rows
+  int pu;    // [C][BT / C][mp + 8] fp32: each block's g @ W_up^T for this block's rows
+  int hi;    // [BT][mp + 8] bf16: bf16(g_mid)
+  int lo;    // [BT][mp + 8] bf16: bf16(g_mid - hi)
+  int bar;   // TILE_CHUNKS mbarriers: one per chunk of h, g, W_down and W_up
+};
+
+// The tensor maps of one launch: h and g [T, D] in boxes of [BT, 64], W_down
+// [D, m] in [64, 64], W_up [m, D] in [mp, 64], dh [T, D] in [16, 64]
+struct BwdTileMaps {
+  CUtensorMap h, g, wd, wu, dh;
+};
+
+// The adapter's backward in bf16 (adapter_bwd_tile_kernel): the same function
+// as adapter_bwd_kernel (above), in the forward tile path's shape. What bounds
+// it on the H100: bytes (h and g read once, dh written once; the three thin
+// products are 6 T D m flops, about 2m flops a byte, far below the ~295 the
+// bf16 tensor cores need). One cluster of C blocks (8 or 16, bwd_tile_plan)
+// per tile of BT = 64 rows; block r owns columns [r dc, (r + 1) dc) of D and
+// sums the intermediate's rows t = r mod C. The TMA brings the block's slices
+// of h and g, its rows of W_down and its columns of W_up, one mbarrier per
+// 64-column chunk, all issued at once (rows past T and columns past D arrive
+// as zeros), so each weight byte is read once per tile of 64 rows and h and g
+// once. 8 warps; warp w takes m-tile w % 4 and column group w / 4.
+//  1. As each chunk lands, z += h W_down and u += g W_up^T for the warp's 16
+//     rows and 32 columns of each 64 of m, on mma.sync m16n8k16 with fp32
+//     accumulators (bf16 products are exact in fp32): W_down by ldmatrix.trans
+//     (its rows are k), W_up by ldmatrix (already k-contiguous).
+//  2. The forward's cluster protocol: arrived at once the copies are issued,
+//     waited on before the first store into another block. Each block stores
+//     its partial z and u of the rows block r owns into block r's shared
+//     memory; after a cluster barrier block r adds the C partials in rank
+//     order, forms mid = act(z) and g_mid = u act'(z), writes its rows of both
+//     (fp32) and writes hi = bf16(g_mid) and lo = bf16(g_mid - hi) into every
+//     block. No atomics: the result does not depend on timing.
+//  3. After a second barrier, warpgroup w / 4 forms term = hi W_down^T + lo
+//     W_down^T (fp32 accumulators, mma.sync, W_down's tile of step 1 read by
+//     ldmatrix: its rows are n) for its 64-column chunks, rounds it to bf16,
+//     adds g from the staged slice and rounds again (the reference's bf16(g +
+//     bf16(term))), in place, and hands each warp's 16 x 64 piece of dh to a
+//     TMA store. The hi/lo split leaves about 2^-17 of the term, far below
+//     dh's rounding. One block an SM (its shared memory); rows of the
+//     intermediate stay in fp32 until the split.
+// The tensor cores add into an fp32 accumulator by aligning to the largest
+// exponent and truncating, which biases a long sum toward zero; a biased
+// term moves which elements of dh round the other way, and a deep backward
+// chain grows that (launch/grad_gap.py, PERF.md). So no sum runs long in one
+// accumulator: z and u are summed per 64-column chunk and the chunks added
+// in fp32, and hi W_down^T and lo W_down^T are kept apart (lo's products,
+// 2^-8 of hi's, would lose the bits the split keeps) and added at the end.
+__global__ void __launch_bounds__(THREADS, 1)
+adapter_bwd_tile_kernel(const __grid_constant__ BwdTileMaps maps, float* __restrict__ mid_out,
+                        float* __restrict__ gmid_out, int T, int D, int m, int act,
+                        BwdTileLayout L) {
+  constexpr int BT = TILE_ROWS;
+  constexpr int MTILES = BT / 16;
+  constexpr int NG = WARPS / MTILES;
+  constexpr int NPW = 8 / NG;  // 8-column n-tiles per warp in each 64 columns of m
+  static_assert(MTILES == 4 && NG == 2, "one warpgroup of m-tiles per column group");
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  bf16_t* hs = reinterpret_cast<bf16_t*>(smem + L.hs);
+  bf16_t* gs = reinterpret_cast<bf16_t*>(smem + L.gs);
+  bf16_t* wd_s = reinterpret_cast<bf16_t*>(smem + L.wd);
+  bf16_t* wu_s = reinterpret_cast<bf16_t*>(smem + L.wu);
+  float* pz = reinterpret_cast<float*>(smem + L.pz);
+  float* pu = reinterpret_cast<float*>(smem + L.pu);
+  bf16_t* gm_hi = reinterpret_cast<bf16_t*>(smem + L.hi);
+  bf16_t* gm_lo = reinterpret_cast<bf16_t*>(smem + L.lo);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L.bar);
+  const int dc = L.dc, mp = L.mp, mp64 = (mp + 63) / 64 * 64;
+  const int lw = mp + 8;  // row stride of the partials, hi and lo
+  const int nch = dc / 64;
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int RB = BT / C;  // rows of the intermediate each block sums
+  const int row0 = static_cast<int>(blockIdx.x / C) * BT;
+  const int d0 = rank * dc;
+  const int nd = max(0, min(dc, D - d0));  // columns of D this block owns
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;   // accumulator rows g and g + 8 of an m-tile
+  const int t4 = lane % 4;  // accumulator columns 2 t4, 2 t4 + 1 of each 8
+  const int mt = warp % MTILES;
+  const int ng = warp / MTILES;
+
+  // chunk k (columns 64k.. of the block's slice) of h and g, with rows 64k.. of
+  // W_down and columns 64k.. of W_up, on barrier k
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < TILE_CHUNKS; ++i) mbar_init(bar + i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int k = 0; k < nch; ++k) {
+      mbar_expect(bar + k, 2u * 64 * (2 * BT + mp64 + mp));
+      tma_load(hs + k * BT * 64, &maps.h, d0 + 64 * k, row0, bar + k);
+      tma_load(gs + k * BT * 64, &maps.g, d0 + 64 * k, row0, bar + k);
+      for (int c = 0; c < mp64; c += 64)
+        tma_load(wd_s + c * dc + 64 * k * 64, &maps.wd, c, d0 + 64 * k, bar + k);
+      tma_load(wu_s + k * mp * 64, &maps.wu, d0 + 64 * k, 0, bar + k);
+    }
+  }
+  __syncthreads();  // the barriers are set up
+  cluster_arrive_relaxed();
+
+  // 1. z = h W_down and u = g W_up^T, in chunks of 64 columns of m: warp (mt,
+  // ng) sums its n-tiles over all of the block's D/C for the m-tile's 16 rows,
+  // then stores each row's sums into the block that owns the row
+  for (int n0 = 0; n0 < mp; n0 += 64) {
+    const int nb = n0 + 8 * NPW * ng;  // the warp's first column of m
+    float az[NPW][4], au[NPW][4];
+#pragma unroll
+    for (int n = 0; n < NPW; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) az[n][e] = au[n][e] = 0.0f;
+    for (int k = 0; k < nch; ++k) {
+      if (n0 == 0) mbar_wait(bar + k);  // this chunk has landed
+      if (nb >= mp) continue;
+      // this chunk's sums on their own, then added in fp32 (see below)
+      float cz[NPW][4], cu[NPW][4];
+#pragma unroll
+      for (int n = 0; n < NPW; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) cz[n][e] = cu[n][e] = 0.0f;
+#pragma unroll
+      for (int k4 = 0; k4 < 4; ++k4) {
+        const int kk = 4 * k + k4;  // k-step of 16
+        uint32_t ah[4], ag[4];
+        load_a(ah, hs, BT, mt * 16, kk * 16);
+        load_a(ag, gs, BT, mt * 16, kk * 16);
+#pragma unroll
+        for (int np = 0; np < NPW / 2; ++np) {
+          if (nb + 16 * np < mp) {
+            uint32_t b[4];
+            load_b_kn(b, wd_s, dc, kk * 16, nb + 16 * np);
+            mma_bf16(cz[2 * np], ah, b[0], b[1]);
+            mma_bf16(cz[2 * np + 1], ah, b[2], b[3]);
+            load_b_nk(b, wu_s, mp, nb + 16 * np, kk * 16);
+            mma_bf16(cu[2 * np], ag, b[0], b[1]);
+            mma_bf16(cu[2 * np + 1], ag, b[2], b[3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NPW; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) { az[n][e] += cz[n][e]; au[n][e] += cu[n][e]; }
+    }
+    if (n0 == 0) cluster_wait();
+    scatter_partial(cluster, pz, az, mt * 16, nb, mp, lw);
+    scatter_partial(cluster, pu, au, mt * 16, nb, mp, lw);
+  }
+  cluster.sync();  // every block's partial sums are in place
+
+  // 2. this block's rows t = rank + C i: the C blocks' sums in rank order,
+  // mid and g_mid to device memory, and g_mid's hi and lo into every block
+  const int half = mp / 2;
+  for (int p = threadIdx.x; p < RB * half; p += THREADS) {
+    const int i = p / half;
+    const int j = 2 * (p % half);
+    const float2 z = sum_partials(pz, C, lw, i, j);
+    const float2 u = sum_partials(pu, C, lw, i, j);
+    const float gm0 = u.x * activate_grad(act, z.x), gm1 = u.y * activate_grad(act, z.y);
+    const int t = row0 + rank + C * i;
+    if (t < T && j < m) {  // m is even: j + 1 < m too
+      const long at = static_cast<long>(t) * m + j;
+      *reinterpret_cast<float2*>(mid_out + at) = make_float2(activate(act, z.x),
+                                                             activate(act, z.y));
+      *reinterpret_cast<float2*>(gmid_out + at) = make_float2(gm0, gm1);
+    }
+    broadcast_hi_lo(cluster, gm_hi, gm_lo, (rank + C * i) * lw + j, gm0, gm1);
+  }
+  cluster.sync();  // every row of hi and lo is in place
+
+  // 3. term = hi W_down^T + lo W_down^T and dh = bf16(g + bf16(term)):
+  // warpgroup ng takes the 64-column chunks ng, ng + NG, ... of the block's
+  // columns for its 64 rows. The A fragments of hi and lo are loaded once
+  // where m <= 64, else per group of 4 k-steps.
+  const int MK = mp / 16;
+  const int KG = (MK + 3) / 4;
+  uint32_t ahi[4][4], alo[4][4];
+  auto load_gm = [&](int kg) {
+#pragma unroll
+    for (int k4 = 0; k4 < 4; ++k4) {
+      const int kk = 4 * kg + k4;
+      if (kk < MK) {
+        load_a_rows(ahi[k4], gm_hi, lw, mt * 16, kk * 16);
+        load_a_rows(alo[k4], gm_lo, lw, mt * 16, kk * 16);
+      }
+    }
+  };
+  if (KG == 1) load_gm(0);
+  for (int c0 = 64 * ng; c0 < nd; c0 += 64 * NG) {
+    float acc[8][4], acl[8][4];  // hi W_down^T and lo W_down^T, apart (see below)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = acl[n][e] = 0.0f;
+    for (int kg = 0; kg < KG; ++kg) {
+      if (KG > 1) load_gm(kg);
+#pragma unroll
+      for (int k4 = 0; k4 < 4; ++k4) {
+        const int kk = 4 * kg + k4;
+        if (kk < MK) {
+#pragma unroll
+          for (int np = 0; np < 4; ++np) {
+            uint32_t b[4];
+            load_b_nk(b, wd_s, dc, c0 + 16 * np, kk * 16);
+            mma_bf16(acc[2 * np], ahi[k4], b[0], b[1]);
+            mma_bf16(acl[2 * np], alo[k4], b[0], b[1]);
+            mma_bf16(acc[2 * np + 1], ahi[k4], b[2], b[3]);
+            mma_bf16(acl[2 * np + 1], alo[k4], b[2], b[3]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += acl[n][e];
+    // the term rounded to bf16 (the reference casts it to h's type), plus g,
+    // into the staged slice of g in place
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(
+            gs + swz(BT, mt * 16 + g + 8 * r, c0 + 8 * n + 2 * t4));
+        const float2 gv = __bfloat1622float2(*p);
+        const float t0 = __bfloat162float(__float2bfloat16_rn(acc[n][2 * r]));
+        const float t1 = __bfloat162float(__float2bfloat16_rn(acc[n][2 * r + 1]));
+        *p = __floats2bfloat162_rn(gv.x + t0, gv.y + t1);
+      }
+    }
+    // the warp's 16 x 64 piece of dh to device memory
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // the writes above
+    __syncwarp();
+    if (lane == 0) {
+      tma_store(&maps.dh, d0 + c0, row0 + mt * 16, gs + swz(BT, mt * 16, c0));
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    }
+  }
+  // the shared memory stays until the stores have read it
+  if (lane == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// The bf16 backward's launch (occupancy == nullptr) or its occupancy query
+cudaError_t launch_bwd_tile(int cluster_size, const void* g, const void* h, const void* wd,
+                            const void* wu, void* dh, float* mid, float* gmid, int T, int D, int m,
+                            int act, BwdTileLayout L, size_t smem, cudaStream_t stream,
+                            int* occupancy) {
+  static std::atomic<unsigned long long> done{0};
+  cudaError_t err = set_up_once(done, adapter_bwd_tile_kernel, true);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  tile_config(cfg, attr, cluster_size, T, smem, stream);
+  if (occupancy != nullptr)
+    return cudaOccupancyMaxActiveClusters(occupancy, adapter_bwd_tile_kernel, &cfg);
+  BwdTileMaps maps = {};
+  if (!tile_map(&maps.h, h, T, D, TILE_ROWS) || !tile_map(&maps.g, g, T, D, TILE_ROWS) ||
+      !tile_map(&maps.wd, wd, D, m, 64) || !tile_map(&maps.wu, wu, m, D, L.mp) ||
+      !tile_map(&maps.dh, dh, T, D, 16) || reinterpret_cast<uintptr_t>(mid) % 8 ||
+      reinterpret_cast<uintptr_t>(gmid) % 8)
+    return cudaErrorInvalidValue;
+  err = cudaLaunchKernelEx(&cfg, adapter_bwd_tile_kernel, maps, mid, gmid, T, D, m, act, L);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// What the bf16 backward's kernel takes of the wrapper's plan: each region, at
+// the size the kernel uses, inside the smem bytes and aligned as it is read
+bool bwd_tile_plan_ok(int T, int D, int m, int cluster_size, BwdTileLayout L, int smem) {
+  const int mp64 = (L.mp + 63) / 64 * 64;
+  const long slice = 2L * TILE_ROWS * L.dc, wdb = 2L * mp64 * L.dc, wub = 2L * L.mp * L.dc;
+  const long part = 4L * TILE_ROWS * (L.mp + 8), mid = 2L * TILE_ROWS * (L.mp + 8);
+  const auto fits = [&](int off, long size, int align) {
+    return 0 <= off && off % align == 0 && off + size <= smem - 1024;
+  };
+  return T >= 1 && 1 <= m && m <= THREADS && D % 8 == 0 && m % 8 == 0 &&
+         L.mp == (m + 15) / 16 * 16 && L.dc >= 64 && L.dc % 64 == 0 &&
+         L.dc <= 64 * TILE_CHUNKS && 1 <= cluster_size && cluster_size <= TILE_CLUSTER_MAX &&
+         TILE_ROWS % cluster_size == 0 && static_cast<long>(L.dc) * cluster_size >= D &&
+         smem <= SMEM_LIMIT && fits(L.hs, slice, 1024) && fits(L.gs, slice, 1024) &&
+         fits(L.wd, wdb, 1024) && fits(L.wu, wub, 1024) && fits(L.pz, part, 16) &&
+         fits(L.pu, part, 16) && fits(L.hi, mid, 16) && fits(L.lo, mid, 16) &&
+         fits(L.bar, 8 * TILE_CHUNKS, 16);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1177,6 +1546,43 @@ int adapter_fused_bwd_launch(const void* g, const void* h, const void* w_down,
   float* go = static_cast<float*>(g_mid);
   if (bf16) return launch_bwd<__nv_bfloat16>(g, h, w_down, w_up, dh, mo, go, T, D, m, act, s);
   return launch_bwd<float>(g, h, w_down, w_up, dh, mo, go, T, D, m, act, s);
+}
+
+// The bf16 backward on the tensor cores (adapter_bwd_tile_kernel): g, h
+// [T, D], w_down [D, m], w_up [m, D] in, dh [T, D] and mid, g_mid [T, m] (fp32)
+// out; tiles of 64 rows, each one cluster of `cluster` blocks (1-16, dividing
+// 64) owning dc columns of D each, with the wrapper's shared-memory plan (smem
+// bytes; mp = m rounded up to 16; hs, gs, wd, wu, pz, pu, hi, lo, bar: byte
+// offsets of BwdTileLayout). The TMA moves g, h, the weights and dh (tensor
+// maps made here, per launch), so all five must be 16-byte aligned and D and m
+// multiples of 8. act: 0 gelu, 1 relu, 2 silu. Returns the cudaError_t of the
+// launch.
+int adapter_fused_bwd_tile_launch(const void* g, const void* h, const void* w_down,
+                                  const void* w_up, void* dh, void* mid, void* g_mid, int T, int D,
+                                  int m, int act, int cluster, int dc, int mp, int hs, int gs,
+                                  int wd, int wu, int pz, int pu, int hi, int lo, int bar,
+                                  int smem, void* stream) {
+  if (T <= 0) return 0;
+  const BwdTileLayout L{dc, mp, hs, gs, wd, wu, pz, pu, hi, lo, bar};
+  if (act < 0 || act > 2 || !bwd_tile_plan_ok(T, D, m, cluster, L, smem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_bwd_tile(cluster, g, h, w_down, w_up, dh,
+                                          static_cast<float*>(mid), static_cast<float*>(g_mid),
+                                          T, D, m, act, L, smem,
+                                          static_cast<cudaStream_t>(stream), nullptr));
+}
+
+// cudaOccupancyMaxActiveClusters of the bf16 backward's kernel for clusters of
+// `cluster` blocks with smem bytes of shared memory per block (0: none can
+// launch), or minus the cudaError_t of the query.
+int adapter_fused_bwd_tile_occupancy(int cluster, int smem) {
+  if (smem < 0 || smem > SMEM_LIMIT || cluster < 1 || cluster > TILE_CLUSTER_MAX)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  int n = 0;
+  const cudaError_t err =
+      launch_bwd_tile(cluster, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                      TILE_ROWS, 0, 0, 0, BwdTileLayout{}, smem, nullptr, &n);
+  return err ? -static_cast<int>(err) : n;
 }
 
 const char* cuda_error_string(int err) {

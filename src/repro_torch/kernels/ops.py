@@ -61,6 +61,15 @@ def _adapter_forward(h2: torch.Tensor, w_down: torch.Tensor, w_up: torch.Tensor,
     return out
 
 
+def adapter_weight_grads(h: torch.Tensor, g: torch.Tensor, mid: torch.Tensor,
+                         g_mid: torch.Tensor, dtype: torch.dtype,
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dW_down, dW_up) = (h^T g_mid, mid^T g) in fp32, rounded to ``dtype``,
+    from the backward kernel's fp32 mid and g_mid: two plain products, which
+    the reference's autodiff forms outside its Pallas kernel too."""
+    return (h.float().t() @ g_mid).to(dtype), (mid.t() @ g.float()).to(dtype)
+
+
 class _AdapterFused(torch.autograd.Function):
     """adapter_fused with its backward; h [T, D]."""
 
@@ -81,10 +90,7 @@ class _AdapterFused(torch.autograd.Function):
         dh, mid, g_mid = _af.adapter_fused_bwd(g, h.contiguous(), w_down, w_up,
                                                activation=ctx.activation)
         LAUNCHES["adapter_fused_bwd"] += 1
-        # the weight gradients are two plain products: the reference's autodiff
-        # forms them outside its Pallas kernel too
-        dw_down = (h.float().t() @ g_mid).to(w_down.dtype)
-        dw_up = (mid.t() @ g.float()).to(w_up.dtype)
+        dw_down, dw_up = adapter_weight_grads(h, g, mid, g_mid, w_down.dtype)
         return dh, dw_down, dw_up, None, None
 
 

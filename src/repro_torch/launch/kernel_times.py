@@ -15,8 +15,9 @@ and f32, [2292, 1600] in bf16), ``flash_attention`` at the served
 prefill shapes and at stablelm-3b's (4 x 512, 32 heads of 80), ``rwkv_scan`` at
 rwkv6-7b's prefill (N 256 = 4 rows x 64 heads of 64, S 512 and 445) and
 ``mamba_scan`` at hymba-1.5b's ([4, 640, 1600, 16]), and the backward kernels
-at the training shapes (the adapter at h [2048, 2048] in bf16 and f32;
-attention at qwen2.5-3b's 4 x 512, 16 over 2 heads of 128, in bf16 and f32,
+at the training shapes (the adapter at h, g [2048, 2048] and [2048, 2560] in
+bf16 and f32, and beside it the weight gradients that ``kernels.ops`` forms
+from its output, timed alone, with the fp32 casts of h and g alone; attention at qwen2.5-3b's 4 x 512, 16 over 2 heads of 128, in bf16 and f32,
 at stablelm-3b's 4 x 512, 32 over 32 heads of 80, in bf16 and f32, and hd 64
 with a window of 128), each on the same inputs as its plain version
 (attention: the kernel forward's o and row logsumexp), each checked against
@@ -29,10 +30,12 @@ its published width (random weights from seed 0, non-zero adapters), 4 slots, 8
 requests of 64-512 prompt tokens, 32 new tokens each, served after a warm-up,
 ``--runs`` times: tokens per second, prefill ms and decode ms per step. With
 ``--plans``: the bf16 prefill path of ``adapter_fused`` at the served prefill
-shapes under every tile plan that fits and launches (blocks per cluster),
-each checked against the plain version and timed warm (``ms``, as
-above) and over copies of h that together exceed the 50 MB L2 (``cold_ms``),
-beside the plan ``tile_plan`` chooses.
+shapes (and stablelm-3b's [2048, 2560]) under every tile plan that fits and
+launches (blocks per cluster), each checked against the plain version and
+timed warm (``ms``, as above) and over copies of h that together exceed the
+50 MB L2 (``cold_ms``), beside the plan ``tile_plan`` chooses; then the bf16
+backward's tile path at the training widths under every plan of
+``bwd_tile_layout`` that fits and launches, beside ``bwd_tile_plan``'s.
 
 Prints one JSON line per measurement, then the card's name and power limit.
 It needs a CUDA card.
@@ -192,13 +195,22 @@ def backward(rnd) -> None:
         print(json.dumps({"kernel": "backward", "note": "no backward kernels in this checkout"}),
               flush=True)
         return
-    for dtype in (torch.bfloat16, torch.float32):
-        T, D = 2048, 2048
+    from repro_torch.kernels import ops
+
+    for (T, D), dtype in ((shape, dtype) for shape in ((2048, 2048), (2048, 2560))
+                          for dtype in (torch.bfloat16, torch.float32)):
         h, g = rnd(T, D, dtype=dtype), rnd(T, D, dtype=dtype)
         wd, wu = 0.05 * rnd(D, 64, dtype=dtype), 0.05 * rnd(64, D, dtype=dtype)
-        _time("adapter_fused_bwd", f"h,g[{T},{D}] m=64 gelu {str(dtype)[6:]}",
-              lambda: af.adapter_fused_bwd(g, h, wd, wu),
+        shape = f"h,g[{T},{D}] m=64 gelu {str(dtype)[6:]}"
+        _time("adapter_fused_bwd", shape, lambda: af.adapter_fused_bwd(g, h, wd, wu),
               lambda: ref.adapter_fused_bwd_terms(g, h, wd, wu))
+        if hasattr(ops, "adapter_weight_grads"):
+            _, mid, g_mid = af.adapter_fused_bwd(g, h, wd, wu)
+            print(json.dumps({"kernel": "adapter_weight_grads", "shape": shape,
+                              "ms": graph_ms(lambda: ops.adapter_weight_grads(h, g, mid, g_mid,
+                                                                              dtype)),
+                              "casts_ms": graph_ms(lambda: (h.float(), g.float()))}),
+                  flush=True)
     for (H, K, hd), window, dtype in (((16, 2, 128), None, torch.bfloat16),
                                       ((16, 2, 128), None, torch.float32),
                                       ((32, 32, 80), None, torch.bfloat16),
@@ -228,7 +240,10 @@ def cold_ms(fn, h: torch.Tensor, l2_bytes: float = 50e6) -> float:
 # rwkv6-7b (4 x 512, and the served batches 4 x 202 and 4 x 445) and
 # hymba-1.5b (meta tokens first: 4 x 573, 4 x 330, and 4 x 640 traced)
 PREFILL_SHAPES = [(2048, 2048), (808, 2048), (1780, 2048), (2048, 4096), (808, 4096),
-                  (1780, 4096), (2292, 1600), (1320, 1600), (2560, 1600)]
+                  (1780, 4096), (2292, 1600), (1320, 1600), (2560, 1600), (2048, 2560)]
+# the adapter's backward at the training widths (4 x 512 tokens): qwen2.5-3b,
+# stablelm-3b, and hymba-1.5b's and rwkv6-7b's widths
+TRAIN_SHAPES = [(2048, 2048), (2048, 2560), (2048, 1600), (2048, 4096)]
 
 
 def plans() -> None:
@@ -254,6 +269,25 @@ def plans() -> None:
                               "chosen": p == chosen, "max_abs_err": err,
                               "ms": graph_ms(lambda: run(h)), "cold_ms": cold_ms(run, h)}),
                   flush=True)
+    if not hasattr(af, "bwd_tile_layout"):
+        return
+    from repro_torch.kernels import ref
+
+    for T, D in TRAIN_SHAPES:
+        h, g, wd, wu = rnd(T, D), rnd(T, D), 0.05 * rnd(D, m), 0.05 * rnd(m, D)
+        want = ref.adapter_fused_bwd_terms(g, h, wd, wu)
+        chosen = af.bwd_tile_plan(T, D, m)
+        for cluster in af.TILE_CLUSTERS:
+            p = af.bwd_tile_layout(D, m, cluster)
+            if p is None or af.bwd_tile_occupancy(p) == 0:
+                continue
+            run = lambda: af.launch_bwd_tile(g, h, wd, wu, p)
+            err = max((a.float() - b.float()).abs().max().item() for a, b in zip(run(), want))
+            print(json.dumps({"bwd_plan": f"h,g[{T},{D}] m={m} gelu bfloat16",
+                              "cluster": cluster, "smem": p.smem,
+                              "clusters_at_once": af.bwd_tile_occupancy(p),
+                              "chosen": p == chosen, "max_abs_err": err,
+                              "ms": graph_ms(run)}), flush=True)
 
 
 def serve(arch: str, runs: int) -> None:

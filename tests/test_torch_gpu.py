@@ -356,11 +356,14 @@ def _assert_grad_close(got, want, dtype, what, rtol=BWD_RTOL):
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("act", ["gelu", "relu", "silu"])
 @pytest.mark.parametrize("T,D,m", [(2048, 2048, 64), (2048, 2560, 64), (300, 1000, 48),
-                                   (4, 256, 16), (37, 4096, 64)])
+                                   (4, 256, 16), (37, 4096, 64), (2047, 2560, 64),
+                                   (300, 1600, 64)])
 def test_adapter_fused_backward_on_card(T, D, m, act, dtype):
     """The backward kernel through ops' autograd Function against the plain
     backward (impl="plain") on the same inputs and cotangent: dh, dW_down,
-    dW_up; and the kernel's mid and g_mid against their plain formulas."""
+    dW_up; and the kernel's mid and g_mid against their plain formulas. bf16
+    runs the tile path at every one of these shapes (ragged tiles and D not a
+    multiple of 64 among them), f32 the 16-row kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     from repro_torch.kernels import adapter_fused as af
@@ -371,6 +374,8 @@ def test_adapter_fused_backward_on_card(T, D, m, act, dtype):
     rnd = lambda *s, std=1.0: (std * torch.randn(s, generator=gen, device="cuda")).to(dt)
     h, g = rnd(T, D), rnd(T, D)
     wd, wu = rnd(D, m, std=0.05), rnd(m, D, std=0.05)
+    route = "tile" if dt == torch.bfloat16 else "rows"
+    assert af.bwd_check(g, h, wd, wu, act).kernel == route
     grads = {}
     for impl in ("kernel", "plain"):
         leaves = [t.clone().requires_grad_(True) for t in (h, wd, wu)]
@@ -485,7 +490,9 @@ def test_flash_attention_backward_split_on_card(heads):
 def test_backward_kernels_are_deterministic_on_card(dtype):
     """Both backward kernels sum in a fixed order (no atomics): the same inputs
     give the same outputs bit for bit, call after call, at the adapter's
-    widest shape of the card tests and at qwen2.5-3b's attention shape."""
+    widest shape of the card tests, at stablelm-3b's training shape (bf16:
+    the tile path, its partial sums added across the cluster in rank order)
+    and at qwen2.5-3b's attention shape."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     from repro_torch.kernels import adapter_fused as af
@@ -504,6 +511,14 @@ def test_backward_kernels_are_deterministic_on_card(dtype):
         for _ in range(4):
             again = af.adapter_fused_bwd(g, h, wd, wu, activation=act)
             assert all(torch.equal(a, b) for a, b in zip(first, again)), act
+    h, g = rnd(2048, 2560), rnd(2048, 2560)
+    wd, wu = rnd(2560, 64, std=0.05), rnd(64, 2560, std=0.05)
+    assert af.bwd_check(g, h, wd, wu, "gelu").kernel == ("tile" if dt == torch.bfloat16
+                                                         else "rows")
+    first = af.adapter_fused_bwd(g, h, wd, wu)
+    for _ in range(4):
+        again = af.adapter_fused_bwd(g, h, wd, wu)
+        assert all(torch.equal(a, b) for a, b in zip(first, again)), "D 2560"
     first = fa.flash_attention_bwd(q, k, v, out, lse, dout)
     for _ in range(4):
         again = fa.flash_attention_bwd(q, k, v, out, lse, dout)

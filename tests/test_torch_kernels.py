@@ -295,7 +295,9 @@ def test_adapter_fused_tile_plan_misses_only_what_does_not_fit():
 @pytest.mark.parametrize("name,entries", [
     pytest.param("adapter_fused", {"adapter_fused_launch", "adapter_fused_cluster_launch",
                                    "adapter_fused_cluster_occupancy", "adapter_fused_tile_launch",
-                                   "adapter_fused_tile_occupancy", "adapter_fused_bwd_launch"},
+                                   "adapter_fused_tile_occupancy", "adapter_fused_bwd_launch",
+                                   "adapter_fused_bwd_tile_launch",
+                                   "adapter_fused_bwd_tile_occupancy"},
                  id="adapter_fused"),
     pytest.param("flash_attention", {"flash_attention_launch", "flash_attention_tc_launch",
                                      "flash_attention_bwd_launch", "flash_attention_bwd_tile"},
@@ -501,6 +503,154 @@ def test_adapter_fused_bwd_launcher_refuses_what_no_kernel_takes(case):
         wd, wu = torch.zeros(64, 300), torch.zeros(300, 64)
     with pytest.raises(ValueError, match="CUDA" if case == "cpu" else None):
         torch_af.adapter_fused_bwd(g, h, wd, wu)
+
+
+TRAIN_T = (1, 17, 300, 2047, 2048)     # one ragged tile, ragged ends, 4 x 512 tokens
+
+
+@pytest.mark.parametrize("D", [1600, 2048, 2560, 4096])
+@pytest.mark.parametrize("m", [16, 48, 64, 128])
+def test_adapter_fused_bwd_tile_plan_at_training_shapes(m, D):
+    """The bf16 backward's tile plan: it fits in shared memory, its cluster is
+    one the card allows (at most 16 blocks, dividing the 64 rows), every row
+    of g and h belongs to one tile and every column of D to one block, every
+    row of the intermediate is reduced by one block, and no two regions of
+    the layout overlap (each has room of its own). Where no cluster size
+    fits (m 128 above D 2048), the 16-row kernel runs. Pure Python: the
+    kernels run only on the card."""
+    bt = torch_af.TILE_ROWS
+    for T in TRAIN_T:
+        kernel, p = torch_af.bwd_route(T, D, m, torch.bfloat16)
+        if all(torch_af.bwd_tile_layout(D, m, c) is None for c in torch_af.TILE_CLUSTERS):
+            assert m == 128 and D > 2048
+            assert (kernel, p) == ("rows", None)
+            continue
+        assert kernel == "tile" and p == torch_af.bwd_tile_plan(T, D, m)
+        assert p.cluster in (8, 16) and bt % p.cluster == 0 and p.smem <= torch_af.SMEM_LIMIT
+        # clusters of 8 where they fit, else 16
+        assert p.cluster == (8 if torch_af.bwd_tile_layout(D, m, 8) else 16)
+        assert p.mp % 16 == 0 and m <= p.mp < m + 16
+        tiles = -(-T // bt)
+        assert (tiles - 1) * bt < T <= tiles * bt                   # rows: one tile each
+        # ceil(D / cluster) columns per block, rounded up to 64, at most TILE_CHUNKS x 64
+        assert p.dc == 64 * -(-(-(-D // p.cluster)) // 64) and p.cluster * p.dc >= D
+        assert p.dc <= 64 * torch_af.TILE_CHUNKS
+        owner = [d // p.dc for d in range(D)]                        # columns: one block each
+        assert owner[0] == 0 and owner[-1] < p.cluster and owner == sorted(owner)
+        reduced = sorted(t for r in range(p.cluster) for t in range(r, bt, p.cluster))
+        assert reduced == list(range(bt))                            # intermediate rows
+        mp64 = 64 * -(-m // 64)
+        sizes = {"hs": 2 * bt * p.dc, "gs": 2 * bt * p.dc, "wd": 2 * mp64 * p.dc,
+                 "wu": 2 * p.mp * p.dc, "pz": 4 * bt * (p.mp + 8), "pu": 4 * bt * (p.mp + 8),
+                 "hi": 2 * bt * (p.mp + 8), "lo": 2 * bt * (p.mp + 8),
+                 "bar": 8 * torch_af.TILE_CHUNKS}
+        for k in ("hs", "gs", "wd", "wu"):                 # the TMA's swizzled tiles
+            assert getattr(p, k) % 1024 == 0
+        regions = sorted((getattr(p, k), n) for k, n in sizes.items())
+        assert regions[0][0] == 0
+        for (start, n), (nxt, _) in zip(regions, regions[1:]):
+            assert start % 16 == 0 and start + n <= nxt
+        assert 1024 + regions[-1][0] + -(-regions[-1][1] // 16) * 16 == p.smem
+
+
+@pytest.mark.parametrize("T,D,m,dtype,kernel", [
+    (2048, 2560, 64, torch.bfloat16, "tile"), (2048, 2048, 64, torch.bfloat16, "tile"),
+    (2048, 2560, 64, torch.float32, "rows"), (2048, 2048, 64, torch.float32, "rows"),
+    (300, 1001, 64, torch.bfloat16, "rows"), (300, 1000, 60, torch.bfloat16, "rows"),
+    (2048, 2048, 256, torch.bfloat16, "rows"), (2048, 4096, 128, torch.bfloat16, "rows"),
+    (4, 256, 16, torch.bfloat16, "tile"), (37, 4096, 64, torch.bfloat16, "tile")])
+def test_adapter_fused_bwd_route_by_shape(T, D, m, dtype, kernel):
+    """Which backward kernel a shape takes, by shape alone: bf16 takes the
+    tile path wherever D and m are multiples of 8 and a plan fits (any T: up
+    to 64 rows are one ragged tile); f32, D or m not a multiple of 8, and an
+    m too large for any plan take the 16-row kernel."""
+    assert torch_af.bwd_route(T, D, m, dtype).kernel == kernel
+
+
+@pytest.mark.parametrize("arch", ["stablelm-3b", "qwen2.5-3b"])
+def test_adapter_fused_bwd_takes_the_tile_path_at_the_training_shapes(arch):
+    """Both trained archs' adapter backward (4 x 512 tokens at the model's
+    width and bottleneck, bf16) runs the tile path, in clusters of 8."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    D, m = cfg.d_model, cfg.adapter.bottleneck
+    meta = lambda *shape: torch.empty(shape, dtype=torch.bfloat16, device="meta")
+    kernel, p = torch_af.bwd_check(meta(2048, D), meta(2048, D), meta(D, m), meta(m, D), "gelu")
+    assert (kernel, p.cluster, p.dc * p.cluster) == ("tile", 8, D)
+
+
+@pytest.mark.parametrize("which", ["g", "h", "w_down", "w_up"])
+def test_adapter_fused_bwd_check_sends_unaligned_data_to_rows(which):
+    """The backward's tile path moves g, h and the weights by TMA, which
+    takes 16-byte aligned rows only: a contiguous view at an odd offset goes
+    to the 16-row kernel, by ``bwd_check``, which sees the data."""
+    T, D, m = 300, 1024, 64
+    shapes = {"g": (T, D), "h": (T, D), "w_down": (D, m), "w_up": (m, D)}
+    ts = {k: torch.zeros(s, dtype=torch.bfloat16) for k, s in shapes.items()}
+    args = lambda: (ts["g"], ts["h"], ts["w_down"], ts["w_up"], "gelu")
+    assert torch_af.bwd_check(*args()).kernel == "tile"
+    n = shapes[which][0] * shapes[which][1]
+    ts[which] = torch.zeros(n + 1, dtype=torch.bfloat16)[1:].view(shapes[which])
+    assert ts[which].is_contiguous() and ts[which].data_ptr() % 16
+    assert torch_af.bwd_check(*args()) == ("rows", None)
+
+
+def _bwd_tile_path_emulated(g, h, wd, wu, act, plan, parts=2):
+    """The bf16 backward tile path's arithmetic on the CPU: each of the plan's
+    blocks sums its columns' share of z = h @ W_down and u = g @ W_up^T in
+    fp32 (bf16 products are exact), the cluster adds the partials in rank
+    order, g_mid = u * act'(z) in fp32 is split into hi = bf16(g_mid) and lo =
+    bf16(g_mid - hi), each block sums hi @ W_down^T + lo @ W_down^T over its
+    own columns in fp32, and dh = bf16(g + bf16(term)). With ``parts=1`` only
+    hi is used. Returns (dh, mid, g_mid, term)."""
+    hf, gf, wdf, wuf = h.float(), g.float(), wd.float(), wu.float()
+    D = h.shape[1]
+    cols = [slice(r * plan.dc, min(D, (r + 1) * plan.dc)) for r in range(plan.cluster)
+            if r * plan.dc < D]
+    z, u = hf[:, cols[0]] @ wdf[cols[0]], gf[:, cols[0]] @ wuf[:, cols[0]].t()
+    for c in cols[1:]:
+        z, u = z + hf[:, c] @ wdf[c], u + gf[:, c] @ wuf[:, c].t()
+    g_mid = u * ref.act_grad(act, z)
+    hi = _bf16(g_mid)
+    lo = _bf16(g_mid - hi)
+    term = torch.cat([hi @ wdf[c].t() + (lo @ wdf[c].t() if parts == 2 else 0.0)
+                      for c in cols], dim=1)
+    return (gf + _bf16(term)).to(torch.bfloat16), ref.act(act, z), g_mid, term
+
+
+@pytest.mark.parametrize("T,D,m", [(37, 256, 16), (300, 1000, 48), (130, 640, 64)])
+@pytest.mark.parametrize("act", ["gelu", "relu", "silu"])
+def test_adapter_fused_bwd_tile_split_matches_jax(T, D, m, act):
+    """The bf16 backward tile path's arithmetic, emulated on the CPU, against
+    jax.vjp of the JAX reference (``repro.kernels.ref.adapter_fused``): dh
+    within one bf16 ulp of its largest entry (2**-7, the card tests'
+    BWD_RTOL: fp32 sums in another order can round the term to the other
+    side), and equal to it bit for bit on at least 99% of the elements; mid
+    and g_mid within 1e-5 of the largest entry of the fp32 reference
+    formulas. The hi/lo term stays within 2**-15 of |g_mid| @ |W_down^T| of
+    the exact one; hi alone (one bf16 product) does not."""
+    rng = np.random.default_rng(T + D + m)
+    h_j, h_t = _pair(rng.standard_normal((T, D), np.float32), "bfloat16")
+    g_j, g_t = _pair(rng.standard_normal((T, D), np.float32), "bfloat16")
+    wd_j, wd_t = _pair(0.05 * rng.standard_normal((D, m), np.float32), "bfloat16")
+    wu_j, wu_t = _pair(0.05 * rng.standard_normal((m, D), np.float32), "bfloat16")
+    plan = torch_af.bwd_tile_plan(T, D, m)
+    dh, mid, g_mid, term = _bwd_tile_path_emulated(g_t, h_t, wd_t, wu_t, act, plan)
+    _, vjp = jax.vjp(lambda a: jax_ref.adapter_fused(a, wd_j, wu_j, activation=act), h_j)
+    want = _np(vjp(g_j)[0])
+    got = _np(dh)
+    assert np.abs(got - want).max() <= 2.0 ** -7 * np.abs(want).max()
+    assert (got == want).mean() >= 0.99
+    z = h_t.float() @ wd_t.float()
+    want_g_mid = (g_t.float() @ wu_t.float().t()) * ref.act_grad(act, z)
+    for a, b in ((mid, ref.act(act, z)), (g_mid, want_g_mid)):
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+    exact = g_mid.double() @ wd_t.double().t()
+    scale = g_mid.double().abs() @ wd_t.double().abs().t()
+    assert ((term.double() - exact).abs() <= 2.0 ** -15 * scale).all()
+    term1 = _bwd_tile_path_emulated(g_t, h_t, wd_t, wu_t, act, plan, parts=1)[3]
+    assert ((term1.double() - exact).abs() > 2.0 ** -15 * scale).any()
 
 
 def test_attention_gradient_with_sinks_is_refused_and_serving_saves_nothing():
