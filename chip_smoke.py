@@ -36,7 +36,10 @@ run with a non-zero exit and no result line:
      torch.autograd through SDPA, the backward alone (a yardstick only), in a
      CUDA graph and eagerly, each beside the kernel's like time. Attention's
      forward runs at stablelm-3b's shape too (hd 80, bf16 and f32), and its
-     edge cases at hd 80 in MHA and with a GQA group of 8;
+     edge cases at hd 80 in MHA and with a GQA group of 8. The ring's shapes
+     (phase 3's ``phase_ring``: one microbatch of 1 x 512 tokens a launch)
+     are held too, in bf16: the adapter and its backward at h [512, 2560],
+     attention and its backward at [1, 512, 32, 80];
   3. qwen2.5-3b at its published width (36 layers, d_model 2048, vocab 152064
      padded), random weights from a seed with non-zero adapters, served by
      ``BatchServer`` (4 slots, 8 requests of 64-512 prompt tokens, 32 new tokens
@@ -65,7 +68,21 @@ run with a non-zero exit and no result line:
      6912, vocab 50304) trains the same way at its published width, after
      qwen2.5-3b is freed: depths 1, 2, 32, the same held checks at depths 1
      and 2 and the same counters (32, 32, d, d - 1), without the depth-36
-     witnesses;
+     witnesses. Then the RingAda ring (``phase_ring``) on fresh stablelm-3b
+     weights: four stages of 8 layers, ``RingTrainer`` for three rounds with
+     3, 2 and 0 frozen stages (depths 8, 16, 32), each owner's data 4
+     microbatches of 1 x 512 tokens, lr ``RING_LR``. Before each round,
+     owner 0's ring loss and gradients are held against the mean of the
+     single-device step's (``training.loss_and_grads``) over its 4
+     microbatches, each alone (the same shapes, so the same kernels), at
+     TRAIN_LOSS_RTOL and GRAD_RMS_RTOL,
+     and the frozen stages' gradients must be exact zeros; every owner
+     iteration must launch exactly L M of each forward kernel, (L - b) M of
+     ``adapter_fused_bwd`` and (L - b - 1) M of ``flash_attention_bwd`` (b
+     frozen layers), and record ``pipeline_tick_counts``' ticks; after each
+     round the frozen stages' adapters and moments are bit-identical and the
+     top adapter has moved. Each round's wall ms, each iteration's ms, the
+     round's peak and the ring round's forward-and-backward peak are printed;
   4. rwkv6-7b at its published width (32 layers, d_model 4096, 64 heads of 64,
      vocab 65536), random weights from the seed with non-zero adapters, served
      by ``BatchServer`` as in phase 3 (qwen2.5-3b is freed first); the counters
@@ -118,7 +135,10 @@ from torch.utils._pytree import tree_leaves, tree_map  # noqa: E402
 
 from repro_torch import device as dev_rule  # noqa: E402
 from repro_torch.configs import TrainConfig, get_config  # noqa: E402
+from repro_torch.core import pipeline as ring_pl  # noqa: E402
 from repro_torch.core import training  # noqa: E402
+from repro_torch.core.partition import frozen_stage_count  # noqa: E402
+from repro_torch.core.ring import RingTrainer  # noqa: E402
 from repro_torch.core.unfreeze import UnfreezeSchedule, boundary_schedule  # noqa: E402
 from repro_torch.data.pipeline import to_device  # noqa: E402
 from repro_torch.kernels import adapter_fused as af  # noqa: E402
@@ -127,7 +147,7 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.launch.kernel_times import cold_ms, cuda_ms, graph_ms  # noqa: E402
 from repro_torch.launch.serve import BatchServer, Request  # noqa: E402
-from repro_torch.launch.train import data_source  # noqa: E402
+from repro_torch.launch.train import RING_LR, data_source, ring_data_source  # noqa: E402
 from repro_torch.models import params as prm  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
@@ -194,6 +214,10 @@ DEEP_F32_RMS_RTOL = 1e-3
 # unfreeze depths 1, 2 and every layer, at interval 2; batches of 4 x 512
 TRAIN_INTERVAL, TRAIN_B, TRAIN_S = 2, 4, 512
 STABLELM_HEADS = (32, 32, 80)    # stablelm-3b's (query heads, KV heads, head_dim)
+# the ring: four stages, 4 microbatches of 1 x 512 tokens per owner (the
+# training phase's 4 x 512), the depth walking 8, 16, 32 (3, 2, 0 frozen
+# stages), at the ring's lr (launch/train.py's RING_LR).
+RING_S, RING_M, RING_DEPTHS = 4, 4, (8, 16, 32)
 SOURCES = {
     "adapter_fused": ("src/repro_torch/kernels/csrc/adapter_fused.cu",
                       "src/repro/kernels/adapter_fused.py:55"),
@@ -426,12 +450,12 @@ def rwkv_case(N, S, hd, gen, state=False, record=None, strong=False):
 
 
 def attention_case(S, window, dtype, gen, record=None, heads=(16, 2, 128), n_sink=0,
-                   rtol=None):
-    """Causal prefill attention of 4 rows; ``heads`` = (query heads, KV heads,
-    head_dim): qwen2.5-3b's by default, hymba-1.5b's (25, 5, 64) with sinks.
-    ``rtol`` (of each output, beside the absolute tolerance) defaults to 0.
-    Returns the kernel's ms."""
-    B, (H, K, hd) = 4, heads
+                   rtol=None, B=4):
+    """Causal prefill attention of B rows (4: a batch; 1: a ring microbatch);
+    ``heads`` = (query heads, KV heads, head_dim): qwen2.5-3b's by default,
+    hymba-1.5b's (25, 5, 64) with sinks. ``rtol`` (of each output, beside the
+    absolute tolerance) defaults to 0. Returns the kernel's ms."""
+    H, K, hd = heads
     q = torch.randn(B, S, H, hd, generator=gen, device="cuda").to(dtype)
     k = torch.randn(B, S, K, hd, generator=gen, device="cuda").to(dtype)
     v = torch.randn(B, S, K, hd, generator=gen, device="cuda").to(dtype)
@@ -649,12 +673,12 @@ def autograd_graph_ms(forward, inputs, grad_out, iters: int = 20, replays: int =
     return start.elapsed_time(end) / (iters * replays)
 
 
-def attention_bwd_case(S, window, dtype, gen, record=None, heads=(16, 2, 128)):
-    """The attention backward kernels on 4 rows of S tokens (causal) against
+def attention_bwd_case(S, window, dtype, gen, record=None, heads=(16, 2, 128), B=4):
+    """The attention backward kernels on B rows of S tokens (causal) against
     the plain backward on the same inputs (the kernel forward's o and lse);
     the library yardstick is torch.autograd through SDPA, the backward alone,
     timed in a CUDA graph as the kernel is and eagerly."""
-    B, (H, K, hd) = 4, heads
+    H, K, hd = heads
     rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(dtype)
     q, k, v, dout = rnd(B, S, H, hd), rnd(B, S, K, hd), rnd(B, S, K, hd), rnd(B, S, H, hd)
     out, lse = fa.flash_attention(q, k, v, window=window, lse=True)
@@ -734,6 +758,12 @@ def phase_kernels(records) -> None:
     # stablelm-3b's adapter at its width (training: h [4 x 512, 2560])
     adapter_case(2048, bf16, "gelu", gen,
                  records["adapter_fused"].setdefault("stablelm_D2560", {}), D=2560)
+    # the ring's (phase_ring): one microbatch of 1 x 512 tokens a launch
+    adapter_case(512, bf16, "gelu", gen,
+                 records["adapter_fused"].setdefault("stablelm_ring_T512", {}), D=2560)
+    attention_case(512, None, bf16, gen,
+                   records["flash_attention"].setdefault("stablelm_ring_B1", {}),
+                   heads=STABLELM_HEADS, B=1)
     # rwkv6-7b's width: the f32 h tile does not fit in shared memory
     for T in (4, 2048):
         for dtype in (bf16, f32):
@@ -789,12 +819,17 @@ def phase_kernels(records) -> None:
     for act in ("relu", "silu"):
         adapter_bwd_case(300, 1000, bf16, gen, act=act)
     adapter_bwd_case(2047, 2560, bf16, gen)                      # a ragged last tile
+    adapter_bwd_case(512, 2560, bf16, gen,                       # the ring's microbatch
+                     records["adapter_fused_bwd"].setdefault("stablelm_ring_T512", {}))
     attention_bwd_case(512, None, bf16, gen, records["flash_attention_bwd"])
     attention_bwd_case(512, None, f32, gen)
     rec = records["flash_attention_bwd"].setdefault("stablelm_hd80", {})
     for dtype in (bf16, f32):
         attention_bwd_case(512, None, dtype, gen, rec.setdefault(str(dtype)[6:], {}),
                            heads=STABLELM_HEADS)
+    attention_bwd_case(512, None, bf16, gen,                     # the ring's microbatch
+                       records["flash_attention_bwd"].setdefault("stablelm_ring_B1", {}),
+                       heads=STABLELM_HEADS, B=1)
     attention_bwd_case(512, 128, bf16, gen, heads=(16, 2, 64))
     attention_bwd_case(300, 128, f32, gen, heads=(25, 5, 64))
     attention_bwd_case(331, 96, bf16, gen, heads=(16, 2, 80))
@@ -1138,6 +1173,121 @@ def phase_train_only(arch: str, records) -> None:
     phase_train(arch, params, records)
 
 
+def _ring_check(cfg, trainer, tokens, labels, boundary) -> float:
+    """Owner 0's ring loss and gradients at ``boundary``, before the round's
+    updates, against the mean over its microbatches of the single-device
+    step's on each microbatch alone (kernel path both). Returns the ring
+    round's forward-and-backward peak GiB."""
+    M, F = trainer.M, frozen_stage_count(trainer.spans, boundary)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss, (g_ad, g_hd) = trainer.round_fn(0, boundary)(trainer.stage_blocks, trainer.shared,
+                                                      tokens, labels)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    params = trainer.export_params()
+    ref_loss, ref = 0.0, None
+    for m in range(M):
+        lm, _, gm = training.loss_and_grads(params, {"tokens": tokens[0, m],
+                                                     "labels": labels[0, m]}, cfg, boundary)
+        ref_loss += lm.item() / M
+        gm = tree_map(lambda t: t.float() / M, gm)
+        ref = gm if ref is None else tree_map(torch.add, ref, gm)
+    rms = lambda x: x.float().square().mean().sqrt().item()
+    hot = [a for stage in g_ad[F:] for a in stage]
+    leaves = {"head": (g_hd["w"], ref["head"]["w"])}
+    n_frozen = boundary * cfg.layers_per_repeat
+    for i, (a, b) in enumerate(zip(hot, ref["adapters"])):
+        for name in ("w_down", "w_up"):
+            leaves[f"L{n_frozen + i}.{name}"] = (a[name], b[name])
+    gaps = {name: rms(a.float() - b) / rms(b) for name, (a, b) in leaves.items()}
+    loss_gap = abs(loss.item() - ref_loss) / abs(ref_loss)
+    frozen_zero = all(not t.any() for stage in g_ad[:F] for a in stage for t in a.values())
+    worst = max(gaps, key=gaps.get)
+    say("ring_vs_step", boundary=boundary, frozen_stages=F, owner=0,
+        loss_ring=f"{loss.item():.6f}", loss_steps=f"{ref_loss:.6f}",
+        loss_rel_gap=f"{loss_gap:.3g}", loss_rtol=TRAIN_LOSS_RTOL, worst_leaf=worst,
+        worst_gap=f"{gaps[worst]:.3g}", grad_rms_rtol=GRAD_RMS_RTOL,
+        frozen_grads_zero=frozen_zero, fwd_bwd_peak_gib=f"{peak:.3f}",
+        grad_rms_gaps=json.dumps({k: float(f"{v:.3g}") for k, v in gaps.items()}).replace(" ", ""))
+    if not (math.isfinite(loss.item()) and loss_gap <= TRAIN_LOSS_RTOL):
+        raise AssertionError(f"ring loss {loss.item()} against the steps' {ref_loss}")
+    bad = {k: v for k, v in gaps.items() if not v <= GRAD_RMS_RTOL}
+    if bad or len(hot) != len(ref["adapters"]) or not frozen_zero:
+        raise AssertionError(f"ring gradients differ from the single-device step's: {bad}, "
+                             f"{len(hot)} hot layers, frozen stages zero: {frozen_zero}")
+    return peak
+
+
+def phase_ring(arch: str, records) -> None:
+    """Three rounds of the RingAda ring (``RingTrainer``) at full width, four
+    stages of the model on the card, with the checks of the module docstring."""
+    cfg = served_config(arch)
+    tc = TrainConfig(learning_rate=RING_LR, batch_size=1, seq_len=TRAIN_S,
+                     n_microbatches=RING_M, n_stages=RING_S, seed=SEED)
+    t0 = time.perf_counter()
+    params = prm.materialize(cfg, seed=SEED, device="cuda")
+    trainer = RingTrainer(cfg, tc, params, RING_S, RING_M,
+                          schedule=UnfreezeSchedule(depths=RING_DEPTHS, interval=RING_S))
+    del params
+    data = ring_data_source(cfg, tc, RING_S)
+    torch.cuda.synchronize()
+    say("ring_setup", arch=cfg.name, stages=RING_S, layers_per_stage=trainer.lps,
+        microbatches=RING_M, microbatch=f"1x{TRAIN_S}", depths=list(RING_DEPTHS), lr=RING_LR,
+        seconds=f"{time.perf_counter() - t0:.2f}",
+        gib_on_card=f"{torch.cuda.memory_allocated() / 2**30:.2f}")
+    L = cfg.n_layers
+    launches = {name: 0 for name in ops.LAUNCHES}
+    for r in range(len(RING_DEPTHS)):
+        tokens, labels = trainer.to_device(*data.next())
+        boundary = trainer.boundary_at(trainer.step)
+        F = frozen_stage_count(trainer.spans, boundary)
+        b = boundary * cfg.layers_per_repeat
+        fwd_bwd_peak = _ring_check(cfg, trainer, tokens, labels, boundary)
+        clone = lambda tree: [[{k: t.clone() for k, t in a.items()} for a in stage]
+                              for stage in tree[:F]]
+        frozen = (clone(trainer.stage_adapters()), clone(trainer.m_ad), clone(trainer.v_ad))
+        top = {k: t.clone() for k, t in trainer.stage_adapters()[-1][-1].items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rec = trainer.round(tokens, labels)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want = {"adapter_fused": L * RING_M, "flash_attention": L * RING_M,
+                "adapter_fused_bwd": (L - b) * RING_M,
+                "flash_attention_bwd": (L - b - 1) * RING_M, "mamba_scan": 0, "rwkv_scan": 0}
+        ticks = ring_pl.pipeline_tick_counts(RING_S, RING_M, boundary, trainer.lps)
+        first = rec["iterations"][0]
+        say("ring_round", round=r, boundary=boundary, depth=L - b, frozen_stages=F,
+            loss=f"{rec['loss']:.5f}", round_ms=f"{wall:.2f}",
+            iteration_ms=json.dumps([round(it["ms"], 2) for it in rec["iterations"]]),
+            step_peak_gib=f"{peak:.3f}", fwd_bwd_peak_gib=f"{fwd_bwd_peak:.3f}",
+            fwd_ticks=first["fwd_ticks"], bwd_ticks=first["bwd_ticks"],
+            launches=json.dumps(first["launches"]).replace(" ", ""),
+            card=repr(CARD))
+        for it in rec["iterations"]:
+            if it["launches"] != want:
+                raise AssertionError(f"round {r} owner {it['owner']}: launch counters "
+                                     f"{it['launches']} != expected {want}")
+            if (it["fwd_ticks"], it["bwd_ticks"]) != (ticks["fwd_ticks"], ticks["bwd_ticks"]):
+                raise AssertionError(f"round {r} owner {it['owner']}: ticks "
+                                     f"{it['fwd_ticks']}, {it['bwd_ticks']} != {ticks}")
+            if it["boundary"] != boundary or not math.isfinite(it["loss"]):
+                raise AssertionError(f"round {r} owner {it['owner']}: {it}")
+            for name, n in it["launches"].items():
+                launches[name] += n
+        now = (trainer.stage_adapters()[:F], trainer.m_ad[:F], trainer.v_ad[:F])
+        for was, tree in zip(frozen, now):
+            if not all(torch.equal(a[k], b_[k]) for s0, s1 in zip(was, tree)
+                       for a, b_ in zip(s0, s1) for k in a):
+                raise AssertionError(f"round {r}: a frozen stage moved")
+        if all(torch.equal(trainer.stage_adapters()[-1][-1][k], t) for k, t in top.items()):
+            raise AssertionError(f"round {r}: the top adapter did not move")
+    count_launches(records, f"{cfg.name}_ring", launches)
+
+
 def freed() -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -1163,6 +1313,8 @@ def main() -> None:
     del params
     freed()                                             # qwen2.5-3b before stablelm-3b
     phase_train_only("stablelm-3b", records)
+    freed()                                             # fresh weights for the ring
+    phase_ring("stablelm-3b", records)
     freed()                                             # stablelm-3b before rwkv6-7b
     phase_serve("rwkv6-7b", records, cpu_witness=False)
     freed()                                             # rwkv6-7b before hymba-1.5b

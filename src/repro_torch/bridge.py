@@ -10,6 +10,11 @@ through a 16-bit integer view, as the reference's checkpoints store it, so
 this module needs no JAX and no ``ml_dtypes`` import: on the way back a bf16
 leaf comes out as that view, or as the numpy dtype the caller passes
 (``bf16=jnp.bfloat16``).
+
+The ring's state (``RingTrainer``: the adapters and their moments in the
+stage layout, the head and its moments) crosses the same way; the
+reference's ``[S, lps, C, ...]`` stage stack is made here from the flat
+``[R, C, ...]`` one (``core/pipeline.stack_entry``).
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from torch.utils._pytree import tree_map
 
 from repro_torch import device as dev_rule
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import pipeline as pl
 
 
 def to_tensor(arr: Any, device=None) -> torch.Tensor:
@@ -154,3 +160,63 @@ def opt_state_to_jax(opt_state: Dict[str, Any], cfg: ModelConfig) -> Dict[str, A
     out = {k: {"adapters": _stack_entries(opt_state[k]["adapters"], cfg, None),
                "head": tree_map(to_numpy, opt_state[k]["head"])} for k in ("m", "v")}
     return {**out, "count": to_numpy(opt_state["count"])}
+
+
+# ---------------------------------------------------------------- the ring's state
+
+
+def _stage_layout(layers: List[Any], spans) -> List[List[Any]]:
+    """One tree per layer -> a list per stage (uniform spans, one layer a repeat
+    entry position)."""
+    per = len(layers) // spans[-1][1]
+    return [layers[b * per:e * per] for b, e in spans]
+
+
+def stage_adapters_to_jax(stage_tree: List[List[Any]], cfg: ModelConfig, spans,
+                          bf16=None) -> Dict[str, np.ndarray]:
+    """A tree in the port's stage layout (a list per stage of one dict per
+    layer: adapters or their moments) -> the reference's ``[S, lps, C, ...]``
+    numpy stage stack (``RingTrainer.stage_blocks["adapter"]``, ``m_ad``, ``v_ad``)."""
+    flat = [layer for stage in stage_tree for layer in stage]
+    (entry,) = _stack_entries(flat, cfg, bf16)
+    return pl.stack_entry(entry, spans)
+
+
+def stage_adapters_from_jax(stacked: Dict[str, Any], cfg: ModelConfig, spans,
+                            device=None) -> List[List[Dict[str, torch.Tensor]]]:
+    """Inverse of :func:`stage_adapters_to_jax`, onto ``device`` (default cuda)."""
+    device = dev_rule.resolve(device)
+    entry = pl.unstack_entry(stacked, spans)
+    layers = _unstack_entries((entry,), cfg, lambda x: to_tensor(x, device))
+    return _stage_layout(layers, spans)
+
+
+def ring_state_to_jax(trainer, bf16=None) -> Dict[str, Any]:
+    """A port ``RingTrainer``'s optimizer-facing state in the reference
+    ``RingTrainer``'s layout: ``adapter`` (its ``stage_blocks["adapter"]``),
+    ``m_ad``, ``v_ad`` ([S, lps, C, ...] numpy) and ``head``, ``m_hd``,
+    ``v_hd`` (the head's trees)."""
+    cfg, spans = trainer.cfg, trainer.spans
+    out = {"adapter": stage_adapters_to_jax(trainer.stage_adapters(), cfg, spans, bf16),
+           "m_ad": stage_adapters_to_jax(trainer.m_ad, cfg, spans),
+           "v_ad": stage_adapters_to_jax(trainer.v_ad, cfg, spans)}
+    out["head"] = tree_map(lambda t: to_numpy(t, bf16), trainer.shared["head"])
+    out["m_hd"] = tree_map(to_numpy, trainer.m_hd)
+    out["v_hd"] = tree_map(to_numpy, trainer.v_hd)
+    return out
+
+
+def ring_state_from_jax(state: Dict[str, Any], trainer, device=None) -> None:
+    """Install the reference ``RingTrainer``'s state (:func:`ring_state_to_jax`'s
+    keys, numpy leaves) into a port ``RingTrainer``, exactly."""
+    device = dev_rule.resolve(device)
+    cfg, spans = trainer.cfg, trainer.spans
+    ads = stage_adapters_from_jax(state["adapter"], cfg, spans, device)
+    trainer.stage_blocks = [[{**layer, "adapter": a} for layer, a in zip(stage, stage_ads)]
+                            for stage, stage_ads in zip(trainer.stage_blocks, ads)]
+    trainer.m_ad = stage_adapters_from_jax(state["m_ad"], cfg, spans, device)
+    trainer.v_ad = stage_adapters_from_jax(state["v_ad"], cfg, spans, device)
+    conv = lambda x: to_tensor(x, device)
+    trainer.shared = {**trainer.shared, "head": tree_map(conv, state["head"])}
+    trainer.m_hd = tree_map(conv, state["m_hd"])
+    trainer.v_hd = tree_map(conv, state["v_hd"])

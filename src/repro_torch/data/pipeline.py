@@ -8,11 +8,15 @@ moves one onto a device as int64 tensors.
 
 Task flavours: ``lm`` (next-token prediction, labels = tokens shifted by 1)
 and ``qa`` (a marked answer span; labels = (start, end)).
+
+``Batcher`` draws flat batches for the single-device step; ``RingBatcher``
+draws every client's ``[M, mb, seq]`` microbatches for a ring round, from
+its own data only.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -89,6 +93,26 @@ class Batcher:
             out["starts"] = lab[:, 0]
             out["ends"] = lab[:, 1]
         return out
+
+
+class RingBatcher:
+    """``[S, M, mb, seq]`` numpy batches for ring rounds: client u's M
+    microbatches of ``mb`` rows, drawn afresh from its dataset at every
+    :meth:`next` (the reference's streaming mode; its epoch-stable batch
+    slots come with the activation cache, ROADMAP.md Queue 1, item 5)."""
+
+    def __init__(self, datasets: List[ClientDataset], n_micro: int, micro_batch: int,
+                 seed: int = 0):
+        self.ds = datasets
+        self.M, self.mb = n_micro, micro_batch
+        self.rng = np.random.default_rng(seed)
+
+    def next(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(tokens, labels), each [S, M, mb, seq] int32."""
+        idx = [self.rng.integers(0, len(d), size=self.M * self.mb) for d in self.ds]
+        toks = [d.tokens[i].reshape(self.M, self.mb, -1) for d, i in zip(self.ds, idx)]
+        labs = [d.labels[i].reshape(self.M, self.mb, -1) for d, i in zip(self.ds, idx)]
+        return np.stack(toks), np.stack(labs)
 
 
 def merged(datasets: List[ClientDataset]) -> ClientDataset:

@@ -12,7 +12,18 @@ device time summed over kernels, the device's idle share of the unprofiled
 wall time, the kernels that took the most device time and the port's own
 kernels (forward and backward).
 
+``--mode ring`` traces the RingAda ring round instead: ``--stages`` stages of
+the model on the card (4 by default), ``RingTrainer`` with each owner's data
+``--microbatches`` microbatches of 1 x ``--seq-len`` tokens (4 x 512 by
+default: one owner iteration sees one single-device step's tokens). For each
+depth (default: one, two and every stage's layers) it runs one round to warm
+up, one unprofiled round (wall time) and one traced round, on the same
+batch; it prints the memory resident before, the round's peak and the peak
+of one owner iteration's ring forward and backward alone, the kernel
+launches per owner iteration, then the traced round as above.
+
     PYTHONPATH=src python -m repro_torch.launch.trace_train [--arch stablelm-3b] [--depths 1 32]
+    PYTHONPATH=src python -m repro_torch.launch.trace_train --mode ring --arch stablelm-3b
 
 It needs a CUDA card: the numbers are device metrics.
 """
@@ -20,25 +31,61 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 
 import torch
 
 from repro_torch import device as dev_rule
 from repro_torch.configs import TrainConfig, get_config
 from repro_torch.core import training
-from repro_torch.core.unfreeze import depth_to_boundary
+from repro_torch.core.ring import RingTrainer
+from repro_torch.core.unfreeze import UnfreezeSchedule, depth_to_boundary
 from repro_torch.data.pipeline import to_device
 from repro_torch.launch.trace_serve import traced, wall_ms
-from repro_torch.launch.train import data_source
+from repro_torch.launch.train import RING_LR, data_source, ring_data_source
 from repro_torch.models import params as prm
 from repro_torch.optim import adamw
 
 SEED = 0
 
 
+def trace_ring(cfg, args, device) -> None:
+    S, M = args.stages, args.microbatches
+    tc = TrainConfig(learning_rate=RING_LR, batch_size=1, seq_len=args.seq_len, n_microbatches=M,
+                     n_stages=S, seed=SEED)
+    lps = cfg.n_layers // S
+    depths = tuple(args.depths or (lps, 2 * lps, cfg.n_layers))
+    trainer = RingTrainer(cfg, tc, prm.materialize(cfg, seed=SEED, device=device), S, M)
+    tokens, labels = trainer.to_device(*ring_data_source(cfg, tc, S).next())
+    run = lambda: trainer.round(tokens, labels)
+    for depth in depths:
+        trainer.sched = UnfreezeSchedule(depths=(depth,), interval=S)
+        boundary = trainer.boundary_at(trainer.step)
+        launches = run()["iterations"][0]["launches"]       # warm-up: kernel build, cuBLAS
+        resident = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        unprofiled = wall_ms(run, device)
+        peak = torch.cuda.max_memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        trainer.round_fn(0, boundary)(trainer.stage_blocks, trainer.shared, tokens, labels)
+        fwd_bwd = torch.cuda.max_memory_allocated(device)
+        print(f"[trace] arch={cfg.name} ring stages={S} microbatches={M}x1x{args.seq_len} "
+              f"depth={depth} boundary={boundary} "
+              f"resident_gib={resident / 2**30:.3f} round_peak_gib={peak / 2**30:.3f} "
+              f"fwd_bwd_peak_gib={fwd_bwd / 2**30:.3f} "
+              f"launches_per_iteration={json.dumps(launches).replace(' ', '')} "
+              f"device={torch.cuda.get_device_name(device)}")
+        traced(run, device, f"ring depth {depth}", unprofiled)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2.5-3b", help="a dense port architecture")
+    ap.add_argument("--mode", choices=["pjit", "ring"], default="pjit",
+                    help="pjit: the single-device step; ring: the ring round")
+    ap.add_argument("--stages", type=int, default=4, help="ring mode: ring stages")
+    ap.add_argument("--microbatches", type=int, default=4,
+                    help="ring mode: microbatches of 1 x seq-len per owner")
     ap.add_argument("--depths", type=int, nargs="+", default=None,
                     help="unfreeze depths (default: 1 and every layer)")
     ap.add_argument("--batch-size", type=int, default=4)
@@ -47,6 +94,9 @@ def main(argv=None) -> None:
     device = dev_rule.resolve("cuda")
     cfg = get_config(args.arch)
     cfg = dataclasses.replace(cfg, adapter=dataclasses.replace(cfg.adapter, zero_init_up=False))
+    if args.mode == "ring":
+        trace_ring(cfg, args, device)
+        return
     tc = TrainConfig(batch_size=args.batch_size, seq_len=args.seq_len, seed=SEED)
     params = prm.materialize(cfg, seed=SEED, device=device)
     opt_state = adamw.init(training.full_trainable(params, cfg))
