@@ -82,7 +82,26 @@ run with a non-zero exit and no result line:
      frozen layers), and record ``pipeline_tick_counts``' ticks; after each
      round the frozen stages' adapters and moments are bit-identical and the
      top adapter has moved. Each round's wall ms, each iteration's ms, the
-     round's peak and the ring round's forward-and-backward peak are printed;
+     round's peak and the ring round's forward-and-backward peak are printed.
+     From the same weights and batches ``RingExecutor`` (the fused round, its
+     own adapters, head and moments, the frozen backbone shared) runs each
+     round from the trainer's state before it, through one CUDA graph per
+     boundary (warm-up on a copy of the state, capture, replay), built on
+     other tokens (the round's reversed) and undone, so the checked round is
+     a replay on new tokens: each owner's loss is held to the trainer's at
+     TRAIN_LOSS_RTOL, each hot adapter leaf's and the head's update (after -
+     before) by RMS gap at GRAD_RMS_RTOL, and then the losses, the hot
+     adapters, the head and their moments must equal the trainer's bit for
+     bit (the same kernels on the same shapes); the frozen stages
+     bit-identical, the launches the capture recorded (the graph's, which
+     each replay launches and which the kernels line counts) at S times an
+     iteration's, the build's eager warm-up and capture counting them twice
+     and the replay not at all, the tick ledger at
+     ``pipeline_tick_counts(packed=True)``; three more replays of the round
+     from the same state are timed (host wall and CUDA events) and undone,
+     and the capture seconds and the build's peak are printed. Then the
+     heterogeneous ring of ``--device-speeds 1.0,1.25,0.5,0.75`` (spans of 9,
+     12, 4 and 7 layers) the same way, for two rounds at depths 7 and 11;
   4. rwkv6-7b at its published width (32 layers, d_model 4096, 64 heads of 64,
      vocab 65536), random weights from the seed with non-zero adapters, served
      by ``BatchServer`` as in phase 3 (qwen2.5-3b is freed first); the counters
@@ -137,7 +156,9 @@ from repro_torch import device as dev_rule  # noqa: E402
 from repro_torch.configs import TrainConfig, get_config  # noqa: E402
 from repro_torch.core import pipeline as ring_pl  # noqa: E402
 from repro_torch.core import training  # noqa: E402
-from repro_torch.core.partition import frozen_stage_count  # noqa: E402
+from repro_torch.core.executor import RingExecutor  # noqa: E402
+from repro_torch.core.partition import (frozen_stage_count, parse_device_profiles,  # noqa: E402
+                                        spans_from_profiles)
 from repro_torch.core.ring import RingTrainer  # noqa: E402
 from repro_torch.core.unfreeze import UnfreezeSchedule, boundary_schedule  # noqa: E402
 from repro_torch.data.pipeline import to_device  # noqa: E402
@@ -218,6 +239,10 @@ STABLELM_HEADS = (32, 32, 80)    # stablelm-3b's (query heads, KV heads, head_di
 # training phase's 4 x 512), the depth walking 8, 16, 32 (3, 2, 0 frozen
 # stages), at the ring's lr (launch/train.py's RING_LR).
 RING_S, RING_M, RING_DEPTHS = 4, 4, (8, 16, 32)
+# the heterogeneous ring: the CLI's --device-speeds 1.0,1.25,0.5,0.75, which at
+# 32 layers gives spans of 9, 12, 4 and 7, at depths 7 and 11 (3 and 2 frozen
+# stages, both on the packed conveyor)
+RING_SPEEDS, HETERO_DEPTHS = (1.0, 1.25, 0.5, 0.75), (7, 11)
 SOURCES = {
     "adapter_fused": ("src/repro_torch/kernels/csrc/adapter_fused.cu",
                       "src/repro/kernels/adapter_fused.py:55"),
@@ -1219,31 +1244,184 @@ def _ring_check(cfg, trainer, tokens, labels, boundary) -> float:
     return peak
 
 
-def phase_ring(arch: str, records) -> None:
-    """Three rounds of the RingAda ring (``RingTrainer``) at full width, four
-    stages of the model on the card, with the checks of the module docstring."""
-    cfg = served_config(arch)
-    tc = TrainConfig(learning_rate=RING_LR, batch_size=1, seq_len=TRAIN_S,
-                     n_microbatches=RING_M, n_stages=RING_S, seed=SEED)
-    t0 = time.perf_counter()
-    params = prm.materialize(cfg, seed=SEED, device="cuda")
-    trainer = RingTrainer(cfg, tc, params, RING_S, RING_M,
-                          schedule=UnfreezeSchedule(depths=RING_DEPTHS, interval=RING_S))
-    del params
-    data = ring_data_source(cfg, tc, RING_S)
+def _seed_executor(ex, trainer) -> None:
+    """Copy the trainer's trainable state into the executor's own tensors (in
+    place: the executor's graphs read and write them)."""
+    for name, mine, theirs in (("adapter", ex.stage_adapters(), trainer.stage_adapters()),
+                               ("m", ex.opt_state["m"]["adapter"], trainer.m_ad),
+                               ("v", ex.opt_state["v"]["adapter"], trainer.v_ad)):
+        for s0, s1 in zip(mine, theirs, strict=True):
+            for a, b in zip(s0, s1, strict=True):
+                for k in a:
+                    a[k].copy_(b[k])
+    for mine, theirs in ((ex.shared["head"], trainer.shared["head"]),
+                         (ex.opt_state["m"]["head"], trainer.m_hd),
+                         (ex.opt_state["v"]["head"], trainer.v_hd)):
+        for k in mine:
+            mine[k].copy_(theirs[k])
+    ex.opt_state["count"].fill_(trainer.step)
+    ex.step = trainer.step
+
+
+def _hot_leaves(ring, F: int):
+    """The hot stages' adapter leaves and the head, by name."""
+    stages = ring.stage_adapters()
+    n_frozen = sum(len(stage) for stage in stages[:F])
+    layers = [a for stage in stages for a in stage]
+    return {**{f"L{i}.{k}": t for i, a in enumerate(layers) if i >= n_frozen
+               for k, t in a.items()}, "head": ring.shared["head"]["w"]}
+
+
+def _trainable_state(ring, F: int):
+    """The hot stages' adapters and their moments, the head and its moments,
+    by name, of a ``RingTrainer`` or a ``RingExecutor``."""
+    if isinstance(ring, RingExecutor):
+        m, v = ring.opt_state["m"], ring.opt_state["v"]
+        trees = {"adapter": ring.stage_adapters(), "m": m["adapter"], "v": v["adapter"]}
+        heads = {"head": ring.shared["head"], "m_head": m["head"], "v_head": v["head"]}
+    else:
+        trees = {"adapter": ring.stage_adapters(), "m": ring.m_ad, "v": ring.v_ad}
+        heads = {"head": ring.shared["head"], "m_head": ring.m_hd, "v_head": ring.v_hd}
+    out = {f"{name}.{k}": t for name, tree in heads.items() for k, t in tree.items()}
+    for name, tree in trees.items():
+        layers = [a for stage in tree[F:] for a in stage]
+        out.update({f"{name}.hot{i}.{k}": t for i, a in enumerate(layers) for k, t in a.items()})
+    return out
+
+
+def _fused_round(cfg, ex, trainer, tokens, labels, boundary, rec, before, want) -> dict:
+    """One round of the executor from the trainer's state before its round
+    (``before``: the hot leaves then), held to the trainer's round ``rec``.
+    The boundary's graph is built (warm-up, capture) on other tokens (the
+    owners and microbatches reversed), the state put back, and the checked
+    round is a replay on the round's own tokens: each owner's loss within
+    TRAIN_LOSS_RTOL and each hot leaf's update by RMS gap within
+    GRAD_RMS_RTOL (printed), then the losses and every hot adapter, the head
+    and their moments equal to the trainer's (the same kernels on the same
+    shapes), the frozen stages bit-identical, the kernel launches the
+    capture recorded S times an iteration's ``want``, the tick ledger the
+    packed one. Then three replays of the same round from the same state,
+    timed (host wall and CUDA events), and the state put back. Returns the
+    launches of the round: those the graph holds, which each replay
+    launches (the build's eager warm-up and its capture each count them once
+    more, and are held to that)."""
+    S, F = ex.S, frozen_stage_count(ex.spans, boundary)
+    frozen = [[{k: t.clone() for k, t in a.items()} for a in stage]
+              for tree in (ex.stage_adapters(), ex.opt_state["m"]["adapter"],
+                           ex.opt_state["v"]["adapter"]) for stage in tree[:F]]
+    start_step = ex.step
+    start = [t.clone() for t in ex.trainable_tensors()]
+    other = (tokens.flip(0, 1).contiguous(), labels.flip(0, 1).contiguous())
+    ops.reset_launches()
     torch.cuda.synchronize()
-    say("ring_setup", arch=cfg.name, stages=RING_S, layers_per_stage=trainer.lps,
-        microbatches=RING_M, microbatch=f"1x{TRAIN_S}", depths=list(RING_DEPTHS), lr=RING_LR,
-        seconds=f"{time.perf_counter() - t0:.2f}",
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ex.round(*other)                                    # warm-up, capture, replay
+    torch.cuda.synchronize()
+    build_ms = 1e3 * (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    build_launches = dict(ops.LAUNCHES)
+    captured = ex.capture_launches[boundary]
+    for t, was in zip(ex.trainable_tensors(), start):
+        t.copy_(was)
+    ex.step = start_step
+    del start
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = ex.round(tokens, labels)                      # the checked round: a replay
+    torch.cuda.synchronize()
+    replay_ms = 1e3 * (time.perf_counter() - t0)
+    replay_counted = dict(ops.LAUNCHES)
+    losses = out["losses"].tolist()
+    want_losses = [it["loss"] for it in rec["iterations"]]
+    loss_gaps = [abs(a - b) / abs(b) for a, b in zip(losses, want_losses, strict=True)]
+    rms = lambda x: x.float().square().mean().sqrt().item()
+    mine, theirs = _hot_leaves(ex, F), _hot_leaves(trainer, F)
+    gaps = {name: rms((mine[name].float() - before[name]) - (theirs[name].float() - before[name]))
+            / rms(theirs[name].float() - before[name]) for name in before}
+    state, oracle = _trainable_state(ex, F), _trainable_state(trainer, F)
+    unequal = sorted(k for k in oracle if not torch.equal(state[k], oracle[k]))
+    now = [stage for tree in (ex.stage_adapters(), ex.opt_state["m"]["adapter"],
+                              ex.opt_state["v"]["adapter"]) for stage in tree[:F]]
+    frozen_same = all(torch.equal(a[k], b[k]) for s0, s1 in zip(frozen, now)
+                      for a, b in zip(s0, s1) for k in a)
+    ledger = ex.measured_tick_ledger(boundary)
+    ticks = ring_pl.pipeline_tick_counts(S, ex.M, boundary, spans=ex.spans, packed=True)
+    snapshot = [t.clone() for t in ex.trainable_tensors()]
+    walls, devices = [], []
+    for _ in range(3):
+        ex.step = start_step
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e0.record()
+        ex.round(tokens, labels)
+        e1.record()
+        torch.cuda.synchronize()
+        walls.append(round(1e3 * (time.perf_counter() - t0), 2))
+        devices.append(round(e0.elapsed_time(e1), 2))
+    for t, was in zip(ex.trainable_tensors(), snapshot):
+        t.copy_(was)
+    ex.step = start_step + S
+    worst = max(gaps, key=gaps.get)
+    say("ring_fused_round", spans=json.dumps([list(sp) for sp in ex.spans]).replace(" ", ""),
+        boundary=boundary, frozen_stages=F, losses=json.dumps([round(x, 5) for x in losses]),
+        worst_loss_gap=f"{max(loss_gaps):.3g}", loss_rtol=TRAIN_LOSS_RTOL, worst_leaf=worst,
+        worst_update_gap=f"{gaps[worst]:.3g}", grad_rms_rtol=GRAD_RMS_RTOL,
+        state_equal=not unequal and losses == want_losses, frozen_same=frozen_same,
+        capture_s=f"{ex.capture_seconds[boundary]:.2f}", build_round_ms=f"{build_ms:.1f}",
+        checked_replay_ms=f"{replay_ms:.1f}", replay_wall_ms=json.dumps(walls),
+        replay_device_ms=json.dumps(devices), build_peak_gib=f"{peak:.3f}",
+        reserved_gib=f"{torch.cuda.memory_reserved() / 2**30:.3f}",
+        phase_a_ticks=ledger["phase_a_round_ticks"],
+        launches_in_graph=json.dumps(captured).replace(" ", ""),
+        compile_counts=json.dumps(ex.compile_counts()).replace(" ", ""), card=repr(CARD))
+    if not all(math.isfinite(x) and g <= TRAIN_LOSS_RTOL for x, g in zip(losses, loss_gaps)):
+        raise AssertionError(f"fused losses {losses} against the RingTrainer's {want_losses}")
+    bad = {k: v for k, v in gaps.items() if not v <= GRAD_RMS_RTOL}
+    if bad or not frozen_same:
+        raise AssertionError(f"fused updates differ from the RingTrainer's: {bad}; frozen "
+                             f"stages unchanged: {frozen_same}")
+    if losses != want_losses or unequal:
+        raise AssertionError(f"the fused round is not the RingTrainer's bit for bit: losses "
+                             f"{losses} against {want_losses}; unequal {unequal[:8]} "
+                             f"({len(unequal)} of {len(oracle)})")
+    if captured != {k: S * n for k, n in want.items()}:
+        raise AssertionError(f"launches at capture {captured} != {S} x {want}")
+    if build_launches != {k: 2 * n for k, n in captured.items()} or any(replay_counted.values()):
+        raise AssertionError(f"the build counted {build_launches} (warm-up and capture: twice "
+                             f"{captured}), the replay {replay_counted} (none)")
+    if ledger != ticks or ex.compile_counts().get(f"{boundary}/direct") != 1:
+        raise AssertionError(f"ledger {ledger} != {ticks}, builds {ex.compile_counts()}")
+    return captured
+
+
+def _ring_walk(cfg, tc, params, records, depths, spans, label: str) -> None:
+    """``RingTrainer`` and ``RingExecutor`` over the same rounds of one ring,
+    from the same weights: each round the trainer's is held to the
+    single-device step and the executor's (seeded with the trainer's state
+    before the round) to the trainer's, with the checks of the module
+    docstring."""
+    sched = UnfreezeSchedule(depths=depths, interval=RING_S)
+    trainer = RingTrainer(cfg, tc, params, RING_S, RING_M, schedule=sched, spans=spans)
+    ex = RingExecutor(cfg, tc, params, RING_S, RING_M, schedule=sched, spans=spans)
+    data = ring_data_source(cfg, tc, RING_S)
+    say("ring_setup", arch=cfg.name, ring=label, stages=RING_S,
+        spans=json.dumps([list(sp) for sp in trainer.spans]).replace(" ", ""),
+        microbatches=RING_M, microbatch=f"1x{TRAIN_S}", depths=list(depths), lr=RING_LR,
         gib_on_card=f"{torch.cuda.memory_allocated() / 2**30:.2f}")
     L = cfg.n_layers
     launches = {name: 0 for name in ops.LAUNCHES}
-    for r in range(len(RING_DEPTHS)):
+    fused_launches = {name: 0 for name in ops.LAUNCHES}
+    for r in range(len(depths)):
         tokens, labels = trainer.to_device(*data.next())
         boundary = trainer.boundary_at(trainer.step)
         F = frozen_stage_count(trainer.spans, boundary)
         b = boundary * cfg.layers_per_repeat
         fwd_bwd_peak = _ring_check(cfg, trainer, tokens, labels, boundary)
+        _seed_executor(ex, trainer)
+        before = {k: t.float().clone() for k, t in _hot_leaves(trainer, F).items()}
         clone = lambda tree: [[{k: t.clone() for k, t in a.items()} for a in stage]
                               for stage in tree[:F]]
         frozen = (clone(trainer.stage_adapters()), clone(trainer.m_ad), clone(trainer.v_ad))
@@ -1258,9 +1436,9 @@ def phase_ring(arch: str, records) -> None:
         want = {"adapter_fused": L * RING_M, "flash_attention": L * RING_M,
                 "adapter_fused_bwd": (L - b) * RING_M,
                 "flash_attention_bwd": (L - b - 1) * RING_M, "mamba_scan": 0, "rwkv_scan": 0}
-        ticks = ring_pl.pipeline_tick_counts(RING_S, RING_M, boundary, trainer.lps)
+        ticks = ring_pl.pipeline_tick_counts(RING_S, RING_M, boundary, spans=trainer.spans)
         first = rec["iterations"][0]
-        say("ring_round", round=r, boundary=boundary, depth=L - b, frozen_stages=F,
+        say("ring_round", ring=label, round=r, boundary=boundary, depth=L - b, frozen_stages=F,
             loss=f"{rec['loss']:.5f}", round_ms=f"{wall:.2f}",
             iteration_ms=json.dumps([round(it["ms"], 2) for it in rec["iterations"]]),
             step_peak_gib=f"{peak:.3f}", fwd_bwd_peak_gib=f"{fwd_bwd_peak:.3f}",
@@ -1285,7 +1463,30 @@ def phase_ring(arch: str, records) -> None:
                 raise AssertionError(f"round {r}: a frozen stage moved")
         if all(torch.equal(trainer.stage_adapters()[-1][-1][k], t) for k, t in top.items()):
             raise AssertionError(f"round {r}: the top adapter did not move")
-    count_launches(records, f"{cfg.name}_ring", launches)
+        for name, n in _fused_round(cfg, ex, trainer, tokens, labels, boundary, rec, before,
+                                    want).items():
+            fused_launches[name] += n
+    count_launches(records, f"{cfg.name}_{label}", launches)
+    count_launches(records, f"{cfg.name}_{label}_fused", fused_launches)
+
+
+def phase_ring(arch: str, records) -> None:
+    """The RingAda ring at full width, four stages of the model on the card,
+    ``RingTrainer`` and ``RingExecutor`` from the same weights: three rounds
+    of the balanced ring, then two of the heterogeneous one, with the checks
+    of the module docstring."""
+    cfg = served_config(arch)
+    tc = TrainConfig(learning_rate=RING_LR, batch_size=1, seq_len=TRAIN_S,
+                     n_microbatches=RING_M, n_stages=RING_S, seed=SEED)
+    t0 = time.perf_counter()
+    params = prm.materialize(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    say("ring_weights", arch=cfg.name, seconds=f"{time.perf_counter() - t0:.2f}",
+        gib_on_card=f"{torch.cuda.memory_allocated() / 2**30:.2f}")
+    _ring_walk(cfg, tc, params, records, RING_DEPTHS, None, "ring")
+    gc.collect()
+    spans = spans_from_profiles(cfg.repeats, parse_device_profiles(RING_SPEEDS))
+    _ring_walk(cfg, tc, params, records, HETERO_DEPTHS, spans, "ring_hetero")
 
 
 def freed() -> None:

@@ -11,10 +11,13 @@ this module needs no JAX and no ``ml_dtypes`` import: on the way back a bf16
 leaf comes out as that view, or as the numpy dtype the caller passes
 (``bf16=jnp.bfloat16``).
 
-The ring's state (``RingTrainer``: the adapters and their moments in the
-stage layout, the head and its moments) crosses the same way; the
-reference's ``[S, lps, C, ...]`` stage stack is made here from the flat
-``[R, C, ...]`` one (``core/pipeline.stack_entry``).
+The ring's state crosses the same way, on any span layout: ``RingTrainer``'s
+(the adapters and their moments in the stage layout, the head and its
+moments) and ``RingExecutor``'s (the same, with the step count, in the
+reference executor's ``opt_state`` tree). The reference's padded ``[S,
+max_span, C, ...]`` stage stack is made here from the flat ``[R, C, ...]``
+one (``core/pipeline.stack_entry``; a ragged layout's padding rows repeat
+the stage's last block and are dropped on the way back).
 """
 from __future__ import annotations
 
@@ -166,8 +169,7 @@ def opt_state_to_jax(opt_state: Dict[str, Any], cfg: ModelConfig) -> Dict[str, A
 
 
 def _stage_layout(layers: List[Any], spans) -> List[List[Any]]:
-    """One tree per layer -> a list per stage (uniform spans, one layer a repeat
-    entry position)."""
+    """One tree per layer -> a list per stage."""
     per = len(layers) // spans[-1][1]
     return [layers[b * per:e * per] for b, e in spans]
 
@@ -175,8 +177,9 @@ def _stage_layout(layers: List[Any], spans) -> List[List[Any]]:
 def stage_adapters_to_jax(stage_tree: List[List[Any]], cfg: ModelConfig, spans,
                           bf16=None) -> Dict[str, np.ndarray]:
     """A tree in the port's stage layout (a list per stage of one dict per
-    layer: adapters or their moments) -> the reference's ``[S, lps, C, ...]``
-    numpy stage stack (``RingTrainer.stage_blocks["adapter"]``, ``m_ad``, ``v_ad``)."""
+    layer: adapters or their moments) -> the reference's ``[S, max_span, C,
+    ...]`` numpy stage stack (``RingTrainer.stage_blocks["adapter"]``,
+    ``m_ad``, ``v_ad``)."""
     flat = [layer for stage in stage_tree for layer in stage]
     (entry,) = _stack_entries(flat, cfg, bf16)
     return pl.stack_entry(entry, spans)
@@ -220,3 +223,44 @@ def ring_state_from_jax(state: Dict[str, Any], trainer, device=None) -> None:
     trainer.shared = {**trainer.shared, "head": tree_map(conv, state["head"])}
     trainer.m_hd = tree_map(conv, state["m_hd"])
     trainer.v_hd = tree_map(conv, state["v_hd"])
+
+
+def executor_state_to_jax(executor, bf16=None) -> Dict[str, Any]:
+    """A port ``RingExecutor``'s trainable state in the reference
+    ``RingExecutor``'s layout: ``adapter`` (its ``stage_blocks["adapter"]``),
+    ``head`` (its ``shared["head"]``) and ``opt_state`` (``m`` and ``v``, each
+    ``{"adapter": [S, max_span, C, ...], "head": ...}``, and ``count``), numpy."""
+    cfg, spans = executor.cfg, executor.spans
+    opt = {name: {"adapter": stage_adapters_to_jax(executor.opt_state[name]["adapter"], cfg,
+                                                   spans),
+                  "head": tree_map(to_numpy, executor.opt_state[name]["head"])}
+           for name in ("m", "v")}
+    return {"adapter": stage_adapters_to_jax(executor.stage_adapters(), cfg, spans, bf16),
+            "head": tree_map(lambda t: to_numpy(t, bf16), executor.shared["head"]),
+            "opt_state": {**opt, "count": to_numpy(executor.opt_state["count"])}}
+
+
+def executor_state_from_jax(state: Dict[str, Any], executor) -> None:
+    """Install the reference ``RingExecutor``'s state (:func:`executor_state_to_jax`'s
+    keys, numpy leaves) into a port ``RingExecutor``, exactly, by copying into
+    the tensors the executor owns (its captured rounds read and write them)."""
+    cfg, spans, device = executor.cfg, executor.spans, executor.device
+
+    def put(dst, src):
+        if isinstance(dst, torch.Tensor):
+            dst.copy_(src)
+        elif isinstance(dst, dict):
+            for k in dst:
+                put(dst[k], src[k])
+        else:
+            for d, s_ in zip(dst, src, strict=True):
+                put(d, s_)
+
+    conv = lambda x: to_tensor(x, device)
+    staged = lambda x: stage_adapters_from_jax(x, cfg, spans, device)
+    put(executor.stage_adapters(), staged(state["adapter"]))
+    put(executor.shared["head"], tree_map(conv, state["head"]))
+    for name in ("m", "v"):
+        put(executor.opt_state[name]["adapter"], staged(state["opt_state"][name]["adapter"]))
+        put(executor.opt_state[name]["head"], tree_map(conv, state["opt_state"][name]["head"]))
+    executor.opt_state["count"].copy_(conv(np.asarray(state["opt_state"]["count"], np.int32)))

@@ -1,0 +1,326 @@
+"""RingExecutor: the fused RingAda round (the reference's ``core/executor.py``,
+direct mode, one tenant).
+
+One round runs all S owner iterations of RingAda Algorithm 1 (each client
+the initiator once) as one program per unfreeze boundary:
+
+  * every owner's microbatches are embedded once (``pipeline.gather_embeddings``);
+  * Phase A, the frozen trunk, runs once for the whole round as the packed
+    conveyor (``pipeline.ring_phase_a_packed``: ``S*M + F - 1`` ticks instead
+    of S pipelines of ``M + F - 1``), or per owner (``ring_phase_a``) with
+    ``packed=False`` and at ``F <= 1``, where packing saves nothing;
+  * each owner iteration takes its stage-F inputs, runs Phase B
+    (``ring_phase_b``) with autograd, and applies the raw AdamW update
+    (``adamw.leaf_update`` at constant lr, no bias correction) to the hot
+    stages' adapters and moments and to the head; the optimizer's ``count``
+    grows by S a round.
+
+The stage mask ``stage >= F`` of the reference is static here: on one device
+the boundary is fixed per build, so the frozen stages are simply not updated
+and their adapters and moments stay bit-identical.
+
+On a CUDA device the program is one CUDA graph per boundary, the counterpart
+of the reference's one donated executable per boundary. The first round at a
+boundary warms the round up on a side stream (kernel builds, cuBLAS, the
+autograd engine), puts the trainable state back as it was, captures the round
+on that stream and replays it; later rounds copy their tokens and labels into
+the graph's input buffers and replay. The executor owns its trainable leaves
+(adapters, head, moments, ``count``) and updates them in place, so the graph
+reads and writes the same memory at every replay; the frozen backbone stays
+views of the caller's parameters. A graph is dropped when the boundary drops
+(the schedule is monotone, so it never runs again). A failed capture raises:
+nothing falls back to eager launches on CUDA tensors. On the CPU the same
+round function runs eagerly.
+
+``round()`` does not wait for the device: it returns the S losses and their
+mean as device tensors; ``materialize_metrics`` turns them into floats.
+
+The boundary is taken once per round, at the round's first step (the
+reference does the same). With ``tc.unfreeze_interval`` a multiple of S this
+is the ``RingTrainer``'s per-iteration boundary; otherwise a change inside a
+round waits for the next round.
+"""
+from __future__ import annotations
+
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+from torch.utils._pytree import tree_leaves, tree_map
+
+from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.core import pipeline as pl
+from repro_torch.core.partition import Span, align_boundary, frozen_stage_count
+from repro_torch.core.unfreeze import UnfreezeSchedule, depth_to_boundary
+from repro_torch.kernels import ops
+from repro_torch.optim import adamw
+
+
+def ring_opt_init(stage_adapters, head) -> Dict[str, Any]:
+    """The ring's optimizer state: the adapters' moments in the stage layout,
+    the head's, and the step ``count`` (a 0-d int32 tensor)."""
+    m_ad, v_ad = adamw.init_moments(stage_adapters)
+    m_hd, v_hd = adamw.init_moments(head)
+    device = next(iter(head.values())).device
+    return {"m": {"adapter": m_ad, "head": m_hd}, "v": {"adapter": v_ad, "head": v_hd},
+            "count": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def make_fused_round(cfg: ModelConfig, tc: TrainConfig, *, n_stages: int, boundary: int,
+                     n_micro: int, packed: bool = True,
+                     spans: Optional[Sequence[Span]] = None,
+                     tick_record: Optional[Callable[[str, int], None]] = None) -> Callable:
+    """Build ``fn(stage_blocks, shared, opt_state, tokens, labels) -> (losses
+    [S], mean)``, one round at ``boundary`` (span-aligned) that updates in
+    place the hot stages' adapters, the head, their moments and
+    ``opt_state["count"]``. ``tokens`` / ``labels``: ``[S, M, mb, seq]``.
+    ``tick_record(phase, ticks)`` receives each tick phase's length
+    ("phase_a_packed", "phase_a" or "phase_b"), as it runs."""
+    spans = pl.resolve_spans(cfg.repeats, n_stages, spans)
+    F = frozen_stage_count(spans, boundary)
+    rec = tick_record or (lambda phase, ticks: None)
+    geometry = dict(n_stages=n_stages, boundary=boundary, n_micro=n_micro, spans=spans)
+    phase_a = pl.ring_phase_a(cfg, record=lambda t: rec("phase_a", t), **geometry)
+    phase_a_packed = pl.ring_phase_a_packed(cfg, record=lambda t: rec("phase_a_packed", t),
+                                            **geometry)
+    phase_b = pl.ring_phase_b(cfg, record=lambda t: rec("phase_b", t), **geometry)
+    use_packed = packed and F >= 2       # at F <= 1 the conveyor saves no tick
+    lr = tc.learning_rate
+
+    def update(g, m, v, p):
+        m2, v2, p2 = adamw.leaf_update(g, m, v, p, lr=lr, tc=tc)
+        m.copy_(m2)
+        v.copy_(v2)
+        p.copy_(p2)
+
+    def fused(stage_blocks, shared, opt_state, tokens, labels):
+        emb_g = pl.gather_embeddings(cfg, shared, tokens)
+        h_all = phase_a_packed(stage_blocks, emb_g) if use_packed else None
+        leaf = lambda t: t.detach().requires_grad_(True)
+        m, v = opt_state["m"], opt_state["v"]
+        losses = []
+        for owner in range(n_stages):
+            h_B = h_all[owner] if use_packed else phase_a(stage_blocks, emb_g[owner])
+            hot = [[tree_map(leaf, layer["adapter"]) for layer in stage]
+                   for stage in stage_blocks[F:]]
+            head = tree_map(leaf, shared["head"])
+            with torch.enable_grad():
+                loss = phase_b(pl._hot_stages(stage_blocks, hot, F), {**shared, "head": head},
+                               h_B, labels[owner])
+                flat = [t for stage in hot for a in stage for t in a.values()] + \
+                    list(head.values())
+                grads = iter(torch.autograd.grad(loss, flat))
+            with torch.no_grad():
+                for u in range(F, n_stages):
+                    for j, layer in enumerate(stage_blocks[u]):
+                        a = layer["adapter"]
+                        for k in a:
+                            update(next(grads), m["adapter"][u][j][k], v["adapter"][u][j][k],
+                                   a[k])
+                for k, p in shared["head"].items():
+                    update(next(grads), m["head"][k], v["head"][k], p)
+            losses.append(loss.detach())
+        with torch.no_grad():
+            opt_state["count"].add_(n_stages)
+            losses = torch.stack(losses)
+            return losses, losses.mean()
+
+    return fused
+
+
+class _Captured:
+    """One boundary's round as a CUDA graph, with its input and output buffers."""
+
+    def __init__(self, graph: torch.cuda.CUDAGraph, tokens: torch.Tensor,
+                 labels: torch.Tensor, out: Tuple[torch.Tensor, torch.Tensor]):
+        self.graph, self.tokens, self.labels, self.out = graph, tokens, labels, out
+
+    def __call__(self, tokens: torch.Tensor, labels: torch.Tensor):
+        if tokens.shape != self.tokens.shape or labels.shape != self.labels.shape:
+            raise ValueError(f"tokens {tuple(tokens.shape)}, labels {tuple(labels.shape)}: "
+                             f"the graph was captured for {tuple(self.tokens.shape)}")
+        self.tokens.copy_(tokens)
+        self.labels.copy_(labels)
+        self.graph.replay()
+        # the graph's outputs are overwritten at the next replay
+        return tuple(t.clone() for t in self.out)
+
+
+class RingExecutor:
+    """Collaborative fine-tuning over a ring of ``n_stages`` stages on one
+    device (the device of ``params``), a round at a time as one program.
+
+    The same surface as :class:`~repro_torch.core.ring.RingTrainer`, its
+    oracle: ``round(tokens, labels)``, ``export_params()``, ``boundary_at``,
+    ``stage_adapters()``. ``packed``: Phase A as one conveyor a round (the
+    default) or per owner. ``spans``: any layout, ragged included.
+    """
+
+    def __init__(self, cfg: ModelConfig, tc: TrainConfig, params: Dict[str, Any],
+                 n_stages: int, n_micro: int, *, schedule=None, packed: bool = True,
+                 spans: Optional[Sequence[Span]] = None):
+        self.cfg, self.tc, self.packed = cfg, tc, packed
+        self.S, self.M = n_stages, n_micro
+        self.spans = pl.resolve_spans(cfg.repeats, n_stages, spans)
+        self.lps = None if pl.is_ragged(self.spans) else cfg.repeats // n_stages
+        stage_blocks, shared = pl.stage_stack(params, cfg, n_stages, spans=self.spans)
+        own = lambda t: t.detach().clone()
+        self.stage_blocks = [[{**layer, "adapter": tree_map(own, layer["adapter"])}
+                              for layer in stage] for stage in stage_blocks]
+        self.shared = {**shared, "head": tree_map(own, shared["head"])}
+        self._params_rest = {k: v for k, v in params.items() if k != "blocks"}
+        self.opt_state = ring_opt_init(self.stage_adapters(), self.shared["head"])
+        self.sched = schedule if schedule is not None else UnfreezeSchedule.from_train_config(tc)
+        self.device = self.shared["head"]["w"].device
+        self.step = 0
+        self._last_boundary: Optional[int] = None
+        self._rounds: Dict[int, Callable] = {}           # boundary -> built round
+        self.build_counts: Dict[int, int] = {}          # boundary -> captures (CPU: builds)
+        self.tick_scan_lens: Dict[int, Dict[str, int]] = {}
+        self.capture_launches: Dict[int, Dict[str, int]] = {}   # kernel launches captured
+        self.capture_seconds: Dict[int, float] = {}    # warm-up and capture
+
+    def stage_adapters(self):
+        """The adapters in the stage layout: a list per stage of one dict per layer."""
+        return [[layer["adapter"] for layer in stage] for stage in self.stage_blocks]
+
+    def boundary_at(self, step: int) -> int:
+        """The span-aligned boundary (frozen repeats from the bottom) at ``step``."""
+        depth = self.sched.depth_at(step, self.cfg.n_layers)
+        return align_boundary(self.spans, depth_to_boundary(self.cfg, depth))
+
+    def to_device(self, tokens, labels) -> Tuple[torch.Tensor, torch.Tensor]:
+        """[S, M, mb, seq] token ids (numpy or tensors) as int64 on the executor's device."""
+        return (torch.as_tensor(tokens).long().to(self.device),
+                torch.as_tensor(labels).long().to(self.device))
+
+    def trainable_tensors(self) -> List[torch.Tensor]:
+        """Every tensor a round writes: the adapters, the head, their moments
+        and ``count`` (snapshot these to undo rounds)."""
+        ads = [t for stage in self.stage_adapters() for a in stage for t in a.values()]
+        return ads + list(self.shared["head"].values()) + \
+            tree_leaves(self.opt_state["m"]) + tree_leaves(self.opt_state["v"]) + \
+            [self.opt_state["count"]]
+
+    def _build(self, boundary: int) -> Callable:
+        def tick_rec(phase, ticks):
+            self.tick_scan_lens.setdefault(boundary, {})[phase] = ticks
+
+        self.build_counts[boundary] = self.build_counts.get(boundary, 0) + 1
+        return make_fused_round(self.cfg, self.tc, n_stages=self.S, boundary=boundary,
+                                n_micro=self.M, packed=self.packed, spans=self.spans,
+                                tick_record=tick_rec)
+
+    def _capture(self, boundary: int, tokens: torch.Tensor, labels: torch.Tensor) -> _Captured:
+        """Warm the round up on a side stream from a copy of the trainable
+        state, put the state back, and capture the round on that stream."""
+        fn = self._build(boundary)
+        t0 = time.perf_counter()
+        args = (self.stage_blocks, self.shared, self.opt_state)
+        tokens, labels = tokens.clone(), labels.clone()          # the graph's inputs
+        state = self.trainable_tensors()
+        saved = [t.clone() for t in state]
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            fn(*args, tokens, labels)
+            for t, s in zip(state, saved):
+                t.copy_(s)
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        del saved
+        graph = torch.cuda.CUDAGraph()
+        before = dict(ops.LAUNCHES)
+        with torch.cuda.graph(graph, stream=stream):
+            out = fn(*args, tokens, labels)
+        self.capture_launches[boundary] = {k: n - before[k] for k, n in ops.LAUNCHES.items()}
+        self.capture_seconds[boundary] = time.perf_counter() - t0
+        return _Captured(graph, tokens, labels, out)
+
+    def round(self, tokens, labels) -> Dict[str, Any]:
+        """One training round: every client is the initiator once.
+
+        tokens / labels: [S, M, mb, seq], each client's local data. Returns
+        the losses of the S owner iterations and their mean (device tensors),
+        the round's boundary and the step count.
+        """
+        tokens, labels = self.to_device(tokens, labels)
+        boundary = self.boundary_at(self.step)
+        if self._last_boundary is not None and boundary > self._last_boundary:
+            raise RuntimeError(f"unfreeze boundary increased {self._last_boundary} -> "
+                               f"{boundary} at step {self.step}; RingAda schedules are "
+                               f"monotone top-down (core/unfreeze.py)")
+        if boundary != self._last_boundary:
+            self._rounds.clear()                 # an earlier boundary's graph never runs again
+        self._last_boundary = boundary
+        fn = self._rounds.get(boundary)
+        if fn is None:
+            if self.device.type == "cuda":
+                fn = self._capture(boundary, tokens, labels)
+            else:
+                built = self._build(boundary)
+                fn = lambda t, l: built(self.stage_blocks, self.shared, self.opt_state, t, l)
+            self._rounds[boundary] = fn
+        losses, mean = fn(tokens, labels)
+        self.step += self.S
+        return {"loss": mean, "losses": losses, "boundary": boundary, "step": self.step}
+
+    @staticmethod
+    def materialize_metrics(m: Dict[str, Any]) -> Dict[str, Any]:
+        """A round's metrics with its tensors as floats (waits for the device)."""
+        conv = lambda v: (float(v) if v.ndim == 0 else [float(x) for x in v]) \
+            if isinstance(v, torch.Tensor) else v
+        return {k: conv(v) for k, v in m.items()}
+
+    def measured_tick_ledger(self, boundary: int) -> Dict[str, int]:
+        """The round's tick totals from the tick phases the boundary's build
+        ran, in the keys of ``pipeline.pipeline_tick_counts``; KeyError if no
+        round ran at ``boundary`` since the last repartition."""
+        if boundary not in self.tick_scan_lens:
+            raise KeyError(f"no round built at boundary {boundary} yet")
+        rec = self.tick_scan_lens[boundary]
+        S, M = self.S, self.M
+        F = frozen_stage_count(self.spans, boundary)
+        if "phase_a_packed" in rec:
+            a_round, a_per_owner = rec["phase_a_packed"], 0
+        elif "phase_a" in rec:
+            a_round, a_per_owner = S * rec["phase_a"], rec["phase_a"]
+        else:                                            # F == 0
+            a_round = a_per_owner = 0
+        return {"fwd_ticks": a_per_owner + rec["phase_b"], "bwd_ticks": rec["phase_b"],
+                "frozen_stages": F, "hot_stages": S - F, "phase_a_round_ticks": a_round,
+                "phase_a_saved_ticks": S * (M + F - 1) - a_round
+                if "phase_a_packed" in rec else 0}
+
+    @property
+    def n_executables(self) -> int:
+        """Rounds built (CUDA graphs captured) since the last repartition."""
+        return len(self.tick_scan_lens)
+
+    def compile_counts(self) -> Dict[str, int]:
+        """``{'<boundary>/direct': captures}`` (on the CPU: builds)."""
+        return {f"{b}/direct": n for b, n in sorted(self.build_counts.items())}
+
+    def repartition(self, spans: Sequence[Span]) -> None:
+        """Switch to another span layout mid-run: the stages and the adapters'
+        moments are sliced anew (the same tensors), every built round is
+        dropped, and the boundary check starts afresh (span edges moved)."""
+        new = pl.resolve_spans(self.cfg.repeats, self.S, spans)
+        if new == self.spans:
+            return
+        per = self.cfg.layers_per_repeat
+        restage = lambda stages: [[x for stage in stages for x in stage][b * per:e * per]
+                                  for b, e in new]
+        self.stage_blocks = restage(self.stage_blocks)
+        for name in ("m", "v"):
+            self.opt_state[name]["adapter"] = restage(self.opt_state[name]["adapter"])
+        self.spans = new
+        self.lps = None if pl.is_ragged(new) else self.cfg.repeats // self.S
+        self._rounds.clear()
+        self.tick_scan_lens.clear()
+        self._last_boundary = None
+
+    def export_params(self) -> Dict[str, Any]:
+        """The flat parameter tree (views of the executor's tensors)."""
+        return pl.unstack(self.stage_blocks, self.cfg, self._params_rest, self.shared,
+                          spans=self.spans)
+

@@ -1,5 +1,4 @@
-"""The RingAda ring round on one device (the reference's ``core/pipeline.py``,
-uniform span layouts).
+"""The RingAda ring round on one device (the reference's ``core/pipeline.py``).
 
 The reference maps the ring of S edge devices onto an SPMD mesh axis: stage
 ``u`` holds blocks ``spans[u]`` and ``ppermute`` hands activations to the next
@@ -7,24 +6,40 @@ stage. The port runs the S stages in one process on one GPU:
 
   * a stage is a view, the slice ``params["blocks"][b:e]`` of the per-layer
     dicts: nothing is copied into a stage-stacked tensor (at stablelm-3b the
-    frozen weights alone are 5.2 GiB). The stacked ``[S, lps, C, ...]``
-    layout (:func:`stack_entry`) exists for carrying the reference's ring
-    state across (``bridge.py``);
+    frozen weights alone are 5.2 GiB). The reference's padded ``[S,
+    max_span, C, ...]`` layout (:func:`stack_entry`) exists for carrying its
+    ring state across (``bridge.py``);
   * ``ppermute`` is the hand-off of a stage's output to the next stage's
     input buffer, and a (stage, tick) pair with no microbatch launches
-    nothing. Each phase still records its ``M + depth - 1`` ticks, the
-    reference's tick ledger.
+    nothing. Each phase still records its ticks, the reference's tick
+    ledger.
 
-One round (RingAda Algorithm 1, initiator ``owner``): the owner embeds its
-``[M, mb, seq]`` microbatches; Phase A streams them through the F frozen
-stages under ``torch.no_grad`` (forward only) and detaches the result; Phase
-B runs the S - F hot stages with autograd, whose backward stops at stage F
-(the terminator); the owner's loss is the plain fp32 mean of ``lse - gold``
-over ``[M, mb, seq]``. Only the hot adapters and the head take gradients;
-the frozen weights of hot layers need none, so autograd forms only input
-gradients through them.
+Ragged layouts (the heterogeneous ring, spans of different sizes) need no
+padding here: a stage holds only its own blocks. So the reference's validity
+mask (its ``_stage_valid``, which discards the padding rows' applications)
+has no counterpart, and the tick counts stay in stage ticks as the
+reference's do: a stage costs one tick per microbatch whatever its span.
 
-Ragged layouts (the heterogeneous ring) raise: ROADMAP.md Queue 1, item 3b.
+One round (RingAda Algorithm 1, initiator ``owner``), in halves that the
+fused executor (``core/executor.py``) calls directly:
+
+  * :func:`gather_embeddings`: every owner's ``[M, mb, seq]`` microbatches
+    embedded once (the embedding is outside the trainable set);
+  * :func:`ring_phase_a`: the owner's microbatches through the F frozen
+    stages under ``torch.no_grad`` (forward only), ``M + F - 1`` ticks, to the
+    stage-F inputs ``h_B``; :func:`ring_phase_a_packed` runs every owner's
+    stream back to back as one ``S*M + F - 1``-tick conveyor (slot ``o*M +
+    m`` is owner o's microbatch m), which the frozen trunk allows because
+    nothing it reads changes within a round;
+  * :func:`ring_phase_b`: the S - F hot stages with autograd, whose backward
+    stops at stage F (the terminator), the last stage's hand-off back to
+    the owner (on one device, its own outputs), and the owner's loss, the
+    plain fp32 mean of ``lse - gold`` over ``[M, mb, seq]``.
+
+:func:`make_ring_round` composes them for one static owner, the form the
+oracle ``RingTrainer`` runs. Only the hot adapters and the head take
+gradients; the frozen weights of hot layers need none, so autograd forms
+only input gradients through them.
 """
 from __future__ import annotations
 
@@ -40,8 +55,7 @@ from repro_torch.core.partition import (Span, frozen_stage_count, normalize_span
 from repro_torch.models import transformer as tfm
 from repro_torch.models.blocks import BlockCtx, apply_block
 
-RAGGED_LATER = ("ragged span layouts are not ported yet (ROADMAP.md Queue 1, item 3b: "
-                "the heterogeneous ring)")
+Record = Optional[Callable[[int], None]]
 
 
 # ---------------------------------------------------------------- geometry
@@ -53,17 +67,15 @@ def is_ragged(spans: Sequence[Span]) -> bool:
 
 def resolve_spans(n_blocks: int, n_stages: int,
                   spans: Optional[Sequence[Span]] = None) -> Tuple[Span, ...]:
-    """The given layout, validated against the model, or the balanced default;
-    a ragged one raises (including the default when S does not divide the
-    block count)."""
+    """The given layout (``(begin, end)`` pairs or sizes such as ``[4, 5, 2,
+    3]``), validated against the model, or the balanced default (ragged where
+    S does not divide the block count)."""
     if spans is None:
         spans = uniform_assignment(n_blocks, n_stages)
     spans = normalize_spans(spans, n_blocks)
     if len(spans) != n_stages:
         raise ValueError(f"span layout {list(spans)} has {len(spans)} stages, the ring has "
                          f"{n_stages}")
-    if is_ragged(spans):
-        raise NotImplementedError(f"{RAGGED_LATER}: {list(spans)}")
     return spans
 
 
@@ -89,20 +101,31 @@ def span_maps(spans: Sequence[Span]) -> Tuple[np.ndarray, np.ndarray, np.ndarray
     return stack_idx, valid, stage_of, slot_of
 
 
+def _take(x: Any, *idx: np.ndarray) -> Any:
+    """``x[idx]`` for a numpy array or a tensor (the index moved to its device)."""
+    if isinstance(x, torch.Tensor):
+        return x[tuple(torch.as_tensor(i, dtype=torch.long, device=x.device) for i in idx)]
+    return np.asarray(x)[idx]
+
+
 def stack_entry(entry: Any, spans: Sequence[Span]) -> Any:
     """Flat block-entry tree (leaves ``[R, C, ...]``, numpy or torch) -> the
-    stage stack (leaves ``[S, lps, C, ...]``), a reshape."""
-    if is_ragged(spans):
-        raise NotImplementedError(f"{RAGGED_LATER}: {list(spans)}")
-    S, lps = len(spans), span_sizes(spans)[0]
-    return tree_map(lambda x: x.reshape((S, lps) + tuple(x.shape[1:])), entry)
+    reference's padded stage stack (leaves ``[S, max_span, C, ...]``): a
+    reshape for uniform layouts, a gather through :func:`span_maps` for
+    ragged ones, whose padding rows repeat the stage's last block."""
+    if not is_ragged(spans):
+        S, lps = len(spans), span_sizes(spans)[0]
+        return tree_map(lambda x: x.reshape((S, lps) + tuple(x.shape[1:])), entry)
+    stack_idx = span_maps(spans)[0]
+    return tree_map(lambda x: _take(x, stack_idx), entry)
 
 
 def unstack_entry(stacked: Any, spans: Sequence[Span]) -> Any:
-    """Inverse of :func:`stack_entry`."""
-    if is_ragged(spans):
-        raise NotImplementedError(f"{RAGGED_LATER}: {list(spans)}")
-    return tree_map(lambda x: x.reshape((spans[-1][1],) + tuple(x.shape[2:])), stacked)
+    """Inverse of :func:`stack_entry` (the padding rows dropped)."""
+    if not is_ragged(spans):
+        return tree_map(lambda x: x.reshape((spans[-1][1],) + tuple(x.shape[2:])), stacked)
+    _, _, stage_of, slot_of = span_maps(spans)
+    return tree_map(lambda x: _take(x, stage_of, slot_of), stacked)
 
 
 def _check_ring(cfg: ModelConfig) -> None:
@@ -142,7 +165,7 @@ def unstack(stage_blocks: Sequence[Sequence[Dict[str, Any]]], cfg: ModelConfig,
 
 def _apply_stage_layers(cfg: ModelConfig, stage: Sequence[Dict[str, Any]], h: torch.Tensor,
                         ctx: BlockCtx) -> torch.Tensor:
-    """This stage's blocks, in order, on h [mb, seq, D] (uniform layouts)."""
+    """This stage's blocks, in order, on h [mb, seq, D]."""
     kind = cfg.pattern[0][0]
     for layer in stage:
         h, _ = apply_block(kind, cfg, layer, h, ctx)
@@ -151,10 +174,10 @@ def _apply_stage_layers(cfg: ModelConfig, stage: Sequence[Dict[str, Any]], h: to
 
 def _tick_phase(cfg: ModelConfig, stages: Sequence[Sequence[Dict[str, Any]]],
                 h_inject: Sequence[torch.Tensor], first: int, depth: int, ctx: BlockCtx,
-                record: Optional[Callable[[int], None]] = None) -> List[torch.Tensor]:
+                record: Record = None) -> List[torch.Tensor]:
     """Tick pipeline over stages ``[first, first + depth)``: at tick t stage
     ``first + rel`` runs microbatch ``t - rel`` and hands its output to the next
-    stage's input buffer. Returns the M outputs of the last stage, in order.
+    stage's input buffer. Returns the outputs of the last stage, in order.
     ``record`` is called with the phase's tick count."""
     M = len(h_inject)
     T = M + depth - 1
@@ -186,6 +209,104 @@ def _hot_stages(stage_blocks, adapters, first: int):
         for stage, stage_ads in zip(stage_blocks[first:], adapters)]
 
 
+def _ring_geometry(cfg: ModelConfig, n_stages: int, boundary: int,
+                   spans: Optional[Sequence[Span]]) -> Tuple[Tuple[Span, ...], int]:
+    """(the layout, F frozen stages) for a span-aligned boundary."""
+    _check_ring(cfg)
+    spans = resolve_spans(cfg.repeats, n_stages, spans)
+    return spans, frozen_stage_count(spans, boundary)
+
+
+def _seq_ctx(cfg: ModelConfig, h: torch.Tensor, impl: str) -> BlockCtx:
+    """The blocks' context for microbatches of h's ``[mb, seq]``."""
+    mb, seq = h.shape[-3], h.shape[-2]
+    pos = torch.arange(seq, device=h.device).expand(mb, seq)
+    return BlockCtx(cfg=cfg, mode="seq", positions=pos, impl=impl)
+
+
+def gather_embeddings(cfg: ModelConfig, shared: Dict[str, Any],
+                      tokens: torch.Tensor) -> torch.Tensor:
+    """Every owner's microbatches embedded once: tokens ``[S, M, mb, seq]`` ->
+    ``[S, M, mb, seq, D]``, without gradient (the embedding is not trained,
+    so it is the same for every owner iteration of a round)."""
+    mb, seq = tokens.shape[-2:]
+    pos = torch.arange(seq, device=tokens.device).expand(mb, seq)
+    with torch.no_grad():
+        return tfm.embed(cfg, shared, tokens, pos)
+
+
+def ring_phase_a(cfg: ModelConfig, *, n_stages: int, boundary: int, n_micro: int,
+                 spans: Optional[Sequence[Span]] = None, record: Record = None,
+                 impl: str = "kernel") -> Callable:
+    """Phase A for one owner: ``fn(stage_blocks, emb) -> h_B``, from the
+    owner's embedded microbatches ``emb`` [M, mb, seq, D] to the M inputs of
+    stage F (at F = 0, the embeddings themselves), under ``torch.no_grad``.
+    ``record`` receives the phase's ``M + F - 1`` ticks (none at F = 0)."""
+    _, F = _ring_geometry(cfg, n_stages, boundary, spans)
+
+    def phase_a(stage_blocks, emb):
+        if len(emb) != n_micro:
+            raise ValueError(f"{len(emb)} microbatches, the round was built for {n_micro}")
+        h = list(emb)
+        if F == 0:
+            return h
+        with torch.no_grad():
+            return _tick_phase(cfg, stage_blocks, h, 0, F, _seq_ctx(cfg, h[0], impl), record)
+
+    return phase_a
+
+
+def ring_phase_a_packed(cfg: ModelConfig, *, n_stages: int, boundary: int, n_micro: int,
+                        spans: Optional[Sequence[Span]] = None, record: Record = None,
+                        impl: str = "kernel") -> Callable:
+    """Phase A for every owner at once: ``fn(stage_blocks, emb_g) -> h_B_all``,
+    from ``gather_embeddings``' ``[S, M, mb, seq, D]`` to a list over owners of
+    each owner's M stage-F inputs. One ``S*M + F - 1``-tick conveyor in
+    owner-major slot order ``o*M + m`` instead of S pipelines of ``M + F - 1``
+    ticks: it saves ``(S - 1)(F - 1)`` fill and drain ticks a round. Each
+    microbatch meets the same operations as in :func:`ring_phase_a`, so owner
+    o's slice is that function's result for owner o."""
+    _, F = _ring_geometry(cfg, n_stages, boundary, spans)
+
+    def phase_a_packed(stage_blocks, emb_g):
+        if tuple(emb_g.shape[:2]) != (n_stages, n_micro):
+            raise ValueError(f"embeddings {tuple(emb_g.shape)}, the round was built for "
+                             f"[{n_stages}, {n_micro}, ...]")
+        stream = [emb_g[o, m] for o in range(n_stages) for m in range(n_micro)]
+        if F > 0:
+            with torch.no_grad():
+                stream = _tick_phase(cfg, stage_blocks, stream, 0, F,
+                                     _seq_ctx(cfg, stream[0], impl), record)
+        return [stream[o * n_micro:(o + 1) * n_micro] for o in range(n_stages)]
+
+    return phase_a_packed
+
+
+def ring_phase_b(cfg: ModelConfig, *, n_stages: int, boundary: int, n_micro: int,
+                 spans: Optional[Sequence[Span]] = None, record: Record = None,
+                 impl: str = "kernel") -> Callable:
+    """Phase B: ``fn(stage_blocks, shared, h_B, labels) -> loss``, the hot
+    stages ``[F, S)`` on the M stage-F inputs ``h_B`` with autograd (for
+    whatever leaves of the hot stages and the head require a gradient), then
+    the owner's loss on its ``labels`` [M, mb, seq]: the fp32 mean of ``lse -
+    gold``, with no mask. ``record`` receives the phase's ``M + S - F - 1``
+    ticks."""
+    _, F = _ring_geometry(cfg, n_stages, boundary, spans)
+
+    def phase_b(stage_blocks, shared, h_B, labels):
+        outs = _tick_phase(cfg, stage_blocks, h_B, F, n_stages - F,
+                           _seq_ctx(cfg, h_B[0], impl), record)
+        terms = []
+        for m, hm in enumerate(outs):
+            lf = tfm.head(cfg, shared, hm).float()
+            lse = torch.logsumexp(lf, dim=-1)
+            gold = torch.gather(lf, -1, labels[m][..., None])[..., 0]
+            terms.append(lse - gold)
+        return torch.stack(terms).mean()
+
+    return phase_b
+
+
 def make_ring_round(cfg: ModelConfig, *, n_stages: int, owner: int, boundary: int,
                     n_micro: int, spans: Optional[Sequence[Span]] = None,
                     impl: str = "kernel") -> Callable:
@@ -199,41 +320,22 @@ def make_ring_round(cfg: ModelConfig, *, n_stages: int, owner: int, boundary: in
     whatever leaves of the hot stages and the head require them. ``impl``:
     the blocks' kernels ("kernel") or their plain versions ("plain").
     """
-    _check_ring(cfg)
-    spans = resolve_spans(cfg.repeats, n_stages, spans)
-    F = frozen_stage_count(spans, boundary)
-    S_hot = n_stages - F
+    _ring_geometry(cfg, n_stages, boundary, spans)
     if not 0 <= owner < n_stages:
         raise ValueError(f"owner {owner} outside the ring of {n_stages}")
+    geometry = dict(n_stages=n_stages, boundary=boundary, n_micro=n_micro, spans=spans,
+                    impl=impl)
 
     def round_fn(stage_blocks, shared, tokens, labels, record=None):
-        my_tokens, my_labels = tokens[owner], labels[owner]          # [M, mb, seq]
-        if my_tokens.shape[0] != n_micro:
-            raise ValueError(f"{my_tokens.shape[0]} microbatches, the round was built for "
-                             f"{n_micro}")
-        mb, seq = my_tokens.shape[1], my_tokens.shape[2]
-        pos = torch.arange(seq, device=my_tokens.device).expand(mb, seq)
-        ctx = BlockCtx(cfg=cfg, mode="seq", positions=pos, impl=impl)
         rec = (lambda phase: None) if record is None else (
             lambda phase: lambda ticks: record(phase, ticks))
-
+        phase_a = ring_phase_a(cfg, record=rec("a"), **geometry)
+        phase_b = ring_phase_b(cfg, record=rec("b"), **geometry)
         # 1. the owner embeds; 2. Phase A: the frozen trunk, forward only
-        with torch.no_grad():
-            h = [tfm.embed(cfg, shared, my_tokens[m], pos) for m in range(n_micro)]
-            if F > 0:
-                h = _tick_phase(cfg, stage_blocks, h, 0, F, ctx, rec("a"))
+        h_B = phase_a(stage_blocks, gather_embeddings(cfg, shared, tokens[owner]))
         # === the early-stop point: no gradient flows below stage F ===
-        h = [x.detach() for x in h]
-        # 3. Phase B: the hot stages, with autograd
-        outs = _tick_phase(cfg, stage_blocks, h, F, S_hot, ctx, rec("b"))
-        # 4. back at the owner: the loss on its own labels, fp32, no mask
-        terms = []
-        for m, hm in enumerate(outs):
-            lf = tfm.head(cfg, shared, hm).float()
-            lse = torch.logsumexp(lf, dim=-1)
-            gold = torch.gather(lf, -1, my_labels[m][..., None])[..., 0]
-            terms.append(lse - gold)
-        return torch.stack(terms).mean()
+        # 3. Phase B: the hot stages, with autograd; 4. the owner's loss
+        return phase_b(stage_blocks, shared, h_B, labels[owner])
 
     return round_fn
 
@@ -273,21 +375,19 @@ def pipeline_tick_counts(n_stages: int, n_micro: int, boundary: int,
                          lps: Optional[int] = None, *, cached: bool = False,
                          packed: bool = False,
                          spans: Optional[Sequence[Span]] = None) -> Dict[str, int]:
-    """Tick counts of one owner iteration, unpacked and uncached: Phase A
-    ``M + F - 1`` ticks (none when F = 0), Phase B ``M + S_hot - 1`` forward
-    and as many backward. ``phase_a_round_ticks`` is the round's Phase-A
-    total, ``S (M + F - 1)``. Pass ``lps`` (``F = boundary // lps``) or a
-    uniform ``spans`` layout."""
-    if packed:
-        raise NotImplementedError("the packed Phase-A conveyor is not ported yet (ROADMAP.md "
-                                  "Queue 1, item 4: the fused executor)")
+    """Tick counts of a round, in stage ticks. Per owner iteration: Phase A
+    ``M + F - 1`` ticks (none when F = 0, or when ``packed`` hoists it out of
+    the iteration), Phase B ``M + S_hot - 1`` forward and as many backward.
+    ``phase_a_round_ticks`` is the round's Phase-A total, ``S (M + F - 1)``
+    per owner or ``S M + F - 1`` packed; ``phase_a_saved_ticks`` the packed
+    conveyor's saving, ``(S - 1)(F - 1)``. Pass ``lps`` (uniform layouts, ``F
+    = boundary // lps``) or ``spans`` (any layout). The activation cache's
+    ``cached`` counts are not ported yet."""
     if cached:
         raise NotImplementedError("the frozen-trunk activation cache is not ported yet "
                                   "(ROADMAP.md Queue 1, item 5)")
     if spans is not None:
         spans = normalize_spans(spans)
-        if is_ragged(spans):
-            raise NotImplementedError(f"{RAGGED_LATER}: {list(spans)}")
         assert lps is None or lps * n_stages == spans[-1][1], \
             "pass lps or spans, not disagreeing both"
         F = frozen_stage_count(spans, boundary)
@@ -295,10 +395,16 @@ def pipeline_tick_counts(n_stages: int, n_micro: int, boundary: int,
         assert lps is not None, "pass lps or spans"
         F = boundary // lps
     S_hot = n_stages - F
-    phase_a = 0 if F == 0 else n_micro + F - 1
+    phase_a = 0 if (packed or F == 0) else n_micro + F - 1
+    if F == 0:
+        a_round = 0
+    elif packed:
+        a_round = n_stages * n_micro + F - 1
+    else:
+        a_round = n_stages * (n_micro + F - 1)
     return {"fwd_ticks": phase_a + n_micro + S_hot - 1,
             "bwd_ticks": n_micro + S_hot - 1,
             "frozen_stages": F,
             "hot_stages": S_hot,
-            "phase_a_round_ticks": n_stages * phase_a,
-            "phase_a_saved_ticks": 0}
+            "phase_a_round_ticks": a_round,
+            "phase_a_saved_ticks": (n_stages - 1) * (F - 1) if packed and F > 0 else 0}

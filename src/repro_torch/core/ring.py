@@ -15,8 +15,9 @@ experiments), so a round is S owner iterations. Each iteration:
     stay bit-identical, and the head at every iteration.
 
 The adapters' moments live in the stage layout beside the adapters; the
-head's are one pair. The fused executor that runs a whole round as one
-program is ROADMAP.md Queue 1, item 4.
+head's are one pair. Any span layout runs, ragged ones (the heterogeneous
+ring) included. ``core/executor.RingExecutor`` runs the same round as one
+program (one CUDA graph per boundary); this class stays its oracle.
 """
 from __future__ import annotations
 
@@ -49,7 +50,7 @@ class RingTrainer:
         self.cfg, self.tc, self.impl = cfg, tc, impl
         self.S, self.M = n_stages, n_micro
         self.spans = pl.resolve_spans(cfg.repeats, n_stages, spans)
-        self.lps = cfg.repeats // n_stages
+        self.lps = None if pl.is_ragged(self.spans) else cfg.repeats // n_stages
         self.stage_blocks, self.shared = pl.stage_stack(params, cfg, n_stages, spans=self.spans)
         self._params_rest = {k: v for k, v in params.items() if k != "blocks"}
         self.m_ad, self.v_ad = adamw.init_moments(self.stage_adapters())

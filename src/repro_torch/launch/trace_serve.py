@@ -5,8 +5,10 @@ At the serving path's shapes: one architecture at its published width
 from seed 0, non-zero adapters), a batch of 4 prompts of 512 tokens (hymba
 puts its 128 meta tokens before each: 640 prefill positions), then 4 decode steps. For prefill and for decode it prints the host wall time
 without the profiler (taken before the profiler first runs), the device time
-summed over kernels (traced), the device's idle share of the unprofiled wall
-time, the kernel launches, the kernels that took the most device time, and the
+summed over kernels (traced), the traced device span (the first device
+event's start to the last one's end) and its gap to that sum (the device's
+idle time between the traced events; below 0 where events overlap), the
+device's idle share of the unprofiled wall time, the kernel launches, the kernels that took the most device time, and the
 device time of each of the port's own kernels.
 
     PYTHONPATH=src python -m repro_torch.launch.trace_serve [--arch rwkv6-7b | hymba-1.5b]
@@ -49,8 +51,11 @@ def traced(fn, device: torch.device, label: str, unprofiled_ms: float) -> None:
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
     launches = sum(e.count for e in events)
+    ranges = [e.time_range for e in prof.events() if e.device_type.name == "CUDA"]
+    span_ms = (max(r.end for r in ranges) - min(r.start for r in ranges)) / 1e3 if ranges else 0.0
     print(f"[{label}] wall_ms={unprofiled_ms:.3f} traced_wall_ms={traced_wall_ms:.3f} "
-          f"device_ms={device_ms:.3f} idle_share={1 - device_ms / unprofiled_ms:.3f} "
+          f"device_ms={device_ms:.3f} device_span_ms={span_ms:.3f} "
+          f"span_gap_ms={span_ms - device_ms:.3f} idle_share={1 - device_ms / unprofiled_ms:.3f} "
           f"kernel_launches={launches}")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:TOP]:
         print(f"[{label}]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "

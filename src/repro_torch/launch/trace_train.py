@@ -8,22 +8,33 @@ block only, and every block) it runs one train step to warm up,
 then prints the step's host wall time without the profiler, the memory
 resident before it, its peak device memory (``torch.cuda.max_memory_allocated``)
 and the peak of its forward and backward alone, then the traced step's
-device time summed over kernels, the device's idle share of the unprofiled
+device time summed over kernels, the traced device span (first device event
+to last) and its gap to that sum, the device's idle share of the unprofiled
 wall time, the kernels that took the most device time and the port's own
 kernels (forward and backward).
 
 ``--mode ring`` traces the RingAda ring round instead: ``--stages`` stages of
-the model on the card (4 by default), ``RingTrainer`` with each owner's data
-``--microbatches`` microbatches of 1 x ``--seq-len`` tokens (4 x 512 by
-default: one owner iteration sees one single-device step's tokens). For each
-depth (default: one, two and every stage's layers) it runs one round to warm
-up, one unprofiled round (wall time) and one traced round, on the same
-batch; it prints the memory resident before, the round's peak and the peak
-of one owner iteration's ring forward and backward alone, the kernel
-launches per owner iteration, then the traced round as above.
+the model on the card (4 by default), each owner's data ``--microbatches``
+microbatches of 1 x ``--seq-len`` tokens (4 x 512 by default: one owner
+iteration sees one single-device step's tokens), for each depth (default:
+one, two and every stage's layers), on the same batch:
+
+  * ``--trainer fused`` (the default), ``RingExecutor``: one round builds the
+    depth's CUDA graph (warm-up, capture, replay), then one unprofiled
+    replay (wall time, and device time by CUDA events) and one traced
+    replay; it prints the memory resident before, the build's peak, the
+    graph's reserved memory, the capture's seconds and the kernel launches
+    it recorded;
+  * ``--trainer reference``, ``RingTrainer``: one round to warm up, one
+    unprofiled round and one traced round; it prints the memory resident
+    before, the round's peak and the peak of one owner iteration's ring
+    forward and backward alone, and the kernel launches per owner iteration;
+
+then the traced round as above.
 
     PYTHONPATH=src python -m repro_torch.launch.trace_train [--arch stablelm-3b] [--depths 1 32]
-    PYTHONPATH=src python -m repro_torch.launch.trace_train --mode ring --arch stablelm-3b
+    PYTHONPATH=src python -m repro_torch.launch.trace_train --mode ring --arch stablelm-3b \
+        [--trainer reference]
 
 It needs a CUDA card: the numbers are device metrics.
 """
@@ -38,6 +49,7 @@ import torch
 from repro_torch import device as dev_rule
 from repro_torch.configs import TrainConfig, get_config
 from repro_torch.core import training
+from repro_torch.core.executor import RingExecutor
 from repro_torch.core.ring import RingTrainer
 from repro_torch.core.unfreeze import UnfreezeSchedule, depth_to_boundary
 from repro_torch.data.pipeline import to_device
@@ -49,12 +61,45 @@ from repro_torch.optim import adamw
 SEED = 0
 
 
+def trace_ring_fused(cfg, tc, depths, device) -> None:
+    S, M = tc.n_stages, tc.n_microbatches
+    ex = RingExecutor(cfg, tc, prm.materialize(cfg, seed=SEED, device=device), S, M)
+    tokens, labels = ex.to_device(*ring_data_source(cfg, tc, S).next())
+    run = lambda: ex.round(tokens, labels)
+    for depth in depths:
+        ex.sched = UnfreezeSchedule(depths=(depth,), interval=S)
+        boundary = ex.boundary_at(ex.step)
+        resident = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        build = wall_ms(run, device)                    # warm-up, capture, replay
+        peak = torch.cuda.max_memory_allocated(device)
+        unprofiled = wall_ms(run, device)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        run()
+        e1.record()
+        torch.cuda.synchronize(device)
+        print(f"[trace] arch={cfg.name} ring fused stages={S} "
+              f"microbatches={M}x1x{tc.seq_len} depth={depth} boundary={boundary} "
+              f"resident_gib={resident / 2**30:.3f} build_peak_gib={peak / 2**30:.3f} "
+              f"reserved_gib={torch.cuda.memory_reserved(device) / 2**30:.3f} "
+              f"build_ms={build:.1f} capture_s={ex.capture_seconds[boundary]:.2f} "
+              f"replay_event_ms={e0.elapsed_time(e1):.3f} "
+              f"launches_at_capture="
+              f"{json.dumps(ex.capture_launches[boundary]).replace(' ', '')} "
+              f"device={torch.cuda.get_device_name(device)}")
+        traced(run, device, f"ring fused depth {depth}", unprofiled)
+
+
 def trace_ring(cfg, args, device) -> None:
     S, M = args.stages, args.microbatches
     tc = TrainConfig(learning_rate=RING_LR, batch_size=1, seq_len=args.seq_len, n_microbatches=M,
                      n_stages=S, seed=SEED)
     lps = cfg.n_layers // S
     depths = tuple(args.depths or (lps, 2 * lps, cfg.n_layers))
+    if args.trainer == "fused":
+        trace_ring_fused(cfg, tc, depths, device)
+        return
     trainer = RingTrainer(cfg, tc, prm.materialize(cfg, seed=SEED, device=device), S, M)
     tokens, labels = trainer.to_device(*ring_data_source(cfg, tc, S).next())
     run = lambda: trainer.round(tokens, labels)
@@ -83,6 +128,8 @@ def main(argv=None) -> None:
     ap.add_argument("--arch", default="qwen2.5-3b", help="a dense port architecture")
     ap.add_argument("--mode", choices=["pjit", "ring"], default="pjit",
                     help="pjit: the single-device step; ring: the ring round")
+    ap.add_argument("--trainer", choices=["fused", "reference"], default="fused",
+                    help="ring mode: RingExecutor's CUDA graphs or the RingTrainer oracle")
     ap.add_argument("--stages", type=int, default=4, help="ring mode: ring stages")
     ap.add_argument("--microbatches", type=int, default=4,
                     help="ring mode: microbatches of 1 x seq-len per owner")

@@ -7,21 +7,27 @@ boundary; each step trains the head and the adapters above the boundary on a
 batch of the merged synthetic client corpora, and prints one loss line with
 its boundary.
 
-``--mode ring --trainer reference``: ``--stages`` stages of the model on the
-device, each client with its own corpus, ``--rounds`` rounds of
-:class:`~repro_torch.core.ring.RingTrainer` (every client the initiator once a
-round, ``--microbatches`` microbatches of ``--batch-size`` rows each); one
-line per round with its boundary, depth, loss and wall time, then the last
-round's record as JSON. The depth grows by one block every
-``--unfreeze-interval`` owner iterations (default: one round, the stage
-count). ``--trainer fused`` (the reference's default) is the fused executor,
-not ported yet. The ring's lr defaults to ``RING_LR``.
+``--mode ring``: ``--stages`` stages of the model on the device, each client
+with its own corpus, ``--rounds`` rounds (every client the initiator once a
+round, ``--microbatches`` microbatches of ``--batch-size`` rows each) of
+:class:`~repro_torch.core.executor.RingExecutor` (``--trainer fused``, the
+default: one CUDA graph per boundary on the card; ``--no-packed`` runs Phase A
+per owner) or of its oracle :class:`~repro_torch.core.ring.RingTrainer`
+(``--trainer reference``); one line per round with its boundary, depth, loss
+and wall time, then the last round's record as JSON. The depth grows by one
+block every ``--unfreeze-interval`` steps (owner iterations in ring mode; 40
+by default, as the reference's CLI). ``--device-speeds`` gives each stage a
+relative speed and the spans come from the speed-weighted partitioner
+(``partition.spans_from_profiles``); the balanced layout otherwise. The
+ring's lr defaults to ``RING_LR``.
 
 Usage (on a machine with an NVIDIA GPU; ``--device cpu`` runs the plain versions):
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b --reduced \\
         --steps 12 --unfreeze-interval 4
-    PYTHONPATH=src python -m repro_torch.launch.train --mode ring --trainer reference \\
-        --arch stablelm-3b --reduced --stages 2 --rounds 4
+    PYTHONPATH=src python -m repro_torch.launch.train --mode ring --arch stablelm-3b \\
+        --reduced --stages 2 --rounds 4 --unfreeze-interval 2
+    PYTHONPATH=src python -m repro_torch.launch.train --mode ring --arch stablelm-3b \\
+        --reduced --layers 14 --stages 4 --rounds 2 --device-speeds 1.0,1.25,0.5,0.75
 """
 from __future__ import annotations
 
@@ -37,6 +43,8 @@ from repro_torch import device as dev_rule
 from repro_torch.configs import TrainConfig, get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import training
+from repro_torch.core.executor import RingExecutor
+from repro_torch.core.partition import parse_device_profiles, spans_from_profiles
 from repro_torch.core.ring import RingTrainer
 from repro_torch.core.unfreeze import UnfreezeSchedule, boundary_schedule
 from repro_torch.data.pipeline import (Batcher, RingBatcher, make_client_datasets, merged,
@@ -52,8 +60,6 @@ from repro_torch.optim import adamw
 # three rounds, where the plain versions on the same weights agree with the
 # kernels (launch/ring_lr.py --probe; PERF.md). So the ring trains at 1e-4.
 RING_LR = 1e-4
-FUSED_LATER = ("--mode ring --trainer fused is not ported yet (ROADMAP.md Queue 1, item 4: "
-               "the fused executor); --trainer reference runs the ring (Queue 1, item 3)")
 
 
 def data_source(cfg: ModelConfig, tc: TrainConfig, n_clients: int = 4,
@@ -74,25 +80,31 @@ def ring_data_source(cfg: ModelConfig, tc: TrainConfig, n_stages: int,
 
 
 def train_ring(cfg: ModelConfig, tc: TrainConfig, *, rounds: int, n_stages: int,
+               trainer: str = "fused", spans=None, packed: bool = True,
                device=None) -> Dict[str, Any]:
-    """``rounds`` rounds of :class:`RingTrainer` on ``device`` (default cuda)
-    from random weights made from ``tc.seed``; returns the trainer and the
-    per-round history."""
+    """``rounds`` rounds of :class:`RingExecutor` (``trainer="fused"``) or
+    :class:`RingTrainer` (``"reference"``) on ``device`` (default cuda) from
+    random weights made from ``tc.seed``, over the layout ``spans`` (default
+    balanced); returns the trainer and the per-round history."""
     device = dev_rule.resolve(device)
     params = prm.materialize(cfg, seed=tc.seed, device=device)
-    trainer = RingTrainer(cfg, tc, params, n_stages, tc.n_microbatches)
+    if trainer == "fused":
+        ring = RingExecutor(cfg, tc, params, n_stages, tc.n_microbatches, spans=spans,
+                            packed=packed)
+    else:
+        ring = RingTrainer(cfg, tc, params, n_stages, tc.n_microbatches, spans=spans)
     del params
     data = ring_data_source(cfg, tc, n_stages)
     history = []
     for r in range(rounds):
         t0 = time.perf_counter()
-        rec = trainer.round(*data.next())
+        rec = RingExecutor.materialize_metrics(ring.round(*data.next()))
         rec = {"round": r, **rec, "depth": (cfg.repeats - rec["boundary"]) * cfg.layers_per_repeat,
                "round_ms": 1e3 * (time.perf_counter() - t0)}
         history.append(rec)
         print(f"round {r} boundary {rec['boundary']} depth {rec['depth']} "
-            f"loss {rec['loss']:.4f} round_ms {rec['round_ms']:.1f}")
-    return {"trainer": trainer, "history": history}
+              f"loss {rec['loss']:.4f} round_ms {rec['round_ms']:.1f}")
+    return {"trainer": ring, "history": history}
 
 
 def train(cfg: ModelConfig, tc: TrainConfig, *, steps: int, device=None) -> Dict[str, Any]:
@@ -125,8 +137,7 @@ def main(argv=None) -> None:
     ap.add_argument("--mode", choices=["pjit", "ring"], default="pjit",
                     help="pjit: one device; ring: the RingAda ring, its stages on the device")
     ap.add_argument("--trainer", choices=["fused", "reference"], default="fused",
-                    help="ring mode: the fused executor (not ported yet) or the RingTrainer "
-                         "oracle")
+                    help="ring mode: the fused RingExecutor or the RingTrainer oracle")
     ap.add_argument("--reduced", action="store_true", help="the reduced config")
     ap.add_argument("--layers", type=int, default=None,
                     help="override the block count (after --reduced; a multiple of the "
@@ -141,15 +152,18 @@ def main(argv=None) -> None:
     ap.add_argument("--lr", type=float, default=None,
                     help=f"default 1e-3, in ring mode RING_LR ({RING_LR})")
     ap.add_argument("--initial-unfreeze-depth", type=int, default=1)
-    ap.add_argument("--unfreeze-interval", type=int, default=None,
-                    help="steps (ring mode: owner iterations) between unfreezes; default 40, "
-                         "in ring mode the stage count (one more block a round)")
+    ap.add_argument("--unfreeze-interval", type=int, default=40,
+                    help="steps (ring mode: owner iterations) between unfreezes")
     ap.add_argument("--max-unfreeze-depth", type=int, default=None)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device-speeds", default=None,
+                    help="ring mode: comma-separated relative speeds, one per stage in ring "
+                         "order (e.g. 1.0,1.25,0.5,0.75); faster stages hold longer spans "
+                         "(default: balanced spans)")
+    ap.add_argument("--no-packed", action="store_true",
+                    help="ring mode, fused: Phase A per owner instead of one conveyor a round")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.mode == "ring" and args.trainer == "fused":
-        raise NotImplementedError(FUSED_LATER)
 
     device = dev_rule.resolve(args.device)
     cfg = get_config(args.arch)
@@ -161,18 +175,26 @@ def main(argv=None) -> None:
             raise SystemExit(f"--layers {args.layers} must be a multiple of {cfg.name}'s "
                              f"layers-per-repeat ({per})")
         cfg = dataclasses.replace(cfg, n_layers=args.layers, repeats=args.layers // per)
-    interval = args.unfreeze_interval
-    if interval is None:
-        interval = args.stages if args.mode == "ring" else 40
     lr = args.lr if args.lr is not None else RING_LR if args.mode == "ring" else 1e-3
     tc = TrainConfig(learning_rate=lr, batch_size=args.batch_size, seq_len=args.seq_len,
                      steps=args.steps, initial_unfreeze_depth=args.initial_unfreeze_depth,
-                     unfreeze_interval=interval, max_unfreeze_depth=args.max_unfreeze_depth,
+                     unfreeze_interval=args.unfreeze_interval,
+                     max_unfreeze_depth=args.max_unfreeze_depth,
                      n_stages=args.stages, n_microbatches=args.microbatches, seed=args.seed)
     if args.mode == "pjit":
         train(cfg, tc, steps=args.steps, device=device)
         return
-    out = train_ring(cfg, tc, rounds=args.rounds, n_stages=args.stages, device=device)
+    spans = None
+    if args.device_speeds:
+        speeds = [float(x) for x in args.device_speeds.split(",")]
+        profiles = parse_device_profiles(speeds)
+        if len(profiles) != args.stages:
+            raise SystemExit(f"{len(profiles)} device speeds for a {args.stages}-stage ring: "
+                             f"give one per stage, in ring order")
+        spans = spans_from_profiles(cfg.repeats, profiles)
+        print(f"heterogeneous ring: speeds {speeds} -> spans {[list(sp) for sp in spans]}")
+    out = train_ring(cfg, tc, rounds=args.rounds, n_stages=args.stages, trainer=args.trainer,
+                     spans=spans, packed=not args.no_packed, device=device)
     last = {k: v for k, v in out["history"][-1].items() if k != "iterations"}
     print(json.dumps(last))
 

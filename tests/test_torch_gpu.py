@@ -523,3 +523,52 @@ def test_backward_kernels_are_deterministic_on_card(dtype):
     for _ in range(4):
         again = fa.flash_attention_bwd(q, k, v, out, lse, dout)
         assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.gpu
+def test_ring_executor_replay_equals_eager_round_on_card():
+    """The executor's round as a CUDA graph against the same round run
+    eagerly from the same state (``make_fused_round`` on a copy of the
+    executor's tensors): the losses and every parameter, moment and the step
+    count, bit for bit, over the boundary's first round (warm-up, capture,
+    replay) and a second one (replay). Reduced stablelm-3b in bf16, 8 layers
+    as S = 4 stages, boundary 4 (two frozen stages, the packed conveyor).
+    Bit for bit because the replay launches the kernels the capture
+    recorded, on the same shapes, and none of them sums in an order that
+    varies from run to run: the port's kernels add their partial sums in a
+    fixed order, and cuBLAS chooses its algorithm by shape."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: CUDA graphs and the kernels have no CPU mode")
+    import dataclasses
+
+    from torch.utils._pytree import tree_leaves, tree_map
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.core.executor import RingExecutor, make_fused_round
+    from repro_torch.core.unfreeze import UnfreezeSchedule
+    from repro_torch.models import params as prm
+
+    cfg = get_config("stablelm-3b").reduced(n_layers=8, repeats=8)
+    cfg = dataclasses.replace(cfg, adapter=dataclasses.replace(cfg.adapter, zero_init_up=False))
+    S, M, seq = 4, 2, 64
+    tc = TrainConfig(learning_rate=1e-4, n_microbatches=M, batch_size=1, seq_len=seq)
+    ex = RingExecutor(cfg, tc, prm.materialize(cfg, seed=0, device="cuda"), S, M,
+                      schedule=UnfreezeSchedule(depths=(4,), interval=S))
+    boundary = ex.boundary_at(0)
+    assert boundary == 4
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    for r in range(2):
+        tokens, labels = (torch.randint(0, cfg.vocab_size, (S, M, 1, seq), generator=gen,
+                                        device="cuda") for _ in range(2))
+        eager = tuple(tree_map(torch.clone, x) for x in (ex.stage_blocks, ex.shared,
+                                                          ex.opt_state))
+        fn = make_fused_round(cfg, tc, n_stages=S, boundary=boundary, n_micro=M,
+                              spans=ex.spans)
+        want, _ = fn(*eager, tokens, labels)
+        got = ex.round(tokens, labels)
+        assert torch.equal(got["losses"], want), (r, got["losses"], want)
+        mine = tree_leaves((ex.stage_blocks, ex.shared, ex.opt_state))
+        for i, (a, b) in enumerate(zip(mine, tree_leaves(eager), strict=True)):
+            assert torch.equal(a, b), f"round {r}: leaf {i} {tuple(a.shape)}"
+    assert ex.compile_counts() == {"4/direct": 1}
+    assert ex.capture_launches[4]["adapter_fused_bwd"] == S * (8 - 4) * M

@@ -557,8 +557,9 @@ def test_trainable_split_merge_and_write_back():
 
 
 def test_train_cli_on_the_cpu(capsys):
-    """One loss line per step with its boundary, the boundary walking down;
-    the ring mode and a missing card are refusals, not fallbacks."""
+    """One loss line per step with its boundary, the boundary walking down; a
+    missing card is a refusal, not a fallback. (The ring mode's CLI is held in
+    tests/test_torch_ring.py and tests/test_torch_executor.py.)"""
     from repro_torch.launch import train
 
     train.main(["--device", "cpu", "--reduced", "--steps", "3", "--unfreeze-interval", "2",
@@ -568,8 +569,6 @@ def test_train_cli_on_the_cpu(capsys):
                                                 ["step", "1", "boundary", "1"],
                                                 ["step", "2", "boundary", "0"]]
     assert all(np.isfinite(float(ln.split()[5])) for ln in lines)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
-        train.main(["--mode", "ring", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train.main(["--reduced", "--steps", "1"])
