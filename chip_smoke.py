@@ -101,7 +101,24 @@ run with a non-zero exit and no result line:
      from the same state are timed (host wall and CUDA events) and undone,
      and the capture seconds and the build's peak are printed. Then the
      heterogeneous ring of ``--device-speeds 1.0,1.25,0.5,0.75`` (spans of 9,
-     12, 4 and 7 layers) the same way, for two rounds at depths 7 and 11;
+     12, 4 and 7 layers) the same way, for two rounds at depths 7 and 11.
+     Then the frozen-trunk activation cache on fresh weights of the same
+     ring (``phase_ring_cache``): a ``RingExecutor`` with a cache of 2
+     entries walks batch slots 0, 1, 0, 1 at depths 8 and 16 (capture,
+     capture, hit, hit at 3 and then 2 frozen stages, the drop invalidating
+     the cache), each round against a direct ``RingExecutor`` seeded with
+     its state before the round: the losses and every tensor a round writes
+     equal (``torch.equal``), ``stats()`` after every round at its literal
+     counts (4 hits, 4 misses, 1 invalidation, no eviction or bypass at the
+     end), the graph each round replays holding the direct graph's launches
+     (capture) or Phase B's alone ((L - b) M S of each forward kernel,
+     cached), a build counting its graph's launches twice and a replay none,
+     and the tick ledgers at ``pipeline_tick_counts`` (packed; cached); each
+     round's device ms by CUDA events beside the direct round's, the
+     buffer's bytes, the builds' seconds, the peak and reserved memory.
+     Then one int8 round at 3 frozen stages (a capture, then the cached
+     round) against the direct round from the same state, within the
+     reference's calibrated 8e-2 (losses) and 2e-1 (parameters);
   4. rwkv6-7b at its published width (32 layers, d_model 4096, 64 heads of 64,
      vocab 65536), random weights from the seed with non-zero adapters, served
      by ``BatchServer`` as in phase 3 (qwen2.5-3b is freed first); the counters
@@ -243,6 +260,13 @@ RING_S, RING_M, RING_DEPTHS = 4, 4, (8, 16, 32)
 # 32 layers gives spans of 9, 12, 4 and 7, at depths 7 and 11 (3 and 2 frozen
 # stages, both on the packed conveyor)
 RING_SPEEDS, HETERO_DEPTHS = (1.0, 1.25, 0.5, 0.75), (7, 11)
+# the activation cache on the same ring (phase_ring_cache): 2 batch slots and a
+# cache of 2 entries, slots 0, 1, 0, 1 at depths 8 and 16 (3 and 2 frozen
+# stages): capture, capture, hit, hit, then the drop and its invalidation; then
+# one int8 round at depth 8, held to the direct round at the reference's
+# calibrated tolerances (tests/test_packed.py: losses 8e-2, parameters 2e-1)
+CACHE_SLOTS, CACHE_DEPTHS = 2, (8, 16)
+INT8_LOSS_TOL, INT8_PARAM_TOL = 8e-2, 2e-1
 SOURCES = {
     "adapter_fused": ("src/repro_torch/kernels/csrc/adapter_fused.cu",
                       "src/repro/kernels/adapter_fused.py:55"),
@@ -1321,7 +1345,7 @@ def _fused_round(cfg, ex, trainer, tokens, labels, boundary, rec, before, want) 
     build_ms = 1e3 * (time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated() / 2**30
     build_launches = dict(ops.LAUNCHES)
-    captured = ex.capture_launches[boundary]
+    captured = ex.capture_launches[(boundary, "direct")]
     for t, was in zip(ex.trainable_tensors(), start):
         t.copy_(was)
     ex.step = start_step
@@ -1370,7 +1394,8 @@ def _fused_round(cfg, ex, trainer, tokens, labels, boundary, rec, before, want) 
         worst_loss_gap=f"{max(loss_gaps):.3g}", loss_rtol=TRAIN_LOSS_RTOL, worst_leaf=worst,
         worst_update_gap=f"{gaps[worst]:.3g}", grad_rms_rtol=GRAD_RMS_RTOL,
         state_equal=not unequal and losses == want_losses, frozen_same=frozen_same,
-        capture_s=f"{ex.capture_seconds[boundary]:.2f}", build_round_ms=f"{build_ms:.1f}",
+        capture_s=f"{ex.capture_seconds[(boundary, 'direct')]:.2f}",
+        build_round_ms=f"{build_ms:.1f}",
         checked_replay_ms=f"{replay_ms:.1f}", replay_wall_ms=json.dumps(walls),
         replay_device_ms=json.dumps(devices), build_peak_gib=f"{peak:.3f}",
         reserved_gib=f"{torch.cuda.memory_reserved() / 2**30:.3f}",
@@ -1489,6 +1514,172 @@ def phase_ring(arch: str, records) -> None:
     _ring_walk(cfg, tc, params, records, HETERO_DEPTHS, spans, "ring_hetero")
 
 
+def _copy_state(dst, src) -> None:
+    """Seed executor ``dst`` with ``src``'s trainable state and step (in place:
+    the executors' graphs read and write these tensors)."""
+    for a, b in zip(dst.trainable_tensors(), src.trainable_tensors(), strict=True):
+        a.copy_(b)
+    dst.step = src.step
+
+
+def _event_round(fn):
+    """``fn()``'s result and its device ms by CUDA events."""
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return out, e0.elapsed_time(e1)
+
+
+def _cache_round(exc, exd, tokens, labels, slot):
+    """One round of the cached executor ``exc`` and of the direct ``exd``
+    seeded with its state before it: (the cached round's record, its event
+    ms, the direct's, the eager launches the cached round counted, whether
+    the losses and every tensor a round writes are equal)."""
+    _copy_state(exd, exc)
+    ops.reset_launches()
+    out, ms = _event_round(lambda: exc.round(tokens, labels, slot=slot))
+    counted = dict(ops.LAUNCHES)
+    want, direct_ms = _event_round(lambda: exd.round(tokens, labels))
+    equal = torch.equal(out["losses"], want["losses"]) and all(
+        torch.equal(a, b) for a, b in zip(exc.trainable_tensors(), exd.trainable_tensors(),
+                                          strict=True))
+    return out, want, ms, direct_ms, counted, equal
+
+
+def phase_ring_cache(arch: str, records) -> None:
+    """The frozen-trunk activation cache on the ring of ``phase_ring``: a
+    ``RingExecutor`` with a cache of CACHE_SLOTS entries walks slots 0, 1, 0,
+    1 at each of CACHE_DEPTHS, each round against a direct ``RingExecutor``
+    seeded with its state before it (losses and every tensor a round writes
+    equal, ``torch.equal``); ``stats()`` after each round, the launches of
+    the graph each round replays (a capture graph the direct graph's, a
+    cached graph Phase B's alone) and the eager launches (a build counts its
+    graph's twice, a replay none), the tick ledgers; then one int8 round."""
+    cfg = served_config(arch)
+    tc = TrainConfig(learning_rate=RING_LR, batch_size=1, seq_len=TRAIN_S,
+                     n_microbatches=RING_M, n_stages=RING_S, seed=SEED)
+    params = prm.materialize(cfg, seed=SEED, device="cuda")
+    per_depth = 2 * CACHE_SLOTS
+    sched = UnfreezeSchedule(depths=CACHE_DEPTHS, interval=per_depth * RING_S)
+    exc = RingExecutor(cfg, tc, params, RING_S, RING_M, schedule=sched,
+                       cache_capacity=CACHE_SLOTS)
+    exd = RingExecutor(cfg, tc, params, RING_S, RING_M, schedule=sched)
+    data = ring_data_source(cfg, tc, RING_S, slots_per_epoch=CACHE_SLOTS)
+    L, per = cfg.n_layers, cfg.layers_per_repeat
+    launches = {name: 0 for name in ops.LAUNCHES}
+    # (hits, misses, invalidations) after each round of the walk
+    want_stats = [(0, 1, 0), (0, 2, 0), (1, 2, 0), (2, 2, 0), (2, 3, 1), (2, 4, 1), (3, 4, 1),
+                  (4, 4, 1)]
+    say("ring_cache_setup", arch=cfg.name, stages=RING_S, microbatches=RING_M,
+        microbatch=f"1x{TRAIN_S}", slots=CACHE_SLOTS, capacity=CACHE_SLOTS,
+        depths=list(CACHE_DEPTHS), lr=RING_LR,
+        gib_on_card=f"{torch.cuda.memory_allocated() / 2**30:.2f}")
+    timed = {}
+    for r in range(per_depth * len(CACHE_DEPTHS)):
+        if r % per_depth == 0:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        slot, tokens, labels = data.next_slot()
+        tokens, labels = exc.to_device(tokens, labels)
+        out, want, ms, direct_ms, counted, equal = _cache_round(exc, exd, tokens, labels, slot)
+        boundary = out["boundary"]
+        F, b = frozen_stage_count(exc.spans, boundary), boundary * per
+        mode = "cached" if out["cache_hit"] else "capture"
+        graph = exc.capture_launches[(boundary, mode)]
+        for name, n in graph.items():
+            launches[name] += n
+        st = exc.cache.stats()
+        phase_b = (L - b) * RING_M * RING_S
+        want_graph = exd.capture_launches[(boundary, "direct")] if mode == "capture" else {
+            "adapter_fused": phase_b, "flash_attention": phase_b, "adapter_fused_bwd": phase_b,
+            "flash_attention_bwd": (L - b - 1) * RING_M * RING_S, "mamba_scan": 0,
+            "rwkv_scan": 0}
+        built = r % per_depth in (0, 2)                 # the first capture, the first hit
+        want_counted = {k: 2 * n for k, n in graph.items()} if built else \
+            {k: 0 for k in graph}
+        ledger = exc.measured_tick_ledger(boundary, mode)
+        ticks = ring_pl.pipeline_tick_counts(RING_S, RING_M, boundary, spans=exc.spans,
+                                             packed=mode == "capture", cached=mode == "cached")
+        if r % per_depth in (1, 3):                     # replays
+            timed[(F, mode)] = ms
+            timed[(F, "direct")] = timed.get((F, "direct"), []) + [direct_ms]
+        say("ring_cache_round", round=r, slot=slot, boundary=boundary, frozen_stages=F,
+            mode=mode, losses=json.dumps([round(x, 5) for x in out["losses"].tolist()]),
+            equal_to_direct=equal, hits=st["cache_hits"], misses=st["cache_misses"],
+            invalidations=st["cache_invalidations"], evictions=st["cache_evictions"],
+            bypasses=st["cache_bypasses"], event_ms=f"{ms:.3f}",
+            direct_event_ms=f"{direct_ms:.3f}", built=built,
+            launches_in_graph=json.dumps(graph).replace(" ", ""),
+            phase_a_ticks=ledger["phase_a_round_ticks"], card=repr(CARD))
+        if not equal or not all(math.isfinite(x) for x in out["losses"].tolist()):
+            raise AssertionError(f"round {r} ({mode}): the cached executor's round is not the "
+                                 f"direct one's bit for bit: {out['losses'].tolist()} against "
+                                 f"{want['losses'].tolist()}")
+        if (F, out["cache_hit"]) != ((3, 2)[r // per_depth], r % per_depth >= CACHE_SLOTS):
+            raise AssertionError(f"round {r}: F {F}, hit {out['cache_hit']}")
+        got_stats = (st["cache_hits"], st["cache_misses"], st["cache_invalidations"])
+        if got_stats != want_stats[r] or st["cache_evictions"] or st["cache_bypasses"]:
+            raise AssertionError(f"round {r}: stats {st}, expected (hits, misses, "
+                                 f"invalidations) {want_stats[r]}, no eviction, no bypass")
+        if graph != want_graph or counted != want_counted:
+            raise AssertionError(f"round {r} ({mode}): the graph holds {graph}, expected "
+                                 f"{want_graph}; the round counted {counted}, expected "
+                                 f"{want_counted}")
+        if ledger != ticks or exc.compile_counts().get(f"{boundary}/{mode}") != 1:
+            raise AssertionError(f"round {r}: ledger {ledger} != {ticks}, builds "
+                                 f"{exc.compile_counts()}")
+        if r % per_depth == per_depth - 1:
+            say("ring_cache_boundary", boundary=boundary, frozen_stages=F,
+                cached_event_ms=f"{timed[(F, 'cached')]:.3f}",
+                capture_event_ms=f"{timed[(F, 'capture')]:.3f}",
+                direct_event_ms=json.dumps([round(x, 3) for x in timed[(F, 'direct')]]),
+                cache_bytes_per_entry=st["cache_bytes_per_entry"],
+                cache_buffer_bytes=st["cache_buffer_bytes"],
+                capture_s=f"{exc.capture_seconds[(boundary, 'capture')]:.2f}",
+                cached_s=f"{exc.capture_seconds[(boundary, 'cached')]:.2f}",
+                build_peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
+                reserved_gib=f"{torch.cuda.memory_reserved() / 2**30:.3f}",
+                graphs_alive="direct,capture,cached", card=repr(CARD))
+    del exc, exd
+    gc.collect()
+    torch.cuda.empty_cache()
+    # one int8 round at the first depth: a capture, then the cached round
+    # against the direct round from the same state
+    sched = UnfreezeSchedule(depths=CACHE_DEPTHS[:1], interval=RING_S)
+    exq = RingExecutor(cfg, tc, params, RING_S, RING_M, schedule=sched, cache_capacity=1,
+                       cache_dtype="int8")
+    exd = RingExecutor(cfg, tc, params, RING_S, RING_M, schedule=sched)
+    _, tokens, labels = ring_data_source(cfg, tc, RING_S, slots_per_epoch=1).next_slot()
+    tokens, labels = exq.to_device(tokens, labels)
+    first = _cache_round(exq, exd, tokens, labels, 0)
+    out, want, ms, direct_ms, counted, equal = _cache_round(exq, exd, tokens, labels, 0)
+    boundary = out["boundary"]
+    for mode in ("capture", "cached"):
+        for name, n in exq.capture_launches[(boundary, mode)].items():
+            launches[name] += n
+    loss_err = float((out["losses"].float() - want["losses"].float()).abs().max())
+    mine, theirs = _hot_leaves(exq, 3), _hot_leaves(exd, 3)
+    param_err = max(float((mine[k].float() - theirs[k].float()).abs().max()) for k in mine)
+    st = exq.cache.stats()
+    say("ring_cache_int8", boundary=boundary, frozen_stages=3, capture_equal=first[5],
+        cache_hit=out["cache_hit"], losses=json.dumps([round(x, 5) for x in
+                                                       out["losses"].tolist()]),
+        direct_losses=json.dumps([round(x, 5) for x in want["losses"].tolist()]),
+        max_loss_err=f"{loss_err:.3g}", loss_tol=INT8_LOSS_TOL,
+        max_param_err=f"{param_err:.3g}", param_tol=INT8_PARAM_TOL, bit_equal=equal,
+        event_ms=f"{ms:.3f}", direct_event_ms=f"{direct_ms:.3f}",
+        cache_bytes_per_entry=st["cache_bytes_per_entry"], card=repr(CARD))
+    if not (first[5] and out["cache_hit"] and math.isfinite(loss_err)
+            and loss_err < INT8_LOSS_TOL and param_err < INT8_PARAM_TOL):
+        raise AssertionError(f"the int8 round: capture equal {first[5]}, hit "
+                             f"{out['cache_hit']}, loss error {loss_err}, parameter error "
+                             f"{param_err}")
+    count_launches(records, f"{cfg.name}_ring_cached", launches)
+
+
 def freed() -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -1516,6 +1707,8 @@ def main() -> None:
     phase_train_only("stablelm-3b", records)
     freed()                                             # fresh weights for the ring
     phase_ring("stablelm-3b", records)
+    freed()                                             # fresh weights for the cached ring
+    phase_ring_cache("stablelm-3b", records)
     freed()                                             # stablelm-3b before rwkv6-7b
     phase_serve("rwkv6-7b", records, cpu_witness=False)
     freed()                                             # rwkv6-7b before hymba-1.5b

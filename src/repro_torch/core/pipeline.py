@@ -380,12 +380,10 @@ def pipeline_tick_counts(n_stages: int, n_micro: int, boundary: int,
     the iteration), Phase B ``M + S_hot - 1`` forward and as many backward.
     ``phase_a_round_ticks`` is the round's Phase-A total, ``S (M + F - 1)``
     per owner or ``S M + F - 1`` packed; ``phase_a_saved_ticks`` the packed
-    conveyor's saving, ``(S - 1)(F - 1)``. Pass ``lps`` (uniform layouts, ``F
-    = boundary // lps``) or ``spans`` (any layout). The activation cache's
-    ``cached`` counts are not ported yet."""
-    if cached:
-        raise NotImplementedError("the frozen-trunk activation cache is not ported yet "
-                                  "(ROADMAP.md Queue 1, item 5)")
+    conveyor's saving, ``(S - 1)(F - 1)``. ``cached``: the activation
+    cache's hit, where Phase A vanishes (``fwd_ticks`` ``M + S_hot - 1``, no
+    Phase-A ticks, nothing saved by packing). Pass ``lps`` (uniform layouts,
+    ``F = boundary // lps``) or ``spans`` (any layout)."""
     if spans is not None:
         spans = normalize_spans(spans)
         assert lps is None or lps * n_stages == spans[-1][1], \
@@ -395,8 +393,8 @@ def pipeline_tick_counts(n_stages: int, n_micro: int, boundary: int,
         assert lps is not None, "pass lps or spans"
         F = boundary // lps
     S_hot = n_stages - F
-    phase_a = 0 if (packed or F == 0) else n_micro + F - 1
-    if F == 0:
+    phase_a = 0 if (cached or packed or F == 0) else n_micro + F - 1
+    if cached or F == 0:
         a_round = 0
     elif packed:
         a_round = n_stages * n_micro + F - 1
@@ -407,4 +405,5 @@ def pipeline_tick_counts(n_stages: int, n_micro: int, boundary: int,
             "frozen_stages": F,
             "hot_stages": S_hot,
             "phase_a_round_ticks": a_round,
-            "phase_a_saved_ticks": (n_stages - 1) * (F - 1) if packed and F > 0 else 0}
+            "phase_a_saved_ticks": (n_stages - 1) * (F - 1)
+            if packed and not cached and F > 0 else 0}

@@ -11,12 +11,12 @@ and ``qa`` (a marked answer span; labels = (start, end)).
 
 ``Batcher`` draws flat batches for the single-device step; ``RingBatcher``
 draws every client's ``[M, mb, seq]`` microbatches for a ring round, from
-its own data only.
+its own data only, afresh each round or from epoch-stable batch slots.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -97,22 +97,64 @@ class Batcher:
 
 class RingBatcher:
     """``[S, M, mb, seq]`` numpy batches for ring rounds: client u's M
-    microbatches of ``mb`` rows, drawn afresh from its dataset at every
-    :meth:`next` (the reference's streaming mode; its epoch-stable batch
-    slots come with the activation cache, ROADMAP.md Queue 1, item 5)."""
+    microbatches of ``mb`` rows, from its own dataset.
+
+    Two modes, the reference's:
+
+      * :meth:`next`: a fresh random draw at every call (streaming; no batch
+        identity across rounds);
+      * :meth:`next_slot` (needs ``slots_per_epoch``): the epoch is a fixed
+        cycle of ``slots_per_epoch`` batch slots, whose examples are drawn
+        once at construction from a generator of their own
+        (``SeedSequence([seed, 1])``, so ``next`` draws do not move them) and
+        reused every epoch: slot i holds the same tokens and labels in every
+        epoch and after re-instantiation with the same seed. That is the
+        activation cache's key contract (``core/actcache.py``).
+    """
 
     def __init__(self, datasets: List[ClientDataset], n_micro: int, micro_batch: int,
-                 seed: int = 0):
+                 seed: int = 0, slots_per_epoch: Optional[int] = None):
         self.ds = datasets
         self.M, self.mb = n_micro, micro_batch
         self.rng = np.random.default_rng(seed)
+        self.slots_per_epoch = slots_per_epoch
+        self._t = 0
+        # keyed by slot: the cursor may start mid-epoch (a restored run)
+        self._slot_batches: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
+        if slots_per_epoch is not None:
+            if slots_per_epoch < 1:
+                raise ValueError(f"slots_per_epoch must be >= 1, got {slots_per_epoch}")
+            srng = np.random.default_rng(np.random.SeedSequence([seed, 1]))
+            n = self.M * self.mb
+            self._slot_idx = [[srng.integers(0, len(d), size=n) for d in datasets]
+                              for _ in range(slots_per_epoch)]
+
+    def _stack(self, idx_per_ds) -> Tuple[np.ndarray, np.ndarray]:
+        toks = [d.tokens[i].reshape(self.M, self.mb, -1) for d, i in zip(self.ds, idx_per_ds)]
+        labs = [d.labels[i].reshape(self.M, self.mb, -1) for d, i in zip(self.ds, idx_per_ds)]
+        return np.stack(toks), np.stack(labs)
 
     def next(self) -> Tuple[np.ndarray, np.ndarray]:
         """(tokens, labels), each [S, M, mb, seq] int32."""
-        idx = [self.rng.integers(0, len(d), size=self.M * self.mb) for d in self.ds]
-        toks = [d.tokens[i].reshape(self.M, self.mb, -1) for d, i in zip(self.ds, idx)]
-        labs = [d.labels[i].reshape(self.M, self.mb, -1) for d, i in zip(self.ds, idx)]
-        return np.stack(toks), np.stack(labs)
+        return self._stack([self.rng.integers(0, len(d), size=self.M * self.mb)
+                            for d in self.ds])
+
+    def next_slot(self) -> Tuple[int, np.ndarray, np.ndarray]:
+        """(slot, tokens, labels): the slots 0 .. slots_per_epoch - 1 in turn,
+        forever; each slot's batch is assembled once and reused every epoch."""
+        if self.slots_per_epoch is None:
+            raise ValueError("RingBatcher built without slots_per_epoch; use next() or pass "
+                             "slots_per_epoch")
+        slot = self._t % self.slots_per_epoch
+        self._t += 1
+        if slot not in self._slot_batches:
+            self._slot_batches[slot] = self._stack(self._slot_idx[slot])
+        toks, labs = self._slot_batches[slot]
+        return slot, toks, labs
+
+    @property
+    def epoch(self) -> int:
+        return 0 if self.slots_per_epoch is None else self._t // self.slots_per_epoch
 
 
 def merged(datasets: List[ClientDataset]) -> ClientDataset:

@@ -21,10 +21,17 @@ one, two and every stage's layers), on the same batch:
 
   * ``--trainer fused`` (the default), ``RingExecutor``: one round builds the
     depth's CUDA graph (warm-up, capture, replay), then one unprofiled
-    replay (wall time, and device time by CUDA events) and one traced
-    replay; it prints the memory resident before, the build's peak, the
-    graph's reserved memory, the capture's seconds and the kernel launches
-    it recorded;
+    replay (wall time), one timed by CUDA events and one traced replay; it
+    prints the memory resident before, the build's peak, the graph's
+    reserved memory, the capture's seconds and the kernel launches it
+    recorded. Then the same round from the activation cache (capacity 1):
+    a capture round and a cached round build their graphs (the build peak,
+    the reserved memory before and with both graphs alive beside the direct
+    one, the seconds of each build), a capture replay (another slot) timed
+    by CUDA events, then the cached round's unprofiled replay, the direct
+    and the cached replays timed by CUDA events in turns (direct, cached,
+    cached, direct), the traced cached replay, its graph's launches and the
+    buffer's bytes;
   * ``--trainer reference``, ``RingTrainer``: one round to warm up, one
     unprofiled round and one traced round; it prints the memory resident
     before, the round's peak and the peak of one owner iteration's ring
@@ -61,11 +68,23 @@ from repro_torch.optim import adamw
 SEED = 0
 
 
+def _event_ms(run) -> float:
+    """One run's device time by CUDA events."""
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    run()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1)
+
+
 def trace_ring_fused(cfg, tc, depths, device) -> None:
     S, M = tc.n_stages, tc.n_microbatches
-    ex = RingExecutor(cfg, tc, prm.materialize(cfg, seed=SEED, device=device), S, M)
+    ex = RingExecutor(cfg, tc, prm.materialize(cfg, seed=SEED, device=device), S, M,
+                      cache_capacity=1)
     tokens, labels = ex.to_device(*ring_data_source(cfg, tc, S).next())
     run = lambda: ex.round(tokens, labels)
+    run_cached = lambda: ex.round(tokens, labels, slot=0)
     for depth in depths:
         ex.sched = UnfreezeSchedule(depths=(depth,), interval=S)
         boundary = ex.boundary_at(ex.step)
@@ -74,21 +93,47 @@ def trace_ring_fused(cfg, tc, depths, device) -> None:
         build = wall_ms(run, device)                    # warm-up, capture, replay
         peak = torch.cuda.max_memory_allocated(device)
         unprofiled = wall_ms(run, device)
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        run()
-        e1.record()
-        torch.cuda.synchronize(device)
+        event_ms = _event_ms(run)
         print(f"[trace] arch={cfg.name} ring fused stages={S} "
               f"microbatches={M}x1x{tc.seq_len} depth={depth} boundary={boundary} "
               f"resident_gib={resident / 2**30:.3f} build_peak_gib={peak / 2**30:.3f} "
               f"reserved_gib={torch.cuda.memory_reserved(device) / 2**30:.3f} "
-              f"build_ms={build:.1f} capture_s={ex.capture_seconds[boundary]:.2f} "
-              f"replay_event_ms={e0.elapsed_time(e1):.3f} "
+              f"build_ms={build:.1f} capture_s={ex.capture_seconds[(boundary, 'direct')]:.2f} "
+              f"replay_event_ms={event_ms:.3f} "
               f"launches_at_capture="
-              f"{json.dumps(ex.capture_launches[boundary]).replace(' ', '')} "
+              f"{json.dumps(ex.capture_launches[(boundary, 'direct')]).replace(' ', '')} "
               f"device={torch.cuda.get_device_name(device)}")
         traced(run, device, f"ring fused depth {depth}", unprofiled)
+        # the same round from the activation cache: a capture round (a miss,
+        # which builds its graph), then the cached round (a hit, which builds
+        # its graph), both graphs alive beside the direct one
+        reserved = torch.cuda.memory_reserved(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        capture_ms = wall_ms(run_cached, device)
+        cached_build = wall_ms(run_cached, device)
+        peak = torch.cuda.max_memory_allocated(device)
+        capture_replay = _event_ms(lambda: ex.round(tokens, labels, slot=1))   # evicts slot 0
+        run_cached()                                    # a capture again: slot 0 back in
+        unprofiled = wall_ms(run_cached, device)
+        turns = [_event_ms(f) for f in (run, run_cached, run_cached, run)]
+        event_ms = turns[1]
+        st = ex.cache.stats()
+        print(f"[trace] arch={cfg.name} ring cached stages={S} "
+              f"microbatches={M}x1x{tc.seq_len} depth={depth} boundary={boundary} "
+              f"build_peak_gib={peak / 2**30:.3f} reserved_before_gib={reserved / 2**30:.3f} "
+              f"reserved_gib={torch.cuda.memory_reserved(device) / 2**30:.3f} "
+              f"capture_build_ms={capture_ms:.1f} cached_build_ms={cached_build:.1f} "
+              f"capture_s={ex.capture_seconds[(boundary, 'capture')]:.2f} "
+              f"cached_s={ex.capture_seconds[(boundary, 'cached')]:.2f} "
+              f"capture_replay_event_ms={capture_replay:.3f} replay_event_ms={event_ms:.3f} "
+              f"direct_cached_cached_direct_event_ms="
+              f"{json.dumps([round(t, 3) for t in turns]).replace(' ', '')} "
+              f"launches_at_capture="
+              f"{json.dumps(ex.capture_launches[(boundary, 'cached')]).replace(' ', '')} "
+              f"cache_bytes_per_entry={st['cache_bytes_per_entry']} "
+              f"cache_buffer_bytes={st['cache_buffer_bytes']} "
+              f"device={torch.cuda.get_device_name(device)}")
+        traced(run_cached, device, f"ring cached depth {depth}", unprofiled)
 
 
 def trace_ring(cfg, args, device) -> None:

@@ -19,7 +19,11 @@ block every ``--unfreeze-interval`` steps (owner iterations in ring mode; 40
 by default, as the reference's CLI). ``--device-speeds`` gives each stage a
 relative speed and the spans come from the speed-weighted partitioner
 (``partition.spans_from_profiles``); the balanced layout otherwise. The
-ring's lr defaults to ``RING_LR``.
+ring's lr defaults to ``RING_LR``. ``--slots-per-epoch N`` cycles the data
+through N epoch-stable batch slots and gives the executor a frozen-trunk
+activation cache (``--cache-capacity``, default N; ``--no-cache``;
+``--cache-dtype``): a revisited slot skips Phase A. Each round's line then
+says ``cache_hit``, and the last JSON line carries the cache's counts.
 
 Usage (on a machine with an NVIDIA GPU; ``--device cpu`` runs the plain versions):
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b --reduced \\
@@ -28,6 +32,8 @@ Usage (on a machine with an NVIDIA GPU; ``--device cpu`` runs the plain versions
         --reduced --stages 2 --rounds 4 --unfreeze-interval 2
     PYTHONPATH=src python -m repro_torch.launch.train --mode ring --arch stablelm-3b \\
         --reduced --layers 14 --stages 4 --rounds 2 --device-speeds 1.0,1.25,0.5,0.75
+    PYTHONPATH=src python -m repro_torch.launch.train --mode ring --arch stablelm-3b \\
+        --reduced --stages 2 --rounds 8 --unfreeze-interval 8 --slots-per-epoch 2
 """
 from __future__ import annotations
 
@@ -35,7 +41,7 @@ import argparse
 import dataclasses
 import json
 import time
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -43,6 +49,7 @@ from repro_torch import device as dev_rule
 from repro_torch.configs import TrainConfig, get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import training
+from repro_torch.core.actcache import CACHE_DTYPES
 from repro_torch.core.executor import RingExecutor
 from repro_torch.core.partition import parse_device_profiles, spans_from_profiles
 from repro_torch.core.ring import RingTrainer
@@ -71,39 +78,66 @@ def data_source(cfg: ModelConfig, tc: TrainConfig, n_clients: int = 4,
 
 
 def ring_data_source(cfg: ModelConfig, tc: TrainConfig, n_stages: int,
-                     n_per_client: int = 128) -> RingBatcher:
+                     n_per_client: int = 128,
+                     slots_per_epoch: Optional[int] = None) -> RingBatcher:
     """The reference's ring data: one corpus per client, ``tc.n_microbatches``
-    microbatches of ``tc.batch_size`` rows from each at every round."""
+    microbatches of ``tc.batch_size`` rows from each at every round, drawn
+    afresh or, with ``slots_per_epoch``, from that many epoch-stable slots."""
     clients = make_client_datasets(n_stages, vocab=cfg.vocab_size, n_per_client=n_per_client,
                                    seq=tc.seq_len, seed=tc.seed)
-    return RingBatcher(clients, tc.n_microbatches, tc.batch_size, seed=tc.seed)
+    return RingBatcher(clients, tc.n_microbatches, tc.batch_size, seed=tc.seed,
+                       slots_per_epoch=slots_per_epoch)
 
 
 def train_ring(cfg: ModelConfig, tc: TrainConfig, *, rounds: int, n_stages: int,
                trainer: str = "fused", spans=None, packed: bool = True,
-               device=None) -> Dict[str, Any]:
+               slots_per_epoch: Optional[int] = None, cache_capacity: Optional[int] = None,
+               cache_dtype: str = "native", device=None) -> Dict[str, Any]:
     """``rounds`` rounds of :class:`RingExecutor` (``trainer="fused"``) or
     :class:`RingTrainer` (``"reference"``) on ``device`` (default cuda) from
     random weights made from ``tc.seed``, over the layout ``spans`` (default
-    balanced); returns the trainer and the per-round history."""
+    balanced); returns the trainer and the per-round history.
+
+    ``slots_per_epoch``: the data cycles through that many batch slots
+    (``RingBatcher.next_slot``; the reference trainer ignores the slot), and
+    the executor keeps an activation cache of ``cache_capacity`` entries
+    (default ``slots_per_epoch``; 0 turns it off) in ``cache_dtype``, as the
+    reference's CLI chooses its cached backend."""
     device = dev_rule.resolve(device)
+    cap = cache_capacity if cache_capacity is not None else (slots_per_epoch or 0)
+    cached = trainer == "fused" and bool(slots_per_epoch) and cap > 0
+    if cached and cap < slots_per_epoch:
+        # round-robin slots and LRU: every slot is evicted before its revisit
+        print(f"WARNING: cache_capacity {cap} < slots_per_epoch {slots_per_epoch}: the cache "
+              f"will thrash (0% hits, capture overhead every round); raise the capacity or "
+              f"turn the cache off")
     params = prm.materialize(cfg, seed=tc.seed, device=device)
     if trainer == "fused":
         ring = RingExecutor(cfg, tc, params, n_stages, tc.n_microbatches, spans=spans,
-                            packed=packed)
+                            packed=packed, cache_capacity=cap if cached else 0,
+                            cache_dtype=cache_dtype)
     else:
         ring = RingTrainer(cfg, tc, params, n_stages, tc.n_microbatches, spans=spans)
     del params
-    data = ring_data_source(cfg, tc, n_stages)
+    data = ring_data_source(cfg, tc, n_stages, slots_per_epoch=slots_per_epoch or None)
     history = []
     for r in range(rounds):
         t0 = time.perf_counter()
-        rec = RingExecutor.materialize_metrics(ring.round(*data.next()))
+        if slots_per_epoch:
+            slot, tokens, labels = data.next_slot()
+        else:
+            slot, (tokens, labels) = None, data.next()
+        out = ring.round(tokens, labels, slot=slot) if trainer == "fused" \
+            else ring.round(tokens, labels)
+        rec = RingExecutor.materialize_metrics(out)
         rec = {"round": r, **rec, "depth": (cfg.repeats - rec["boundary"]) * cfg.layers_per_repeat,
                "round_ms": 1e3 * (time.perf_counter() - t0)}
+        if slot is not None:
+            rec["slot"] = slot
         history.append(rec)
+        hit = f" cache_hit {rec['cache_hit']}" if "cache_hit" in rec else ""
         print(f"round {r} boundary {rec['boundary']} depth {rec['depth']} "
-              f"loss {rec['loss']:.4f} round_ms {rec['round_ms']:.1f}")
+              f"loss {rec['loss']:.4f} round_ms {rec['round_ms']:.1f}{hit}")
     return {"trainer": ring, "history": history}
 
 
@@ -162,6 +196,20 @@ def main(argv=None) -> None:
                          "(default: balanced spans)")
     ap.add_argument("--no-packed", action="store_true",
                     help="ring mode, fused: Phase A per owner instead of one conveyor a round")
+    ap.add_argument("--slots-per-epoch", type=int, default=0,
+                    help="ring mode: epoch-stable batch slots (the activation cache's keys; "
+                         "e.g. 8 turns the Phase-A-skipping cache on); 0 (default): batches "
+                         "drawn afresh every round, no cache")
+    ap.add_argument("--cache-capacity", type=int, default=None,
+                    help="ring mode: activation-cache entries (default: slots-per-epoch; 0 "
+                         "turns the cache off)")
+    ap.add_argument("--no-cache", action="store_true",
+                    help="ring mode: no activation cache (for streaming, non-repeating data)")
+    ap.add_argument("--cache-dtype", choices=CACHE_DTYPES,
+                    default="native",
+                    help="ring mode: the cache's storage: 'native' keeps the captured bits, "
+                         "'bf16' halves and 'int8' (per-row scales) quarters the bytes of an "
+                         "f32 entry")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
@@ -194,7 +242,10 @@ def main(argv=None) -> None:
         spans = spans_from_profiles(cfg.repeats, profiles)
         print(f"heterogeneous ring: speeds {speeds} -> spans {[list(sp) for sp in spans]}")
     out = train_ring(cfg, tc, rounds=args.rounds, n_stages=args.stages, trainer=args.trainer,
-                     spans=spans, packed=not args.no_packed, device=device)
+                     spans=spans, packed=not args.no_packed,
+                     slots_per_epoch=args.slots_per_epoch or None,
+                     cache_capacity=0 if args.no_cache else args.cache_capacity,
+                     cache_dtype=args.cache_dtype, device=device)
     last = {k: v for k, v in out["history"][-1].items() if k != "iterations"}
     print(json.dumps(last))
 

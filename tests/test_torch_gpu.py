@@ -571,4 +571,53 @@ def test_ring_executor_replay_equals_eager_round_on_card():
         for i, (a, b) in enumerate(zip(mine, tree_leaves(eager), strict=True)):
             assert torch.equal(a, b), f"round {r}: leaf {i} {tuple(a.shape)}"
     assert ex.compile_counts() == {"4/direct": 1}
-    assert ex.capture_launches[4]["adapter_fused_bwd"] == S * (8 - 4) * M
+    assert ex.capture_launches[(4, "direct")]["adapter_fused_bwd"] == S * (8 - 4) * M
+
+
+@pytest.mark.gpu
+def test_ring_executor_cached_replay_equals_direct_on_card():
+    """The activation cache's rounds as CUDA graphs against the direct
+    round's graph from the same state: the reduced bf16 stablelm-3b of the
+    test above, 2 slots over 4 rounds (capture, capture, hit, hit), each
+    round's losses and every tensor it writes bit for bit; the capture graph
+    launches what the direct graph does, the cached graph Phase B's kernels
+    alone ((L - b) M S forward launches of each kernel for b frozen layers)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: CUDA graphs and the kernels have no CPU mode")
+    import dataclasses
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.core.executor import RingExecutor
+    from repro_torch.core.unfreeze import UnfreezeSchedule
+    from repro_torch.models import params as prm
+
+    cfg = get_config("stablelm-3b").reduced(n_layers=8, repeats=8)
+    cfg = dataclasses.replace(cfg, adapter=dataclasses.replace(cfg.adapter, zero_init_up=False))
+    S, M, seq, L, b = 4, 2, 64, 8, 4
+    tc = TrainConfig(learning_rate=1e-4, n_microbatches=M, batch_size=1, seq_len=seq)
+    params = prm.materialize(cfg, seed=0, device="cuda")
+    sched = UnfreezeSchedule(depths=(L - b,), interval=S)
+    cached = RingExecutor(cfg, tc, params, S, M, schedule=sched, cache_capacity=2)
+    direct = RingExecutor(cfg, tc, params, S, M, schedule=sched)
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    slots = [tuple(torch.randint(0, cfg.vocab_size, (S, M, 1, seq), generator=gen,
+                                 device="cuda") for _ in range(2)) for _ in range(2)]
+    for r in range(4):
+        for mine, theirs in zip(direct.trainable_tensors(), cached.trainable_tensors(),
+                                strict=True):
+            mine.copy_(theirs)
+        got = cached.round(*slots[r % 2], slot=r % 2)
+        want = direct.round(*slots[r % 2])
+        assert got["cache_hit"] == (r >= 2) and got["boundary"] == b
+        assert torch.equal(got["losses"], want["losses"]), (r, got["losses"], want["losses"])
+        for i, (x, y) in enumerate(zip(cached.trainable_tensors(), direct.trainable_tensors(),
+                                       strict=True)):
+            assert torch.equal(x, y), f"round {r}: tensor {i} {tuple(x.shape)}"
+    st = cached.cache.stats()
+    assert (st["cache_hits"], st["cache_misses"], st["cache_evictions"]) == (2, 2, 0)
+    assert cached.compile_counts() == {f"{b}/cached": 1, f"{b}/capture": 1}
+    phase_b = (L - b) * M * S
+    assert cached.capture_launches[(b, "cached")] == {
+        "adapter_fused": phase_b, "flash_attention": phase_b, "adapter_fused_bwd": phase_b,
+        "flash_attention_bwd": (L - b - 1) * M * S, "rwkv_scan": 0, "mamba_scan": 0}
+    assert cached.capture_launches[(b, "capture")] == direct.capture_launches[(b, "direct")]

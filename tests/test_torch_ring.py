@@ -527,9 +527,15 @@ def test_ring_trainer_matches_jax_ring_trainer_round_for_round(jax_ring_run):
 
 
 def test_cached_ticks_and_unaligned_boundaries_are_refused():
+    """The activation cache's tick counts (once refused) against the JAX
+    function, uniform and packed; an unaligned boundary is still refused."""
     _, tcfg = _configs()
-    with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
-        pl.pipeline_tick_counts(4, 2, 4, 2, cached=True)
+    for boundary in (0, 2, 4, 6, 8):
+        for packed in (False, True):
+            got = pl.pipeline_tick_counts(4, 2, boundary, 2, cached=True, packed=packed)
+            assert got == jax_pl.pipeline_tick_counts(4, 2, boundary, 2, cached=True,
+                                                      packed=packed)
+            assert got["phase_a_round_ticks"] == 0 and got["fwd_ticks"] == got["bwd_ticks"]
     with pytest.raises(ValueError, match="not span-aligned"):
         pl.make_ring_round(tcfg, n_stages=S, owner=0, boundary=5, n_micro=M)
 
