@@ -118,7 +118,19 @@ run with a non-zero exit and no result line:
      buffer's bytes, the builds' seconds, the peak and reserved memory.
      Then one int8 round at 3 frozen stages (a capture, then the cached
      round) against the direct round from the same state, within the
-     reference's calibrated 8e-2 (losses) and 2e-1 (parameters);
+     reference's calibrated 8e-2 (losses) and 2e-1 (parameters). Then the
+     main path's facade, ``RingSession`` (``phase_ring_session``), on fresh
+     weights of the same ring: a fused session runs 4 rounds (3, 3, 2, 2
+     frozen stages), each round's losses equal to the bare executor's replay
+     of the same batch from the same state (run before it and undone), its
+     device and wall ms printed beside the bare replay's; it saves after
+     round 2 under ``build/``, is freed, and ``RingSession.restore`` rebuilds
+     it for rounds 3 and 4, whose losses and every trainable tensor must
+     equal the uninterrupted run's (``torch.equal``). The same for a cached
+     session on 2 slots (hits F, F, T, T; after the restore, captures) and
+     for a pjit session (batches of 4 x 512, saved after step 2 of 4). The
+     save and restore seconds and each checkpoint's bytes are printed, and
+     every training kernel must have launched in each session;
   4. rwkv6-7b at its published width (32 layers, d_model 4096, 64 heads of 64,
      vocab 65536), random weights from the seed with non-zero adapters, served
      by ``BatchServer`` as in phase 3 (qwen2.5-3b is freed first); the counters
@@ -170,6 +182,7 @@ import torch.nn.functional as F  # noqa: E402
 from torch.utils._pytree import tree_leaves, tree_map  # noqa: E402
 
 from repro_torch import device as dev_rule  # noqa: E402
+from repro_torch.api import IntervalPolicy, RingSession  # noqa: E402
 from repro_torch.configs import TrainConfig, get_config  # noqa: E402
 from repro_torch.core import pipeline as ring_pl  # noqa: E402
 from repro_torch.core import training  # noqa: E402
@@ -267,6 +280,15 @@ RING_SPEEDS, HETERO_DEPTHS = (1.0, 1.25, 0.5, 0.75), (7, 11)
 # calibrated tolerances (tests/test_packed.py: losses 8e-2, parameters 2e-1)
 CACHE_SLOTS, CACHE_DEPTHS = 2, (8, 16)
 INT8_LOSS_TOL, INT8_PARAM_TOL = 8e-2, 2e-1
+# the session on the same ring (phase_ring_session): 4 rounds from depth 8 at
+# an interval of 2 rounds (depth 9 after round 2, whose boundary rounds down to
+# the span edge: 3, then 2 frozen stages), saved after round 2 and resumed; the
+# cached session on 2 slots at an interval of 4 rounds (3 frozen stages:
+# capture, capture, hit, hit); the pjit session at the training phase's
+# batches, saved after step 2 of 4 (depths 1, 1, 2, 2). Checkpoints go under
+# build/ (listed in .gitignore) and are removed once restored.
+SESSION_ROUNDS, SESSION_SAVED_AT, SESSION_DEPTH = 4, 2, 8
+SESSION_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "ring_session")
 SOURCES = {
     "adapter_fused": ("src/repro_torch/kernels/csrc/adapter_fused.cu",
                       "src/repro/kernels/adapter_fused.py:55"),
@@ -1680,6 +1702,217 @@ def phase_ring_cache(arch: str, records) -> None:
     count_launches(records, f"{cfg.name}_ring_cached", launches)
 
 
+def _path_kernels_ran(counts, what: str) -> None:
+    """Fail unless every kernel of the training path launched in ``counts``."""
+    idle = [k for k in ("adapter_fused", "flash_attention", "adapter_fused_bwd",
+                        "flash_attention_bwd") if counts.get(k, 0) == 0]
+    if idle:
+        raise AssertionError(f"{what}: {idle} never launched ({counts})")
+
+
+def _quiet(*_) -> None:
+    pass
+
+
+def _session_round(sess, batch=None):
+    """One session step, materialized: (metrics, CUDA-event ms, host wall ms)."""
+    t0 = time.perf_counter()
+    m, ms = _event_round(lambda: sess.step(batch).materialize())
+    return m, ms, 1e3 * (time.perf_counter() - t0)
+
+
+def _ring_state(sess):
+    return [t.clone() for t in sess.backend.driver.trainable_tensors()]
+
+
+def _pjit_state(sess):
+    st = sess.backend.state()
+    return [t.clone() for t in tree_leaves((st["params"], st["opt"]))]
+
+
+def _save(sess, name: str):
+    """Save ``sess`` under SESSION_DIR: (path, seconds, bytes of .npz and .json)."""
+    path = os.path.join(SESSION_DIR, name)
+    t0 = time.perf_counter()
+    sess.save(path)
+    seconds = time.perf_counter() - t0
+    return path, seconds, sum(os.path.getsize(path + ext) for ext in (".npz", ".json"))
+
+
+def _resume(path: str, cfg, tc, policy, state_of, want, want_state, rounds, label):
+    """Restore the session saved at ``path``, run ``rounds`` more, hold its
+    losses and every trainable tensor to the uninterrupted run's with
+    ``torch.equal``, and return (restore seconds, the resumed metrics, the
+    launches its graphs (or eager steps) made)."""
+    t0 = time.perf_counter()
+    back = RingSession.restore(path, cfg, tc, policy=policy, device="cuda", log=_quiet)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    launches = {name: 0 for name in ops.LAUNCHES}
+    got = []
+    for _ in range(rounds):
+        before = dict(ops.LAUNCHES)
+        m, ms, wall = _session_round(back)
+        got.append(m)
+        _count_session_launches(back, m, before, launches)
+    keys = lambda ms_: [(m.step, m.boundary, m.loss, m.extras.get("losses")) for m in ms_]
+    equal = keys(got) == keys(want) and all(
+        torch.equal(a, b) for a, b in zip(state_of(back), want_state, strict=True))
+    for f in (".npz", ".json"):
+        os.remove(path + f)
+    if not equal:
+        raise AssertionError(f"{label}: the resumed run is not the uninterrupted one: "
+                             f"{keys(got)} against {keys(want)}")
+    return restore_s, got, launches
+
+
+def _count_session_launches(sess, m, before, launches) -> None:
+    """Add one session step's kernel launches: a ring round's graph holds
+    what each replay launches (``capture_launches``); pjit steps launch
+    eagerly (the change in the counters)."""
+    ex = getattr(sess.backend, "driver", None)
+    if ex is None:
+        for name, n in ops.LAUNCHES.items():
+            launches[name] += n - before[name]
+        return
+    mode = "direct" if m.cache_hit is None else "cached" if m.cache_hit else "capture"
+    for name, n in ex.capture_launches[(m.boundary, mode)].items():
+        launches[name] += n
+
+
+def phase_ring_session(arch: str, records) -> None:
+    """The main path's facade at full width: a fused ``RingSession`` on the
+    ring of ``phase_ring`` runs 4 rounds across a boundary drop, each round
+    beside the bare executor's replay of the same batch from the same state
+    (undone), saving after round 2; freed and restored, it runs rounds 3 and
+    4, whose losses and every trainable tensor must equal the uninterrupted
+    run's (``torch.equal``). The same for a cached session on 2 slots and a
+    pjit session. The counters are zeroed before and read after each
+    session, and every training kernel must have launched."""
+    cfg = served_config(arch)
+    tc = TrainConfig(learning_rate=RING_LR, batch_size=1, seq_len=TRAIN_S,
+                     n_microbatches=RING_M, n_stages=RING_S, seed=SEED)
+    os.makedirs(SESSION_DIR, exist_ok=True)
+    launches = {name: 0 for name in ops.LAUNCHES}
+    # -- fused, across the boundary drop, beside the bare executor
+    policy = lambda: IntervalPolicy(initial_depth=SESSION_DEPTH, interval=2 * RING_S)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    sess = RingSession.create(cfg, tc, backend="fused", n_stages=RING_S, policy=policy(),
+                              device="cuda", log=_quiet)
+    torch.cuda.synchronize()
+    create_s = time.perf_counter() - t0
+    ex = sess.backend.driver
+    want = []
+    for r in range(SESSION_ROUNDS):
+        batch = sess.data.next()
+        _, tokens, labels = batch
+        saved, step, built = [t.clone() for t in ex.trainable_tensors()], ex.step, \
+            ex.n_executables
+        bare, bare_ms = _event_round(lambda: ex.round(tokens, labels))
+        built = ex.n_executables > built
+        for t, s_ in zip(ex.trainable_tensors(), saved, strict=True):
+            t.copy_(s_)
+        ex.step = step
+        del saved
+        before = dict(ops.LAUNCHES)
+        m, ms, wall = _session_round(sess, batch)
+        _count_session_launches(sess, m, before, launches)
+        if m.extras["losses"] != bare["losses"].tolist():
+            raise AssertionError(f"session round {r}: {m.extras['losses']} against the bare "
+                                 f"executor's {bare['losses'].tolist()}")
+        want.append(m)
+        say("ring_session_round", session="fused", round=r, boundary=m.boundary,
+            frozen_stages=frozen_stage_count(ex.spans, m.boundary),
+            losses=json.dumps([round(x, 5) for x in m.extras["losses"]]),
+            session_event_ms=f"{ms:.3f}", session_wall_ms=f"{wall:.3f}",
+            bare_event_ms=f"{bare_ms:.3f}", bare_built=built,
+            overhead_ms="" if built else f"{ms - bare_ms:.3f}", card=repr(CARD))
+        if r + 1 == SESSION_SAVED_AT:
+            path, save_s, nbytes = _save(sess, "fused")
+    _path_kernels_ran(ops.LAUNCHES, "the fused session")
+    want_state = _ring_state(sess)
+    del sess, ex
+    freed()
+    restore_s, got, resumed = _resume(path, cfg, tc, policy(), _ring_state,
+                                      want[SESSION_SAVED_AT:], want_state,
+                                      SESSION_ROUNDS - SESSION_SAVED_AT, "fused")
+    for name, n in resumed.items():
+        launches[name] += n
+    say("ring_session_resume", session="fused", create_s=f"{create_s:.2f}",
+        save_s=f"{save_s:.2f}", restore_s=f"{restore_s:.2f}", checkpoint_bytes=nbytes,
+        resumed_losses=json.dumps([round(m.loss, 5) for m in got]), equal=True,
+        trainable_tensors=len(want_state), card=repr(CARD))
+    del want_state
+    freed()
+    # -- cached, 2 slots: capture, capture, hit, hit; resumed: capture, capture
+    policy_c = lambda: IntervalPolicy(initial_depth=SESSION_DEPTH, interval=4 * RING_S)
+    ops.reset_launches()
+    sess = RingSession.create(cfg, tc, backend="cached", n_stages=RING_S, policy=policy_c(),
+                              slots_per_epoch=CACHE_SLOTS, device="cuda", log=_quiet)
+    want = []
+    for r in range(SESSION_ROUNDS):
+        before = dict(ops.LAUNCHES)
+        m, ms, wall = _session_round(sess)
+        _count_session_launches(sess, m, before, launches)
+        want.append(m)
+        say("ring_session_round", session="cached", round=r, slot=m.extras["slot"],
+            boundary=m.boundary, cache_hit=m.cache_hit, session_event_ms=f"{ms:.3f}",
+            session_wall_ms=f"{wall:.3f}", card=repr(CARD))
+        if r + 1 == SESSION_SAVED_AT:
+            path, save_s, nbytes = _save(sess, "cached")
+    _path_kernels_ran(ops.LAUNCHES, "the cached session")
+    hits = [m.cache_hit for m in want]
+    if hits != [False, False, True, True]:
+        raise AssertionError(f"the cached session's hits {hits}")
+    want_state = _ring_state(sess)
+    del sess
+    freed()
+    restore_s, got, resumed = _resume(path, cfg, tc, policy_c(), _ring_state,
+                                      want[SESSION_SAVED_AT:], want_state,
+                                      SESSION_ROUNDS - SESSION_SAVED_AT, "cached")
+    for name, n in resumed.items():
+        launches[name] += n
+    say("ring_session_resume", session="cached", hits=json.dumps(hits).replace(" ", ""),
+        resumed_hits=json.dumps([m.cache_hit for m in got]).replace(" ", ""),
+        save_s=f"{save_s:.2f}", restore_s=f"{restore_s:.2f}", checkpoint_bytes=nbytes,
+        equal=True, card=repr(CARD))
+    del want_state
+    freed()
+    # -- pjit: the training phase's batches, depths 1, 1, 2, 2
+    tc_p = TrainConfig(batch_size=TRAIN_B, seq_len=TRAIN_S, seed=SEED)
+    policy_p = lambda: IntervalPolicy(initial_depth=1, interval=SESSION_SAVED_AT)
+    ops.reset_launches()
+    sess = RingSession.create(cfg, tc_p, backend="pjit", policy=policy_p(), device="cuda",
+                              log=_quiet)
+    want = []
+    for r in range(SESSION_ROUNDS):
+        before = dict(ops.LAUNCHES)
+        m, ms, wall = _session_round(sess)
+        _count_session_launches(sess, m, before, launches)
+        want.append(m)
+        say("ring_session_round", session="pjit", step=r, boundary=m.boundary,
+            loss=f"{m.loss:.5f}", session_event_ms=f"{ms:.3f}",
+            session_wall_ms=f"{wall:.3f}", card=repr(CARD))
+        if r + 1 == SESSION_SAVED_AT:
+            path, save_s, nbytes = _save(sess, "pjit")
+    _path_kernels_ran(ops.LAUNCHES, "the pjit session")
+    want_state = _pjit_state(sess)
+    del sess
+    freed()
+    restore_s, got, resumed = _resume(path, cfg, tc_p, policy_p(), _pjit_state,
+                                      want[SESSION_SAVED_AT:], want_state,
+                                      SESSION_ROUNDS - SESSION_SAVED_AT, "pjit")
+    for name, n in resumed.items():
+        launches[name] += n
+    say("ring_session_resume", session="pjit", save_s=f"{save_s:.2f}",
+        restore_s=f"{restore_s:.2f}", checkpoint_bytes=nbytes,
+        resumed_losses=json.dumps([round(m.loss, 5) for m in got]), equal=True,
+        card=repr(CARD))
+    _path_kernels_ran(launches, "the sessions' rounds")
+    count_launches(records, f"{cfg.name}_ring_session", launches)
+
+
 def freed() -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -1709,6 +1942,10 @@ def main() -> None:
     phase_ring("stablelm-3b", records)
     freed()                                             # fresh weights for the cached ring
     phase_ring_cache("stablelm-3b", records)
+    freed()                                             # fresh weights for the sessions
+    t0 = time.perf_counter()
+    phase_ring_session("stablelm-3b", records)
+    say("ring_session", seconds=f"{time.perf_counter() - t0:.1f}")
     freed()                                             # stablelm-3b before rwkv6-7b
     phase_serve("rwkv6-7b", records, cpu_witness=False)
     freed()                                             # rwkv6-7b before hymba-1.5b

@@ -1,0 +1,406 @@
+"""Backend adapters: one ``step`` protocol over every training path (the
+reference's ``api/backends.py``, one tenant, no mesh).
+
+A :class:`Backend` adapts a driver to the surface
+:class:`~repro_torch.api.session.RingSession` drives:
+
+    class Backend(Protocol):
+        kind: str                 # "ring" | "pjit" (selects the data source)
+        name: str                 # CLI name
+        steps_per_call: int       # global steps one step() advances
+        compile_count: int        # rounds or steps built so far
+        @classmethod
+        def build(cls, cfg, tc, policy, *, n_stages, spans, device_profiles,
+                  params, slots_per_epoch, cache_capacity, packed,
+                  cache_dtype, impl, device, log) -> Backend
+        def step(self, batch) -> dict           # raw metrics (may hold device tensors)
+        def state(self) -> dict                 # {"format", "params", "opt"}
+        def load_state(self, params, opt, *, step) -> None
+        def export_params(self) -> params tree  # the port's flat layout
+
+``build`` takes the same keywords for every backend and validates or ignores
+what it does not support (pjit refuses spans, cached needs
+``slots_per_epoch``).
+
+Contracts every adapter keeps:
+
+  * **monotone boundary**: the backend evaluates its policy's ``depth_at``
+    per step or round; the boundary never rises (checked again in
+    ``core/executor.py`` and by the session);
+  * **the executor's tensors stay put**: on the card the fused rounds are
+    CUDA graphs that read and write the executor's own tensors, so
+    ``load_state`` copies into them and never rebinds them; ``state()``
+    returns new tensors in the reference's layout;
+  * **cache invalidation**: the activation cache is keyed ``(slot,
+    boundary)``, cleared on every boundary drop and on ``load_state`` (a
+    restored session never serves activations from before the restore).
+
+``state()`` gives the trainable set and the optimizer state in the
+reference's layout (``repro_torch.bridge``): params ``{"blocks":
+({"adapter": [R, C, ...]},), "head": ...}`` and, for the ring, the moments
+in its ``[S, max_span, C, ...]`` stage stack, so a session checkpoint
+restores in either package. ``state()["format"]`` tags the moments' layout
+(``ring/S4``, ``ring/S4/spans4-5-2-3``, ``pjit``) as the reference does; a
+checkpoint restores only into a backend of the same format.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch.utils._pytree import tree_leaves
+
+from repro_torch import bridge
+from repro_torch import device as dev_rule
+from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.core import pipeline as pl
+from repro_torch.core import training
+from repro_torch.core.executor import RingExecutor
+from repro_torch.core.partition import (parse_device_profiles, span_sizes, spans_from_profiles,
+                                        uniform_assignment)
+from repro_torch.core.ring import RingTrainer
+from repro_torch.core.unfreeze import depth_to_boundary
+from repro_torch.data.pipeline import to_device
+from repro_torch.models import params as prm
+from repro_torch.optim import adamw
+
+CACHE_STAT_KEYS = ("cache_hits", "cache_misses", "cache_hit_rate",
+                   "cache_evictions", "cache_invalidations", "cache_bypasses",
+                   "cache_entries", "cache_capacity", "cache_dtype",
+                   "cache_bytes_per_entry", "cache_buffer_bytes")
+
+
+def _validate_ring(cfg: ModelConfig, n_stages: int) -> None:
+    """The ring's preconditions."""
+    if cfg.head_out is not None:
+        raise ValueError(
+            f"ring backends train with the LM objective, but this config has a task head "
+            f"(head_out={cfg.head_out}); use an LM config")
+    if cfg.repeats < n_stages:
+        raise ValueError(f"ring training needs at least one block per stage: "
+                         f"cfg.repeats={cfg.repeats} < n_stages={n_stages}.")
+
+
+def _block_weight_mb(cfg: ModelConfig) -> float:
+    """One block's weights in MB: the memory Algorithm 1 charges a device per
+    block it holds when a DeviceProfile's budget is finite."""
+    kind = cfg.pattern[0][0]
+    n = sum(math.prod(pd.shape) for pd in tree_leaves(prm.block_defs(cfg, kind)))
+    return n * cfg.layers_per_repeat * prm.DTYPES[cfg.dtype].itemsize / 2**20
+
+
+def _resolve_ring_spans(cfg: ModelConfig, n_stages: int, spans, device_profiles):
+    """(spans, device_profiles) -> the span layout (None = balanced).
+
+    ``device_profiles`` (speeds or DeviceProfile objects, ring order) runs
+    the paper's speed-weighted assignment; an explicit ``spans`` ((begin,
+    end) pairs or sizes like [4, 5, 2, 3]) wins. Finite ``memory_mb``
+    budgets bind the assignment at one block's weights a block."""
+    if spans is None and device_profiles is not None:
+        profiles = parse_device_profiles(device_profiles)
+        if len(profiles) != n_stages:
+            raise ValueError(f"{len(profiles)} device profiles for a {n_stages}-stage ring: "
+                             f"pass exactly one per stage, in ring order")
+        mem = None
+        if any(math.isfinite(p.memory_mb) for p in profiles):
+            mem = [_block_weight_mb(cfg)] * cfg.repeats
+        spans = spans_from_profiles(cfg.repeats, profiles, layer_mem_mb=mem)
+    return pl.resolve_spans(cfg.repeats, n_stages, spans)
+
+
+def _materialize(cfg: ModelConfig, tc: TrainConfig, params, device) -> Dict[str, Any]:
+    """``params`` (on ``device``), or random weights from ``tc.seed`` there."""
+    device = dev_rule.resolve(device)
+    if params is None:
+        return prm.materialize(cfg, seed=tc.seed, device=device)
+    got = params["head"]["w"].device
+    if got.type != device.type:
+        raise ValueError(f"params are on {got}, the session runs on {device}")
+    return params
+
+
+class _RingBackendBase:
+    """What the ring adapters share: the span layout, the format tag, batch
+    unpacking, the checkpoint layout."""
+
+    kind = "ring"
+
+    def __init__(self, cfg: ModelConfig, tc: TrainConfig, policy, *, n_stages: int,
+                 params=None, spans=None, device_profiles=None, device=None):
+        _validate_ring(cfg, n_stages)
+        self.cfg, self.tc, self.policy = cfg, tc, policy
+        self.S = n_stages
+        self.spans = _resolve_ring_spans(cfg, n_stages, spans, device_profiles)
+        self._init_params = _materialize(cfg, tc, params, device)
+
+    @property
+    def steps_per_call(self) -> int:
+        return self.S                      # one round = S initiator steps
+
+    @property
+    def format(self) -> str:
+        """The moments' layout tag; a layout other than the balanced one is
+        part of it (the moments are stacked per span)."""
+        if self.spans == tuple(uniform_assignment(self.cfg.repeats, self.S)):
+            return f"ring/S{self.S}"
+        return f"ring/S{self.S}/spans{'-'.join(str(n) for n in span_sizes(self.spans))}"
+
+    def export_params(self) -> Dict[str, Any]:
+        return self.driver.export_params()
+
+    @staticmethod
+    def _unpack(batch) -> Tuple[Optional[int], Any, Any]:
+        if len(batch) == 3:
+            return batch
+        tokens, labels = batch
+        return None, tokens, labels
+
+    def _raw(self, m: Dict[str, Any], slot: Optional[int], tokens, losses) -> Dict[str, Any]:
+        extras = {"round": m["step"] // self.S - 1, "losses": losses}
+        if slot is not None:
+            extras["slot"] = slot
+        return {"loss": m["loss"], "boundary": m["boundary"],
+                "depth": self.cfg.repeats - m["boundary"], "step": m["step"],
+                "tokens": int(np.size(tokens)), "extras": extras}
+
+    def _checkpoint_state(self, stage_adapters, head, opt) -> Dict[str, Any]:
+        flat = [a for stage in stage_adapters for a in stage]
+        return {"format": self.format,
+                "params": bridge.trainable_to_reference(flat, head, self.cfg),
+                "opt": bridge.ring_opt_to_reference(opt, self.cfg, self.spans)}
+
+    def _from_checkpoint(self, params, opt):
+        """(stage adapters, head, ring opt state) from ``state()``'s layout."""
+        adapters, head = bridge.trainable_from_reference(params, self.cfg)
+        return (bridge.stage_layout(adapters, self.spans), head,
+                bridge.ring_opt_from_reference(opt, self.cfg, self.spans))
+
+    def repartition(self, spans) -> None:
+        """Switch the live span layout (executor-backed backends only); the
+        session flushes pending device metrics first."""
+        d = self.driver
+        if not hasattr(d, "repartition"):
+            raise NotImplementedError(f"backend {self.name!r} cannot repartition mid-run")
+        d.repartition(pl.resolve_spans(self.cfg.repeats, self.S, spans))
+        self.spans = d.spans
+
+    def shrink(self, dead_stage: int, **_) -> None:
+        raise NotImplementedError("shrinking the ring waits for ROADMAP Queue 1 item 9 "
+                                  "(elastic)")
+
+    def grow(self, profile=None, **_) -> None:
+        raise NotImplementedError("growing the ring waits for ROADMAP Queue 1 item 9 (elastic)")
+
+
+class ReferenceBackend(_RingBackendBase):
+    """The unfused ``RingTrainer`` oracle: S iterations a round, one loss
+    sync each (its metrics are host floats)."""
+
+    name = "reference"
+
+    def __init__(self, cfg, tc, policy, *, n_stages: int, params=None, spans=None,
+                 device_profiles=None, impl: str = "kernel", device=None):
+        super().__init__(cfg, tc, policy, n_stages=n_stages, params=params, spans=spans,
+                         device_profiles=device_profiles, device=device)
+        self.driver = RingTrainer(cfg, tc, self._init_params, n_stages, tc.n_microbatches,
+                                  schedule=policy, spans=self.spans, impl=impl)
+
+    @classmethod
+    def build(cls, cfg, tc, policy, *, n_stages, spans=None, device_profiles=None,
+              params=None, slots_per_epoch=None, cache_capacity=None, packed=True,
+              cache_dtype="native", impl="kernel", device=None,
+              log=print) -> "ReferenceBackend":
+        return cls(cfg, tc, policy, n_stages=n_stages, params=params, spans=spans,
+                   device_profiles=device_profiles, impl=impl, device=device)
+
+    @property
+    def compile_count(self) -> int:
+        return self.driver.n_executables
+
+    def step(self, batch) -> Dict[str, Any]:
+        slot, tokens, labels = self._unpack(batch)
+        m = self.driver.round(tokens, labels)
+        return self._raw(m, slot, tokens, [it["loss"] for it in m["iterations"]])
+
+    def _opt(self) -> Dict[str, Any]:
+        d = self.driver
+        return {"m": {"adapter": d.m_ad, "head": d.m_hd},
+                "v": {"adapter": d.v_ad, "head": d.v_hd},
+                "count": torch.tensor(d.step, dtype=torch.int32)}
+
+    def state(self) -> Dict[str, Any]:
+        d = self.driver
+        return self._checkpoint_state(d.stage_adapters(), d.shared["head"], self._opt())
+
+    def load_state(self, params, opt, *, step: int) -> None:
+        d = self.driver
+        stage_adapters, head, ring_opt = self._from_checkpoint(params, opt)
+        d.stage_blocks = [[{**layer, "adapter": a} for layer, a in zip(stage, ads)]
+                          for stage, ads in zip(d.stage_blocks, stage_adapters, strict=True)]
+        d.shared = {**d.shared, "head": head}
+        d.m_ad, d.m_hd = ring_opt["m"]["adapter"], ring_opt["m"]["head"]
+        d.v_ad, d.v_hd = ring_opt["v"]["adapter"], ring_opt["v"]["head"]
+        d.step = step
+
+
+class FusedBackend(_RingBackendBase):
+    """The fused ``RingExecutor``: one round a call, one CUDA graph per
+    boundary on the card; metrics stay on the device until the session
+    materializes them."""
+
+    name = "fused"
+
+    def __init__(self, cfg, tc, policy, *, n_stages: int, params=None,
+                 cache_capacity: int = 0, packed: bool = True, cache_dtype: str = "native",
+                 spans=None, device_profiles=None, device=None):
+        super().__init__(cfg, tc, policy, n_stages=n_stages, params=params, spans=spans,
+                         device_profiles=device_profiles, device=device)
+        self.driver = RingExecutor(cfg, tc, self._init_params, n_stages, tc.n_microbatches,
+                                   schedule=policy, packed=packed, spans=self.spans,
+                                   cache_capacity=cache_capacity, cache_dtype=cache_dtype)
+
+    @classmethod
+    def build(cls, cfg, tc, policy, *, n_stages, spans=None, device_profiles=None,
+              params=None, slots_per_epoch=None, cache_capacity=None, packed=True,
+              cache_dtype="native", impl="kernel", device=None, log=print) -> "FusedBackend":
+        return cls(cfg, tc, policy, n_stages=n_stages, params=params, packed=packed,
+                   cache_dtype=cache_dtype, spans=spans, device_profiles=device_profiles,
+                   device=device)
+
+    @property
+    def compile_count(self) -> int:
+        return self.driver.n_executables
+
+    def step(self, batch) -> Dict[str, Any]:
+        slot, tokens, labels = self._unpack(batch)
+        m = self.driver.round(tokens, labels, slot=slot)
+        raw = self._raw(m, slot, tokens, m["losses"])
+        if self.driver.cache is not None:
+            raw["cache"] = {k: m[k] for k in CACHE_STAT_KEYS}
+            raw["cache_hit"] = m["cache_hit"]
+        return raw
+
+    def state(self) -> Dict[str, Any]:
+        d = self.driver
+        return self._checkpoint_state(d.stage_adapters(), d.shared["head"], d.opt_state)
+
+    def load_state(self, params, opt, *, step: int) -> None:
+        d = self.driver
+        stage_adapters, head, ring_opt = self._from_checkpoint(params, opt)
+        # into the executor's own tensors: its graphs read and write them
+        bridge.copy_into(d.stage_adapters(), stage_adapters)
+        bridge.copy_into(d.shared["head"], head)
+        bridge.copy_into(d.opt_state, ring_opt)
+        d.step = step
+        d._last_boundary = None            # the next round drops the graphs built before
+        if d.cache is not None:
+            d.cache.invalidate()           # never serve activations from before the restore
+
+
+class CachedBackend(FusedBackend):
+    """The fused executor with the frozen-trunk activation cache (Phase A
+    skipped on a revisited slot). Needs slot-keyed batches
+    (``slots_per_epoch``): streaming draws never revisit a key."""
+
+    name = "cached"
+
+    def __init__(self, cfg, tc, policy, *, n_stages: int, cache_capacity: int, params=None,
+                 packed: bool = True, cache_dtype: str = "native", spans=None,
+                 device_profiles=None, device=None):
+        if cache_capacity < 1:
+            raise ValueError(f"CachedBackend needs cache_capacity >= 1 (got {cache_capacity}); "
+                             f"use FusedBackend for uncached rounds")
+        super().__init__(cfg, tc, policy, n_stages=n_stages, params=params,
+                         cache_capacity=cache_capacity, packed=packed, cache_dtype=cache_dtype,
+                         spans=spans, device_profiles=device_profiles, device=device)
+
+    @classmethod
+    def build(cls, cfg, tc, policy, *, n_stages, spans=None, device_profiles=None,
+              params=None, slots_per_epoch=None, cache_capacity=None, packed=True,
+              cache_dtype="native", impl="kernel", device=None, log=print) -> "CachedBackend":
+        if not slots_per_epoch:
+            raise ValueError("backend='cached' needs slots_per_epoch >= 1: the activation "
+                             "cache keys on stable batch slots, and streaming draws never "
+                             "repeat a key. Use backend='fused' for non-repeating data.")
+        cap = cache_capacity if cache_capacity is not None else slots_per_epoch
+        if 0 < cap < slots_per_epoch:
+            # round-robin slots and LRU: every slot is evicted before its revisit
+            log(f"WARNING: cache_capacity {cap} < slots_per_epoch {slots_per_epoch}: the "
+                f"cache will thrash (0% hits, capture overhead every round); raise the "
+                f"capacity or use backend='fused'")
+        return cls(cfg, tc, policy, n_stages=n_stages, cache_capacity=cap, params=params,
+                   packed=packed, cache_dtype=cache_dtype, spans=spans,
+                   device_profiles=device_profiles, device=device)
+
+
+class PjitBackend:
+    """The one-device path: ``core/training.make_train_step`` built once per
+    boundary and run eagerly (its CUDA graph per boundary waits for ROADMAP
+    Queue 1 item 10). The LM objective only: a QA head waits for item 12."""
+
+    kind = "pjit"
+    name = "pjit"
+    steps_per_call = 1
+
+    def __init__(self, cfg: ModelConfig, tc: TrainConfig, policy, *,
+                 params: Optional[Dict[str, Any]] = None, device=None):
+        if cfg.head_out is not None:
+            raise NotImplementedError(f"{cfg.name}: the QA step (head_out={cfg.head_out}) "
+                                      f"waits for ROADMAP Queue 1 item 12")
+        self.cfg, self.tc, self.policy = cfg, tc, policy
+        self._params = _materialize(cfg, tc, params, device)
+        self.device = self._params["head"]["w"].device
+        self._opt = adamw.init(training.full_trainable(self._params, cfg))
+        self._fns: Dict[int, Any] = {}      # boundary -> step
+        self._step = 0
+
+    @classmethod
+    def build(cls, cfg, tc, policy, *, n_stages=None, spans=None, device_profiles=None,
+              params=None, slots_per_epoch=None, cache_capacity=None, packed=True,
+              cache_dtype="native", impl="kernel", device=None, log=print) -> "PjitBackend":
+        if spans is not None or device_profiles is not None:
+            raise ValueError("spans/device_profiles describe the ring's stage layout: they "
+                             "have no meaning for the pjit backend")
+        return cls(cfg, tc, policy, params=params, device=device)
+
+    @property
+    def format(self) -> str:
+        return "pjit"
+
+    @property
+    def compile_count(self) -> int:
+        return len(self._fns)
+
+    def _fn(self, boundary: int):
+        if boundary not in self._fns:
+            self._fns[boundary] = training.make_train_step(self.cfg, self.tc, boundary)
+        return self._fns[boundary]
+
+    def step(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        depth = self.policy.depth_at(self._step, self.cfg.n_layers)
+        boundary = depth_to_boundary(self.cfg, depth)
+        self._params, self._opt, metrics = self._fn(boundary)(
+            self._params, self._opt, to_device(batch, self.device))
+        self._step += 1
+        extras = {k: v for k, v in metrics.items() if k != "loss"}
+        return {"loss": metrics["loss"], "boundary": boundary, "depth": depth,
+                "step": self._step, "tokens": int(np.size(batch["tokens"])),
+                "extras": extras}
+
+    def export_params(self) -> Dict[str, Any]:
+        return self._params
+
+    def state(self) -> Dict[str, Any]:
+        p = self._params
+        return {"format": self.format,
+                "params": bridge.trainable_to_reference([b["adapter"] for b in p["blocks"]],
+                                                        p["head"], self.cfg),
+                "opt": bridge.opt_state_to_reference(self._opt, self.cfg)}
+
+    def load_state(self, params, opt, *, step: int) -> None:
+        adapters, head = bridge.trainable_from_reference(params, self.cfg)
+        self._params = training.write_back(self._params, {"adapters": adapters, "head": head})
+        self._opt = bridge.opt_state_from_reference(opt, self.cfg)
+        self._step = step

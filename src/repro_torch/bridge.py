@@ -18,6 +18,12 @@ reference executor's ``opt_state`` tree). The reference's padded ``[S,
 max_span, C, ...]`` stage stack is made here from the flat ``[R, C, ...]``
 one (``core/pipeline.stack_entry``; a ragged layout's padding rows repeat
 the stage's last block and are dropped on the way back).
+
+The session's checkpoints (``api/session.py``) hold the trainable set and
+the moments in the reference's layout too, but as tensors
+(``trainable_to_reference``, ``ring_opt_to_reference``,
+``opt_state_to_reference`` and their inverses), so that a file written by
+either package restores in the other.
 """
 from __future__ import annotations
 
@@ -114,13 +120,14 @@ def _layer_order(cfg: ModelConfig) -> List[List[int]]:
             for e, (_, count) in enumerate(cfg.pattern)]
 
 
-def _stack_entries(layers: List[Any], cfg: ModelConfig, bf16) -> tuple:
-    """One tree per layer -> a tuple over pattern entries of numpy ``[R, C, ...]`` trees."""
+def _stack_entries(layers: List[Any], cfg: ModelConfig, bf16, tensors: bool = False) -> tuple:
+    """One tree per layer -> a tuple over pattern entries of ``[R, C, ...]``
+    trees: numpy (through :func:`to_numpy`), or tensors with ``tensors``."""
     out = []
     for (_, count), idx in zip(cfg.pattern, _layer_order(cfg)):
         def stack(*leaves, count=count):
-            arr = np.stack([to_numpy(t, bf16) for t in leaves])
-            return arr.reshape((cfg.repeats, count) + arr.shape[1:])
+            arr = torch.stack(leaves) if tensors else np.stack([to_numpy(t, bf16) for t in leaves])
+            return arr.reshape((cfg.repeats, count) + tuple(arr.shape[1:]))
         out.append(tree_map(stack, *[layers[i] for i in idx]))
     return tuple(out)
 
@@ -160,15 +167,13 @@ def opt_state_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device=None) -> D
 
 def opt_state_to_jax(opt_state: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
     """The inverse of :func:`opt_state_from_jax`, exact."""
-    out = {k: {"adapters": _stack_entries(opt_state[k]["adapters"], cfg, None),
-               "head": tree_map(to_numpy, opt_state[k]["head"])} for k in ("m", "v")}
-    return {**out, "count": to_numpy(opt_state["count"])}
+    return tree_map(to_numpy, opt_state_to_reference(opt_state, cfg))
 
 
 # ---------------------------------------------------------------- the ring's state
 
 
-def _stage_layout(layers: List[Any], spans) -> List[List[Any]]:
+def stage_layout(layers: List[Any], spans) -> List[List[Any]]:
     """One tree per layer -> a list per stage."""
     per = len(layers) // spans[-1][1]
     return [layers[b * per:e * per] for b, e in spans]
@@ -180,9 +185,7 @@ def stage_adapters_to_jax(stage_tree: List[List[Any]], cfg: ModelConfig, spans,
     layer: adapters or their moments) -> the reference's ``[S, max_span, C,
     ...]`` numpy stage stack (``RingTrainer.stage_blocks["adapter"]``,
     ``m_ad``, ``v_ad``)."""
-    flat = [layer for stage in stage_tree for layer in stage]
-    (entry,) = _stack_entries(flat, cfg, bf16)
-    return pl.stack_entry(entry, spans)
+    return tree_map(lambda t: to_numpy(t, bf16), stage_to_reference(stage_tree, cfg, spans))
 
 
 def stage_adapters_from_jax(stacked: Dict[str, Any], cfg: ModelConfig, spans,
@@ -191,7 +194,7 @@ def stage_adapters_from_jax(stacked: Dict[str, Any], cfg: ModelConfig, spans,
     device = dev_rule.resolve(device)
     entry = pl.unstack_entry(stacked, spans)
     layers = _unstack_entries((entry,), cfg, lambda x: to_tensor(x, device))
-    return _stage_layout(layers, spans)
+    return stage_layout(layers, spans)
 
 
 def ring_state_to_jax(trainer, bf16=None) -> Dict[str, Any]:
@@ -225,6 +228,20 @@ def ring_state_from_jax(state: Dict[str, Any], trainer, device=None) -> None:
     trainer.v_hd = tree_map(conv, state["v_hd"])
 
 
+def copy_into(dst: Any, src: Any) -> None:
+    """Copy the tensors of tree ``src`` into those of ``dst`` (the same
+    structure), in place: a CUDA graph that reads or writes ``dst``'s tensors
+    sees the new values."""
+    if isinstance(dst, torch.Tensor):
+        dst.copy_(src)
+    elif isinstance(dst, dict):
+        for k in dst:
+            copy_into(dst[k], src[k])
+    else:
+        for d, s_ in zip(dst, src, strict=True):
+            copy_into(d, s_)
+
+
 def executor_state_to_jax(executor, bf16=None) -> Dict[str, Any]:
     """A port ``RingExecutor``'s trainable state in the reference
     ``RingExecutor``'s layout: ``adapter`` (its ``stage_blocks["adapter"]``),
@@ -245,22 +262,77 @@ def executor_state_from_jax(state: Dict[str, Any], executor) -> None:
     keys, numpy leaves) into a port ``RingExecutor``, exactly, by copying into
     the tensors the executor owns (its captured rounds read and write them)."""
     cfg, spans, device = executor.cfg, executor.spans, executor.device
-
-    def put(dst, src):
-        if isinstance(dst, torch.Tensor):
-            dst.copy_(src)
-        elif isinstance(dst, dict):
-            for k in dst:
-                put(dst[k], src[k])
-        else:
-            for d, s_ in zip(dst, src, strict=True):
-                put(d, s_)
-
     conv = lambda x: to_tensor(x, device)
     staged = lambda x: stage_adapters_from_jax(x, cfg, spans, device)
-    put(executor.stage_adapters(), staged(state["adapter"]))
-    put(executor.shared["head"], tree_map(conv, state["head"]))
+    copy_into(executor.stage_adapters(), staged(state["adapter"]))
+    copy_into(executor.shared["head"], tree_map(conv, state["head"]))
     for name in ("m", "v"):
-        put(executor.opt_state[name]["adapter"], staged(state["opt_state"][name]["adapter"]))
-        put(executor.opt_state[name]["head"], tree_map(conv, state["opt_state"][name]["head"]))
+        src = state["opt_state"][name]
+        copy_into(executor.opt_state[name]["adapter"], staged(src["adapter"]))
+        copy_into(executor.opt_state[name]["head"], tree_map(conv, src["head"]))
     executor.opt_state["count"].copy_(conv(np.asarray(state["opt_state"]["count"], np.int32)))
+
+
+# ---------------------------------------------------------------- checkpoints
+
+
+def trainable_to_reference(adapters: List[Dict[str, Any]], head: Dict[str, Any],
+                           cfg: ModelConfig) -> Dict[str, Any]:
+    """One adapter dict per layer and the head -> the reference's parameter
+    tree cut to its trainable set: ``{"blocks": ({"adapter": [R, C, ...]},
+    ...), "head": head}`` (the keys ``checkpoint.save(adapters_only=True)``
+    keeps from the reference's full tree)."""
+    return {"blocks": tuple({"adapter": e} for e in
+                            _stack_entries(adapters, cfg, None, tensors=True)),
+            "head": head}
+
+
+def trainable_from_reference(tree: Dict[str, Any], cfg: ModelConfig):
+    """Inverse of :func:`trainable_to_reference`: (one adapter dict per layer, head)."""
+    layers = _unstack_entries([e["adapter"] for e in tree["blocks"]], cfg, lambda x: x)
+    return layers, tree["head"]
+
+
+def stage_to_reference(stage_tree: List[List[Any]], cfg: ModelConfig, spans) -> Dict[str, Any]:
+    """A tree in the port's stage layout -> the reference's ``[S, max_span,
+    C, ...]`` stage stack, as tensors (:func:`stage_adapters_to_jax`'s layout)."""
+    (entry,) = _stack_entries([layer for stage in stage_tree for layer in stage], cfg, None,
+                              tensors=True)
+    return pl.stack_entry(entry, spans)
+
+
+def stage_from_reference(stacked: Dict[str, Any], cfg: ModelConfig, spans) -> List[List[Any]]:
+    """Inverse of :func:`stage_to_reference` (views of ``stacked``)."""
+    layers = _unstack_entries((pl.unstack_entry(stacked, spans),), cfg, lambda x: x)
+    return stage_layout(layers, spans)
+
+
+def ring_opt_to_reference(opt: Dict[str, Any], cfg: ModelConfig, spans) -> Dict[str, Any]:
+    """The ring's optimizer state (``executor.ring_opt_init``'s tree: the
+    adapters' moments in the stage layout, the head's, ``count``) -> the
+    reference ring's ``opt_state``, as tensors."""
+    out = {k: {"adapter": stage_to_reference(opt[k]["adapter"], cfg, spans),
+               "head": opt[k]["head"]} for k in ("m", "v")}
+    return {**out, "count": opt["count"]}
+
+
+def ring_opt_from_reference(tree: Dict[str, Any], cfg: ModelConfig, spans) -> Dict[str, Any]:
+    """Inverse of :func:`ring_opt_to_reference`."""
+    out = {k: {"adapter": stage_from_reference(tree[k]["adapter"], cfg, spans),
+               "head": tree[k]["head"]} for k in ("m", "v")}
+    return {**out, "count": tree["count"]}
+
+
+def opt_state_to_reference(opt_state: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
+    """The one-device AdamW state -> the reference's (:func:`opt_state_to_jax`'s
+    layout), as tensors."""
+    out = {k: {"adapters": _stack_entries(opt_state[k]["adapters"], cfg, None, tensors=True),
+               "head": opt_state[k]["head"]} for k in ("m", "v")}
+    return {**out, "count": opt_state["count"]}
+
+
+def opt_state_from_reference(tree: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
+    """Inverse of :func:`opt_state_to_reference`."""
+    out = {k: {"adapters": _unstack_entries(tree[k]["adapters"], cfg, lambda x: x),
+               "head": tree[k]["head"]} for k in ("m", "v")}
+    return {**out, "count": tree["count"]}

@@ -82,6 +82,15 @@ from repro_torch.optim import adamw
 FUSED_MODES = ("direct", "capture", "cached")
 
 
+def scalarize(v: Any) -> Any:
+    """A metric tensor as a float (0-d) or a list of floats; anything else
+    passes through. The one rule that turns a round's device metrics into host
+    values (``RingExecutor.materialize_metrics``, ``api.metrics``)."""
+    if isinstance(v, torch.Tensor):
+        return float(v) if v.ndim == 0 else v.tolist()
+    return v
+
+
 def ring_opt_init(stage_adapters, head) -> Dict[str, Any]:
     """The ring's optimizer state: the adapters' moments in the stage layout,
     the head's, and the step ``count`` (a 0-d int32 tensor)."""
@@ -422,9 +431,7 @@ class RingExecutor:
     @staticmethod
     def materialize_metrics(m: Dict[str, Any]) -> Dict[str, Any]:
         """A round's metrics with its tensors as floats (waits for the device)."""
-        conv = lambda v: (float(v) if v.ndim == 0 else [float(x) for x in v]) \
-            if isinstance(v, torch.Tensor) else v
-        return {k: conv(v) for k, v in m.items()}
+        return {k: scalarize(v) for k, v in m.items()}
 
     def measured_tick_ledger(self, boundary: int, mode: str = "direct") -> Dict[str, int]:
         """The round's tick totals from the tick phases the (boundary, mode)

@@ -56,6 +56,7 @@ class RingTrainer:
         self.m_ad, self.v_ad = adamw.init_moments(self.stage_adapters())
         self.m_hd, self.v_hd = adamw.init_moments(self.shared["head"])
         self.sched = schedule if schedule is not None else UnfreezeSchedule.from_train_config(tc)
+        self._rounds_run: set = set()        # (owner, boundary) pairs run
         self.step = 0
 
     def stage_adapters(self):
@@ -72,6 +73,13 @@ class RingTrainer:
         return pl.make_ring_train_round(self.cfg, n_stages=self.S, owner=owner,
                                         boundary=boundary, n_micro=self.M, spans=self.spans,
                                         impl=self.impl)
+
+    @property
+    def n_executables(self) -> int:
+        """Ring rounds built: one per (owner, boundary) pair run, S a boundary,
+        as the reference counts its jitted rounds (the fused executor builds
+        one a boundary)."""
+        return len(self._rounds_run)
 
     def to_device(self, tokens, labels) -> Tuple[torch.Tensor, torch.Tensor]:
         """[S, M, mb, seq] token ids (numpy or tensors) as int64 on the trainer's device."""
@@ -104,6 +112,7 @@ class RingTrainer:
                 "iterations": iterations}
 
     def _iteration(self, owner: int, boundary: int, tokens, labels):
+        self._rounds_run.add((owner, boundary))
         ticks: Dict[str, int] = {}
         loss, (g_ad, g_hd) = self.round_fn(owner, boundary)(
             self.stage_blocks, self.shared, tokens, labels,

@@ -1,35 +1,43 @@
-"""Training with RingAda's scheduled unfreezing, on one device or as a ring.
+"""Training with RingAda's scheduled unfreezing, on one device or as a ring:
+a thin CLI over :class:`~repro_torch.api.RingSession` (the reference's
+``launch/train.py``).
 
-``--mode pjit`` (one device): the loop walks
-:func:`~repro_torch.core.unfreeze.boundary_schedule` and builds one
-:func:`~repro_torch.core.training.make_train_step` per segment of constant
-boundary; each step trains the head and the adapters above the boundary on a
-batch of the merged synthetic client corpora, and prints one loss line with
-its boundary.
+Every mode is a (backend, policy) pair of the session:
 
-``--mode ring``: ``--stages`` stages of the model on the device, each client
-with its own corpus, ``--rounds`` rounds (every client the initiator once a
-round, ``--microbatches`` microbatches of ``--batch-size`` rows each) of
-:class:`~repro_torch.core.executor.RingExecutor` (``--trainer fused``, the
-default: one CUDA graph per boundary on the card; ``--no-packed`` runs Phase A
-per owner) or of its oracle :class:`~repro_torch.core.ring.RingTrainer`
-(``--trainer reference``); one line per round with its boundary, depth, loss
-and wall time, then the last round's record as JSON. The depth grows by one
-block every ``--unfreeze-interval`` steps (owner iterations in ring mode; 40
-by default, as the reference's CLI). ``--device-speeds`` gives each stage a
-relative speed and the spans come from the speed-weighted partitioner
-(``partition.spans_from_profiles``); the balanced layout otherwise. The
-ring's lr defaults to ``RING_LR``. ``--slots-per-epoch N`` cycles the data
-through N epoch-stable batch slots and gives the executor a frozen-trunk
-activation cache (``--cache-capacity``, default N; ``--no-cache``;
-``--cache-dtype``): a revisited slot skips Phase A. Each round's line then
-says ``cache_hit``, and the last JSON line carries the cache's counts.
+  * ``--mode pjit`` (one device): the ``PjitBackend``, one
+    :func:`~repro_torch.core.training.make_train_step` per boundary on a
+    batch of the merged synthetic client corpora; one loss line a step with
+    its boundary. ``--scheme all_hot`` trains every adapter from step 0.
+  * ``--mode ring``: ``--stages`` stages of the model on the device, each
+    client with its own corpus, ``--rounds`` rounds (every client the
+    initiator once a round, ``--microbatches`` microbatches of
+    ``--batch-size`` rows each): the ``FusedBackend`` over
+    :class:`~repro_torch.core.executor.RingExecutor` (``--trainer fused``,
+    the default: one CUDA graph per boundary on the card; ``--no-packed``
+    runs Phase A per owner), the ``CachedBackend`` with ``--slots-per-epoch
+    N`` (the data cycles through N epoch-stable slots and a revisited slot
+    skips Phase A; ``--cache-capacity``, default N; ``--no-cache``;
+    ``--cache-dtype``), or the ``ReferenceBackend`` over its oracle
+    :class:`~repro_torch.core.ring.RingTrainer` (``--trainer reference``).
+    One line a round with its boundary, depth, loss, wall ms (and
+    ``cache_hit``), then the last round's record as JSON (with the cache's
+    counts). ``--device-speeds`` gives each stage a relative speed and the
+    spans come from the speed-weighted partitioner; the balanced layout
+    otherwise. The ring's lr defaults to ``RING_LR``.
+
+The depth grows by one block every ``--unfreeze-interval`` steps (owner
+iterations in ring mode; 40 by default, as the reference's CLI);
+``--policy plateau`` unfreezes when the loss plateaus instead. ``--save``
+writes the session after the run and ``--resume`` continues a saved one, bit
+for bit, in the reference's checkpoint format.
 
 Usage (on a machine with an NVIDIA GPU; ``--device cpu`` runs the plain versions):
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b --reduced \\
         --steps 12 --unfreeze-interval 4
     PYTHONPATH=src python -m repro_torch.launch.train --mode ring --arch stablelm-3b \\
-        --reduced --stages 2 --rounds 4 --unfreeze-interval 2
+        --reduced --stages 2 --rounds 4 --unfreeze-interval 2 --save ckpt/ring
+    PYTHONPATH=src python -m repro_torch.launch.train --mode ring --arch stablelm-3b \\
+        --reduced --stages 2 --rounds 4 --unfreeze-interval 2 --resume ckpt/ring
     PYTHONPATH=src python -m repro_torch.launch.train --mode ring --arch stablelm-3b \\
         --reduced --layers 14 --stages 4 --rounds 2 --device-speeds 1.0,1.25,0.5,0.75
     PYTHONPATH=src python -m repro_torch.launch.train --mode ring --arch stablelm-3b \\
@@ -40,24 +48,15 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import time
 from typing import Any, Dict, Optional
 
-import torch
-
 from repro_torch import device as dev_rule
+from repro_torch.api import (ExplicitPolicy, LoggingCallback, PjitDataSource, RingDataSource,
+                             RingSession, resolve_policy)
 from repro_torch.configs import TrainConfig, get_config
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import training
 from repro_torch.core.actcache import CACHE_DTYPES
-from repro_torch.core.executor import RingExecutor
-from repro_torch.core.partition import parse_device_profiles, spans_from_profiles
-from repro_torch.core.ring import RingTrainer
-from repro_torch.core.unfreeze import UnfreezeSchedule, boundary_schedule
-from repro_torch.data.pipeline import (Batcher, RingBatcher, make_client_datasets, merged,
-                                       to_device)
-from repro_torch.models import params as prm
-from repro_torch.optim import adamw
+from repro_torch.data.pipeline import Batcher, RingBatcher
 
 # The ring's update is the reference's raw AdamW (no warm-up, no bias
 # correction), whose first steps move every entry by about 3 lr in its
@@ -72,9 +71,7 @@ RING_LR = 1e-4
 def data_source(cfg: ModelConfig, tc: TrainConfig, n_clients: int = 4,
                 n_per_client: int = 256) -> Batcher:
     """The reference's single-device data: the merged client corpora, flat batches."""
-    ds = merged(make_client_datasets(n_clients, vocab=cfg.vocab_size,
-                                     n_per_client=n_per_client, seq=tc.seq_len, seed=tc.seed))
-    return Batcher(ds, tc.batch_size, seed=tc.seed)
+    return PjitDataSource(cfg, tc, n_clients=n_clients, n_per_client=n_per_client).batcher
 
 
 def ring_data_source(cfg: ModelConfig, tc: TrainConfig, n_stages: int,
@@ -83,86 +80,89 @@ def ring_data_source(cfg: ModelConfig, tc: TrainConfig, n_stages: int,
     """The reference's ring data: one corpus per client, ``tc.n_microbatches``
     microbatches of ``tc.batch_size`` rows from each at every round, drawn
     afresh or, with ``slots_per_epoch``, from that many epoch-stable slots."""
-    clients = make_client_datasets(n_stages, vocab=cfg.vocab_size, n_per_client=n_per_client,
-                                   seq=tc.seq_len, seed=tc.seed)
-    return RingBatcher(clients, tc.n_microbatches, tc.batch_size, seed=tc.seed,
-                       slots_per_epoch=slots_per_epoch)
+    return RingDataSource(cfg, tc, n_stages, n_per_client=n_per_client,
+                          slots_per_epoch=slots_per_epoch).rb
 
 
 def train_ring(cfg: ModelConfig, tc: TrainConfig, *, rounds: int, n_stages: int,
-               trainer: str = "fused", spans=None, packed: bool = True,
+               trainer: str = "fused", packed: bool = True,
                slots_per_epoch: Optional[int] = None, cache_capacity: Optional[int] = None,
-               cache_dtype: str = "native", device=None) -> Dict[str, Any]:
-    """``rounds`` rounds of :class:`RingExecutor` (``trainer="fused"``) or
-    :class:`RingTrainer` (``"reference"``) on ``device`` (default cuda) from
-    random weights made from ``tc.seed``, over the layout ``spans`` (default
-    balanced); returns the trainer and the per-round history.
-
-    ``slots_per_epoch``: the data cycles through that many batch slots
-    (``RingBatcher.next_slot``; the reference trainer ignores the slot), and
-    the executor keeps an activation cache of ``cache_capacity`` entries
-    (default ``slots_per_epoch``; 0 turns it off) in ``cache_dtype``, as the
-    reference's CLI chooses its cached backend."""
-    device = dev_rule.resolve(device)
-    cap = cache_capacity if cache_capacity is not None else (slots_per_epoch or 0)
-    cached = trainer == "fused" and bool(slots_per_epoch) and cap > 0
-    if cached and cap < slots_per_epoch:
-        # round-robin slots and LRU: every slot is evicted before its revisit
-        print(f"WARNING: cache_capacity {cap} < slots_per_epoch {slots_per_epoch}: the cache "
-              f"will thrash (0% hits, capture overhead every round); raise the capacity or "
-              f"turn the cache off")
-    params = prm.materialize(cfg, seed=tc.seed, device=device)
-    if trainer == "fused":
-        ring = RingExecutor(cfg, tc, params, n_stages, tc.n_microbatches, spans=spans,
-                            packed=packed, cache_capacity=cap if cached else 0,
-                            cache_dtype=cache_dtype)
+               cache_dtype: str = "native", device_speeds: Optional[Any] = None,
+               policy: Any = None, save_path: Optional[str] = None,
+               resume: Optional[str] = None, device=None, log=print) -> Dict[str, Any]:
+    """``rounds`` rounds of the ring on ``device`` (default cuda) through a
+    :class:`~repro_torch.api.RingSession`: the fused backend
+    (``trainer="fused"``; the cached one with ``slots_per_epoch`` and a
+    capacity, default ``slots_per_epoch``, 0 turning it off) or the
+    reference one (``"reference"``), from random weights made from
+    ``tc.seed``. ``device_speeds`` (one per stage, ring order) runs the
+    paper's speed-weighted partitioner. ``policy``: 'interval' (the paper's
+    rule, default) or 'plateau'. ``save_path`` saves the session after the
+    run; ``resume`` restores a saved one (its backend, stages, slots,
+    capacity, cache dtype and spans) and runs ``rounds`` more. Returns the
+    driver, the session and the per-round history."""
+    if trainer not in ("fused", "reference"):
+        raise ValueError(f"trainer must be 'fused' or 'reference', got {trainer!r}")
+    if resume:
+        if device_speeds is not None:
+            raise ValueError(
+                "--device-speeds cannot be combined with --resume: the span layout is part "
+                "of the checkpointed state (the stage-stacked Adam moments are laid out per "
+                "span), so resume restores the saved layout. To repartition, start a fresh "
+                "run with the new speeds.")
+        # the checkpoint records backend, stages, slots, capacity and spans:
+        # re-deriving them from flags could resume a cached run as a
+        # streaming one, on other data
+        sess = RingSession.restore(resume, cfg, tc, policy=policy, device=device, log=log)
+        if sess.backend.kind != "ring":
+            raise ValueError(f"--resume checkpoint was saved by the {sess.backend.name!r} "
+                             f"backend; resume it with --mode pjit")
     else:
-        ring = RingTrainer(cfg, tc, params, n_stages, tc.n_microbatches, spans=spans)
-    del params
-    data = ring_data_source(cfg, tc, n_stages, slots_per_epoch=slots_per_epoch or None)
-    history = []
-    for r in range(rounds):
-        t0 = time.perf_counter()
-        if slots_per_epoch:
-            slot, tokens, labels = data.next_slot()
-        else:
-            slot, (tokens, labels) = None, data.next()
-        out = ring.round(tokens, labels, slot=slot) if trainer == "fused" \
-            else ring.round(tokens, labels)
-        rec = RingExecutor.materialize_metrics(out)
-        rec = {"round": r, **rec, "depth": (cfg.repeats - rec["boundary"]) * cfg.layers_per_repeat,
-               "round_ms": 1e3 * (time.perf_counter() - t0)}
-        if slot is not None:
-            rec["slot"] = slot
-        history.append(rec)
-        hit = f" cache_hit {rec['cache_hit']}" if "cache_hit" in rec else ""
-        print(f"round {r} boundary {rec['boundary']} depth {rec['depth']} "
-              f"loss {rec['loss']:.4f} round_ms {rec['round_ms']:.1f}{hit}")
-    return {"trainer": ring, "history": history}
+        cap = cache_capacity if cache_capacity is not None else (slots_per_epoch or 0)
+        backend = "reference" if trainer == "reference" else \
+            "cached" if slots_per_epoch and cap else "fused"
+        sess = RingSession.create(cfg, tc, backend=backend, policy=policy, n_stages=n_stages,
+                                  slots_per_epoch=slots_per_epoch,
+                                  cache_capacity=cache_capacity, packed=packed,
+                                  cache_dtype=cache_dtype, device_profiles=device_speeds,
+                                  device=device, log=log)
+        if device_speeds is not None:
+            log(f"heterogeneous ring: speeds {list(device_speeds)} -> spans "
+                f"{[list(sp) for sp in sess.backend.spans]}")
+    history = sess.run(rounds, callbacks=[LoggingCallback(log)])
+    if save_path:
+        sess.save(save_path)
+    return {"trainer": sess.backend.driver, "session": sess, "history": history}
 
 
-def train(cfg: ModelConfig, tc: TrainConfig, *, steps: int, device=None) -> Dict[str, Any]:
+def train(cfg: ModelConfig, tc: TrainConfig, *, steps: int, scheme: str = "ringada",
+          policy: Any = None, save_path: Optional[str] = None, resume: Optional[str] = None,
+          device=None, log=print) -> Dict[str, Any]:
     """Train ``steps`` steps on ``device`` (default cuda) from random weights
-    made from ``tc.seed``; returns the params, the optimizer state and the
-    per-step history."""
-    device = dev_rule.resolve(device)
-    params = prm.materialize(cfg, seed=tc.seed, device=device)
-    opt_state = adamw.init(training.full_trainable(params, cfg))
-    data = data_source(cfg, tc)
-    history = []
-    for start, end, boundary in boundary_schedule(cfg, UnfreezeSchedule.from_train_config(tc),
-                                                  steps):
-        step = training.make_train_step(cfg, tc, boundary)
-        for s in range(start, end):
-            t0 = time.perf_counter()
-            params, opt_state, metrics = step(params, opt_state, to_device(data.next(), device))
-            row = {"step": s, "boundary": boundary,
-                   **{k: float(v) for k, v in metrics.items()},
-                   "wall_s": time.perf_counter() - t0}
-            history.append(row)
-            print(f"step {s} boundary {boundary} loss {row['loss']:.4f} "
-                  f"accuracy {row['accuracy']:.4f} grad_norm {row['grad_norm']:.4g}")
-    return {"params": params, "opt_state": opt_state, "history": history}
+    made from ``tc.seed``, through a :class:`~repro_torch.api.RingSession` on
+    the pjit backend. ``scheme``: 'ringada' (scheduled unfreezing under
+    ``policy``) or 'all_hot' (every adapter trainable from step 0).
+    ``save_path`` / ``resume`` as in :func:`train_ring`. Returns the params,
+    the optimizer state, the session and the per-step history."""
+    if scheme not in ("ringada", "all_hot"):
+        raise ValueError(f"scheme must be 'ringada' or 'all_hot', got {scheme!r}")
+    if scheme == "all_hot":
+        if policy not in (None, "interval"):
+            raise ValueError("scheme='all_hot' fixes the policy (every adapter hot from step "
+                             "0): drop --policy")
+        policy = ExplicitPolicy((cfg.n_layers,))
+    policy = resolve_policy(policy, tc)
+    if resume:
+        sess = RingSession.restore(resume, cfg, tc, backend="pjit", policy=policy,
+                                   device=device, log=log)
+    else:
+        sess = RingSession.create(cfg, tc, backend="pjit", policy=policy, device=device,
+                                  log=log)
+    history = sess.run(steps, callbacks=[LoggingCallback(log)])
+    if save_path:
+        sess.save(save_path)
+    return {"params": sess.backend.export_params(), "opt_state": sess.backend._opt,
+            "session": sess, "history": history}
 
 
 def main(argv=None) -> None:
@@ -210,6 +210,19 @@ def main(argv=None) -> None:
                     help="ring mode: the cache's storage: 'native' keeps the captured bits, "
                          "'bf16' halves and 'int8' (per-row scales) quarters the bytes of an "
                          "f32 entry")
+    ap.add_argument("--policy", choices=["interval", "plateau"], default="interval",
+                    help="unfreeze policy: the paper's k-step rule, or adaptive loss-plateau "
+                         "unfreezing")
+    ap.add_argument("--scheme", choices=["ringada", "all_hot"], default="ringada",
+                    help="pjit mode: scheduled unfreezing, or every adapter trainable from "
+                         "step 0")
+    ap.add_argument("--save", default=None,
+                    help="checkpoint path (both modes), written after the run: adapters, "
+                         "head, Adam moments, policy, data cursor, step")
+    ap.add_argument("--resume", default=None,
+                    help="continue a --save checkpoint bit for bit (ring mode restores the "
+                         "saved backend, stages, slots, cache and spans; their flags are "
+                         "ignored)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
@@ -230,25 +243,21 @@ def main(argv=None) -> None:
                      max_unfreeze_depth=args.max_unfreeze_depth,
                      n_stages=args.stages, n_microbatches=args.microbatches, seed=args.seed)
     if args.mode == "pjit":
-        train(cfg, tc, steps=args.steps, device=device)
+        train(cfg, tc, steps=args.steps, scheme=args.scheme, policy=args.policy,
+              save_path=args.save, resume=args.resume, device=device)
         return
-    spans = None
+    speeds = None
     if args.device_speeds:
         speeds = [float(x) for x in args.device_speeds.split(",")]
-        profiles = parse_device_profiles(speeds)
-        if len(profiles) != args.stages:
-            raise SystemExit(f"{len(profiles)} device speeds for a {args.stages}-stage ring: "
+        if len(speeds) != args.stages:
+            raise SystemExit(f"{len(speeds)} device speeds for a {args.stages}-stage ring: "
                              f"give one per stage, in ring order")
-        spans = spans_from_profiles(cfg.repeats, profiles)
-        print(f"heterogeneous ring: speeds {speeds} -> spans {[list(sp) for sp in spans]}")
     out = train_ring(cfg, tc, rounds=args.rounds, n_stages=args.stages, trainer=args.trainer,
-                     spans=spans, packed=not args.no_packed,
-                     slots_per_epoch=args.slots_per_epoch or None,
+                     packed=not args.no_packed, slots_per_epoch=args.slots_per_epoch or None,
                      cache_capacity=0 if args.no_cache else args.cache_capacity,
-                     cache_dtype=args.cache_dtype, device=device)
-    last = {k: v for k, v in out["history"][-1].items() if k != "iterations"}
-    print(json.dumps(last))
-
+                     cache_dtype=args.cache_dtype, device_speeds=speeds, policy=args.policy,
+                     save_path=args.save, resume=args.resume, device=device)
+    print(json.dumps(out["history"][-1]))
 
 if __name__ == "__main__":
     main()

@@ -621,3 +621,44 @@ def test_ring_executor_cached_replay_equals_direct_on_card():
         "adapter_fused": phase_b, "flash_attention": phase_b, "adapter_fused_bwd": phase_b,
         "flash_attention_bwd": (L - b - 1) * M * S, "rwkv_scan": 0, "mamba_scan": 0}
     assert cached.capture_launches[(b, "capture")] == direct.capture_launches[(b, "direct")]
+
+
+@pytest.mark.gpu
+def test_ring_session_resume_equals_uninterrupted_run_on_card(tmp_path):
+    """A fused ``RingSession`` on the card (the reduced bf16 stablelm-3b of
+    the tests above, 8 layers as S = 4 stages) runs 4 rounds across a
+    boundary drop (3, 3, 2, 2 frozen stages), saving after round 2; a session
+    restored from that file runs rounds 3 and 4 through its own CUDA graphs,
+    and its losses and every tensor a round writes equal the uninterrupted
+    run's bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: CUDA graphs and the kernels have no CPU mode")
+    import dataclasses
+
+    from repro_torch.api import IntervalPolicy, RingSession
+    from repro_torch.configs import TrainConfig, get_config
+
+    cfg = get_config("stablelm-3b").reduced(n_layers=8, repeats=8)
+    cfg = dataclasses.replace(cfg, adapter=dataclasses.replace(cfg.adapter, zero_init_up=False))
+    S, M, seq = 4, 2, 64
+    tc = TrainConfig(learning_rate=1e-4, n_microbatches=M, batch_size=1, seq_len=seq)
+    policy = lambda: IntervalPolicy(initial_depth=2, interval=2 * S)
+    quiet = lambda *a: None
+    sess = RingSession.create(cfg, tc, backend="fused", n_stages=S, policy=policy(), log=quiet)
+    path = str(tmp_path / "ring")
+    want = []
+    for r in range(4):
+        want.append(sess.step().materialize())
+        if r == 1:
+            sess.save(path)
+    assert [m.boundary for m in want] == [6, 6, 4, 4]
+    state = [t.clone() for t in sess.backend.driver.trainable_tensors()]
+    back = RingSession.restore(path, cfg, tc, policy=policy(), log=quiet)
+    assert back.backend.driver.device.type == "cuda" and back.step_count == 2 * S
+    got = [back.step().materialize() for _ in range(2)]
+    assert [(m.loss, m.extras["losses"]) for m in got] == \
+        [(m.loss, m.extras["losses"]) for m in want[2:]]
+    for i, (a, b) in enumerate(zip(back.backend.driver.trainable_tensors(), state,
+                                   strict=True)):
+        assert torch.equal(a, b), f"tensor {i} {tuple(a.shape)}"
+    assert back.backend.driver.compile_counts() == {"4/direct": 1}
