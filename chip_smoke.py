@@ -130,7 +130,27 @@ run with a non-zero exit and no result line:
      session on 2 slots (hits F, F, T, T; after the restore, captures) and
      for a pjit session (batches of 4 x 512, saved after step 2 of 4). The
      save and restore seconds and each checkpoint's bytes are printed, and
-     every training kernel must have launched in each session;
+     every training kernel must have launched in each session. Then several
+     tenants over one frozen trunk (``phase_ring_tenants``), on fresh weights
+     of the same ring at 3 frozen stages: a fused joint session of 4 tenants
+     runs 2 rounds, then each tenant's solo session on its own stream
+     (``RingDataSource(tenant=k)``, one solo alive at a time), whose losses,
+     adapters, head and moments must equal the joint session's slice
+     (``torch.equal``) and whose graph holds a quarter of the joint graph's
+     launches (the conveyor's ledger at ``T*S*M + F - 1`` ticks); the joint
+     replay's event ms beside the solo replays', the joint and one solo
+     session's resident and peak memory over the trunk, the capture
+     seconds. Every tenant is saved to an ``AdapterStore`` under ``build/``
+     (``TenantGroup.save_to``) and served by ``BatchServer`` through an
+     ``AdapterRegistry`` (2 requests of 128 tokens a tenant, 8 new tokens):
+     each graft equals the session's ``export_adapters``, the launch
+     counters are the served path's, the tenants' prefill logits differ,
+     and tenant 1's served blocks are held to their plain versions in bf16
+     as phase 3 holds them. Then a cached joint session of 2 tenants on 2
+     slots (capture, capture, hit, hit) against a direct joint executor
+     seeded with its state before each round (``torch.equal``), then tenant
+     1's ``import_adapters``, which frees its rows alone: the next round
+     hits tenant 0 and recaptures tenant 1;
   4. rwkv6-7b at its published width (32 layers, d_model 4096, 64 heads of 64,
      vocab 65536), random weights from the seed with non-zero adapters, served
      by ``BatchServer`` as in phase 3 (qwen2.5-3b is freed first); the counters
@@ -165,6 +185,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -182,7 +203,8 @@ import torch.nn.functional as F  # noqa: E402
 from torch.utils._pytree import tree_leaves, tree_map  # noqa: E402
 
 from repro_torch import device as dev_rule  # noqa: E402
-from repro_torch.api import IntervalPolicy, RingSession  # noqa: E402
+from repro_torch.api import AdapterStore, IntervalPolicy, RingSession  # noqa: E402
+from repro_torch.api.data import RingDataSource  # noqa: E402
 from repro_torch.configs import TrainConfig, get_config  # noqa: E402
 from repro_torch.core import pipeline as ring_pl  # noqa: E402
 from repro_torch.core import training  # noqa: E402
@@ -197,7 +219,7 @@ from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.launch.kernel_times import cold_ms, cuda_ms, graph_ms  # noqa: E402
-from repro_torch.launch.serve import BatchServer, Request  # noqa: E402
+from repro_torch.launch.serve import AdapterRegistry, BatchServer, Request  # noqa: E402
 from repro_torch.launch.train import RING_LR, data_source, ring_data_source  # noqa: E402
 from repro_torch.models import params as prm  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
@@ -289,6 +311,13 @@ INT8_LOSS_TOL, INT8_PARAM_TOL = 8e-2, 2e-1
 # build/ (listed in .gitignore) and are removed once restored.
 SESSION_ROUNDS, SESSION_SAVED_AT, SESSION_DEPTH = 4, 2, 8
 SESSION_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "ring_session")
+# several tenants on the same ring (phase_ring_tenants): a fused joint session
+# of 4 tenants for 2 rounds at depth 8 (3 frozen stages) against each tenant's
+# solo session; a cached joint session of 2 tenants on 2 slots (capture,
+# capture, hit, hit, then tenant 1's import and a round that recaptures only
+# it); the 4 tenants' bundles served, 2 requests each, 8 new tokens
+TENANTS, TENANT_ROUNDS, CACHE_TENANTS = 4, 2, 2
+TENANT_PROMPT, TENANT_NEW = 128, 8
 SOURCES = {
     "adapter_fused": ("src/repro_torch/kernels/csrc/adapter_fused.cu",
                       "src/repro/kernels/adapter_fused.py:55"),
@@ -1913,6 +1942,228 @@ def phase_ring_session(arch: str, records) -> None:
     count_launches(records, f"{cfg.name}_ring_session", launches)
 
 
+def _tenant_rounds(sess, rounds, launches):
+    """``rounds`` session steps, each with its executor's record (device
+    tensors), its CUDA-event ms and the launches its graph holds added to
+    ``launches``."""
+    ex = sess.backend.driver
+    recs, real = [], ex.round
+    ex.round = lambda *a, **kw: (recs.append(real(*a, **kw)), recs[-1])[1]
+    ms = []
+    for _ in range(rounds):
+        before = dict(ops.LAUNCHES)
+        m, t, _ = _session_round(sess)
+        _count_session_launches(sess, m, before, launches)
+        ms.append(t)
+    ex.round = real
+    return recs, ms
+
+
+def _gib(nbytes) -> str:
+    return f"{nbytes / 2**30:.3f}"
+
+
+def phase_ring_tenants(arch: str, records) -> None:
+    """Several tenants on the ring of ``phase_ring``, one frozen trunk: a fused
+    joint session of TENANTS tenants against each tenant's solo session on
+    its own stream (losses, adapters, head and moments ``torch.equal``; one
+    solo alive at a time), the replays' ms and the sessions' memory; the
+    tenants' bundles through an ``AdapterStore`` into ``BatchServer``'s
+    registry (each graft ``torch.equal`` to the session's export, the served
+    blocks held to their plain versions, the tenants' logits apart); then a
+    cached joint session of CACHE_TENANTS tenants on 2 slots against the
+    direct joint executor (hits ``torch.equal`` to direct rounds), and tenant
+    1's import freeing only its rows."""
+    cfg = served_config(arch)
+    tc = TrainConfig(learning_rate=RING_LR, batch_size=1, seq_len=TRAIN_S,
+                     n_microbatches=RING_M, n_stages=RING_S, seed=SEED)
+    params = prm.materialize(cfg, seed=SEED, device="cuda")
+    policy = lambda: IntervalPolicy(initial_depth=SESSION_DEPTH, interval=100 * RING_S)
+    session = lambda backend, **kw: RingSession.create(
+        cfg, tc, backend=backend, n_stages=RING_S, policy=policy(), params=params,
+        device="cuda", log=_quiet, **kw)
+    launches = {name: 0 for name in ops.LAUNCHES}
+    # -- the joint session against the solo ones
+    torch.cuda.synchronize()
+    trunk = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    joint = session("fused", tenants=TENANTS)
+    recs, joint_ms = _tenant_rounds(joint, TENANT_ROUNDS, launches)
+    _path_kernels_ran(ops.LAUNCHES, "the joint session")
+    torch.cuda.synchronize()
+    jx = joint.backend.driver
+    boundary = recs[0]["boundary"]
+    F, b = frozen_stage_count(jx.spans, boundary), boundary * cfg.layers_per_repeat
+    joint_mem = (torch.cuda.memory_allocated() - trunk, torch.cuda.max_memory_allocated() - trunk)
+    graph = jx.capture_launches[(boundary, "direct")]
+    L, per_round = cfg.n_layers, RING_M * RING_S
+    want_graph = {"adapter_fused": TENANTS * L * per_round,
+                  "flash_attention": TENANTS * L * per_round,
+                  "adapter_fused_bwd": TENANTS * (L - b) * per_round,
+                  "flash_attention_bwd": TENANTS * (L - b - 1) * per_round,
+                  "mamba_scan": 0, "rwkv_scan": 0}
+    ledger = jx.measured_tick_ledger(boundary)
+    if graph != want_graph or ledger["phase_a_round_ticks"] != TENANTS * per_round + F - 1:
+        raise AssertionError(f"the joint graph holds {graph}, expected {want_graph}; "
+                             f"ledger {ledger}")
+    solo_ms, solo_mem = [], None
+    for t in range(TENANTS):
+        torch.cuda.synchronize()
+        before_solo = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        solo = session("fused")
+        solo.data = RingDataSource(cfg, tc, RING_S, tenant=t)
+        srecs, ms = _tenant_rounds(solo, TENANT_ROUNDS, {name: 0 for name in ops.LAUNCHES})
+        torch.cuda.synchronize()
+        if solo_mem is None:
+            solo_mem = (torch.cuda.memory_allocated() - before_solo,
+                        torch.cuda.max_memory_allocated() - before_solo)
+        solo_ms.append(ms[-1])
+        sx = solo.backend.driver
+        equal = all(torch.equal(s["losses"], j["tenant_owner_losses"][:, t])
+                    and torch.equal(s["loss"], j["tenant_losses"][t])
+                    for s, j in zip(srecs, recs, strict=True))
+        mine, theirs = jx.export_adapters(t), sx.export_adapters(0)
+        mo, so = jx.export_tenant_opt(t), sx.export_tenant_opt(0)
+        state_equal = all(torch.equal(x, y) for x, y in zip(
+            tree_leaves((mine, mo["m"], mo["v"])), tree_leaves((theirs, so["m"], so["v"])),
+            strict=True))
+        solo_graph = sx.capture_launches[(boundary, "direct")]
+        if {k: TENANTS * n for k, n in solo_graph.items()} != graph:
+            raise AssertionError(f"tenant {t}: the solo graph holds {solo_graph}, the joint "
+                                 f"{graph}: not a {TENANTS}th")
+        say("ring_tenants_solo", tenant=t, losses=json.dumps(
+            [[round(x, 5) for x in s["losses"].tolist()] for s in srecs]),
+            equal_losses=equal, equal_state=state_equal, replay_event_ms=f"{ms[-1]:.3f}",
+            capture_s=f"{sx.capture_seconds[(boundary, 'direct')]:.2f}", card=repr(CARD))
+        if not (equal and state_equal):
+            raise AssertionError(f"tenant {t}: the joint session's slice is not its solo "
+                                 f"session's bit for bit")
+        del solo, sx, srecs, mine, theirs, mo, so
+        gc.collect()
+        torch.cuda.empty_cache()
+    tl = [[round(x, 5) for x in r["tenant_losses"].tolist()] for r in recs]
+    say("ring_tenants_joint", tenants=TENANTS, boundary=boundary, frozen_stages=F,
+        tenant_losses=json.dumps(tl), replay_event_ms=f"{joint_ms[-1]:.3f}",
+        solo_replay_event_ms=json.dumps([round(x, 3) for x in solo_ms]),
+        tenants_x_solo_ms=f"{sum(solo_ms):.3f}",
+        joint_over_solos=f"{joint_ms[-1] / sum(solo_ms):.4f}",
+        capture_s=f"{jx.capture_seconds[(boundary, 'direct')]:.2f}",
+        resident_gib=_gib(joint_mem[0]), peak_gib=_gib(joint_mem[1]),
+        solo_resident_gib=_gib(solo_mem[0]), solo_peak_gib=_gib(solo_mem[1]),
+        extra_resident_gib_per_tenant=_gib((joint_mem[0] - solo_mem[0]) / (TENANTS - 1)),
+        phase_a_ticks=ledger["phase_a_round_ticks"],
+        launches_in_graph=json.dumps(graph).replace(" ", ""), card=repr(CARD))
+    if len({tuple(x) for x in tl}) != TENANT_ROUNDS or len(set(tl[-1])) != TENANTS:
+        raise AssertionError(f"the tenants' losses do not differ: {tl}")
+    # -- the tenants' bundles served from an AdapterStore
+    os.makedirs(os.path.dirname(SESSION_DIR), exist_ok=True)         # build/
+    root = tempfile.mkdtemp(prefix="tenants_", dir=os.path.dirname(SESSION_DIR))
+    store = AdapterStore(root)
+    t0 = time.perf_counter()
+    for group in joint.tenants:
+        group.save_to(store, f"tenant{group.index}")
+    save_s = time.perf_counter() - t0
+    registry = AdapterRegistry(params, store)
+    names = registry.refresh()
+    for t in range(TENANTS):
+        want = jx.export_adapters(t)
+        got = registry.params_for(f"tenant{t}")
+        same = all(torch.equal(layer["adapter"][k], want["adapter"][k][i, 0])
+                   for i, layer in enumerate(got["blocks"]) for k in layer["adapter"]) and \
+            all(torch.equal(got["head"][k], want["head"][k]) for k in want["head"])
+        if not same:
+            raise AssertionError(f"tenant {t}'s graft is not its session's export")
+    del joint, jx, recs
+    freed()
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, size=TENANT_PROMPT) for _ in range(2)]
+    requests = [Request(2 * t + i, p, TENANT_NEW, tenant=f"tenant{t}")
+                for t in range(TENANTS) for i, p in enumerate(prompts)]
+    horizon = TENANT_PROMPT + TENANT_NEW + 8
+    server = BatchServer(cfg, params, slots=2, horizon=horizon, registry=registry,
+                         device="cuda")
+    ops.reset_launches()
+    results = server.run(requests, log=lambda *a: None)
+    served = dict(ops.LAUNCHES)
+    want = {"adapter_fused": L * TENANT_NEW * TENANTS, "flash_attention": L * TENANTS,
+            "adapter_fused_bwd": 0, "flash_attention_bwd": 0, "mamba_scan": 0, "rwkv_scan": 0}
+    logits = [bt["prefill_logits"] for bt in server.batches]
+    apart = all(not torch.equal(logits[i], logits[j]) for i in range(TENANTS)
+                for j in range(i))
+    _, _, gaps = _plain_run(cfg, registry.params_for("tenant1"), requests[2:4], horizon)
+    say("ring_tenants_serve", bundles=json.dumps(names).replace(" ", ""),
+        save_s=f"{save_s:.2f}", bundle_bytes=sum(os.path.getsize(os.path.join(root, f))
+                                                 for f in os.listdir(root)) // TENANTS,
+        requests=len(results), batches=len(server.batches),
+        logits_apart=apart, launches=json.dumps(served).replace(" ", ""),
+        **{f"bf16_{mode}": f"{g:.3g}" for mode, g in gaps.items()},
+        bf16_rtol=BLOCK_RTOL[torch.bfloat16], card=repr(CARD))
+    shutil.rmtree(root)
+    if sorted(names) != [f"tenant{t}" for t in range(TENANTS)] or served != want or \
+            len(server.batches) != TENANTS or not apart or \
+            any(len(v) != TENANT_NEW for v in results.values()):
+        raise AssertionError(f"serving the tenants: bundles {names}, launches {served} "
+                             f"(expected {want}), {len(server.batches)} batches, logits "
+                             f"apart {apart}")
+    if set(gaps) != {"prefill", "step", "prefill_cache", "step_cache"} or \
+            not all(g <= BLOCK_RTOL[torch.bfloat16] for g in gaps.values()):
+        raise AssertionError(f"a served tenant's block differs from its plain version: {gaps}")
+    count_launches(records, f"{cfg.name}_tenants_served", served)
+    del server, registry
+    freed()
+    # -- the cached joint session against the direct joint executor
+    ops.reset_launches()
+    sess = session("cached", tenants=CACHE_TENANTS, slots_per_epoch=CACHE_SLOTS)
+    exc = sess.backend.driver
+    exd = RingExecutor(cfg, tc, params, RING_S, RING_M, schedule=policy(),
+                       tenants=CACHE_TENANTS)
+    hits, ms_of = [], {}
+    for r in range(2 * CACHE_SLOTS + 1):
+        if r == 2 * CACHE_SLOTS:
+            entries = exc.cache.stats()["cache_entries"]
+            exc.import_adapters(1, exc.export_adapters(1))     # frees only tenant 1's rows
+            left = exc.cache.stats()["cache_entries"]
+        slot, tokens, labels = sess.data.next()
+        _copy_state(exd, exc)
+        tokens_d, labels_d = exd.to_device(tokens, labels)
+        before = dict(ops.LAUNCHES)
+        m, ms, _ = _session_round(sess, (slot, tokens, labels))
+        _count_session_launches(sess, m, before, launches)
+        want, direct_ms = _event_round(lambda: exd.round(tokens_d, labels_d))
+        equal = m.extras["losses"] == want["losses"].tolist() and \
+            m.extras["tenant_losses"] == want["tenant_losses"].tolist() and all(
+                torch.equal(x, y) for x, y in zip(exc.trainable_tensors(),
+                                                  exd.trainable_tensors(), strict=True))
+        hits.append(m.cache_hit)
+        ms_of.setdefault("cached" if m.cache_hit else "capture", []).append(ms)
+        say("ring_tenants_cache", round=r, slot=slot, cache_hit=m.cache_hit,
+            tenant_hits=json.dumps(m.cache["tenant_cache_hits"]).replace(" ", ""),
+            tenant_misses=json.dumps(m.cache["tenant_cache_misses"]).replace(" ", ""),
+            equal_to_direct=equal, event_ms=f"{ms:.3f}", direct_event_ms=f"{direct_ms:.3f}",
+            card=repr(CARD))
+        if not equal:
+            raise AssertionError(f"cached joint round {r} is not the direct joint round")
+    _path_kernels_ran(ops.LAUNCHES, "the cached joint session")
+    st = exc.cache.stats()
+    say("ring_tenants_cache_end", hits=json.dumps(hits).replace(" ", ""),
+        entries_before_import=entries, entries_after_import=left,
+        invalidations=st["cache_invalidations"],
+        tenant_hits=json.dumps(exc.tenant_hits).replace(" ", ""),
+        tenant_misses=json.dumps(exc.tenant_misses).replace(" ", ""),
+        capture_s=f"{exc.capture_seconds[(boundary, 'capture')]:.2f}",
+        cached_s=f"{exc.capture_seconds[(boundary, 'cached')]:.2f}", card=repr(CARD))
+    if hits != [False, False, True, True, False] or (entries, left) != (4, 2) or \
+            exc.tenant_hits != [3, 2] or exc.tenant_misses != [2, 3] or \
+            st["cache_invalidations"] != 1:
+        raise AssertionError(f"the partitioned cache: hits {hits}, entries {entries} -> "
+                             f"{left}, tenant hits {exc.tenant_hits}, misses "
+                             f"{exc.tenant_misses}, stats {st}")
+    count_launches(records, f"{cfg.name}_ring_tenants", launches)
+    del sess, exc, exd
+
+
 def freed() -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -1946,6 +2197,10 @@ def main() -> None:
     t0 = time.perf_counter()
     phase_ring_session("stablelm-3b", records)
     say("ring_session", seconds=f"{time.perf_counter() - t0:.1f}")
+    freed()                                             # fresh weights for the tenants
+    t0 = time.perf_counter()
+    phase_ring_tenants("stablelm-3b", records)
+    say("ring_tenants", seconds=f"{time.perf_counter() - t0:.1f}")
     freed()                                             # stablelm-3b before rwkv6-7b
     phase_serve("rwkv6-7b", records, cpu_witness=False)
     freed()                                             # rwkv6-7b before hymba-1.5b

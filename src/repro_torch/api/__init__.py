@@ -4,9 +4,10 @@
 reference, fused or cached ring, or the one-device pjit path) under a
 :mod:`~repro_torch.api.policies` unfreeze policy, emits
 :class:`~repro_torch.api.metrics.RoundMetrics`, and checkpoints the complete
-resumable state in the reference's format. Multi-tenant sessions
-(``TenantGroup``, the write side of ``AdapterStore``) wait for ROADMAP Queue 1
-item 8 and the elastic ring (``ChaosBackend``) for item 9.
+resumable state in the reference's format. A multi-tenant session
+(``tenants=T``) trains T adapter sets over one trunk; ``TenantGroup`` and
+``AdapterStore`` move one tenant's set in and out. The elastic ring
+(``ChaosBackend``) waits for ROADMAP Queue 1 item 9.
 """
 from .backends import CachedBackend, FusedBackend, PjitBackend, ReferenceBackend
 from .data import PjitDataSource, RingDataSource
@@ -14,6 +15,7 @@ from .metrics import (BenchCaptureCallback, Callback, CheckpointCallback, Loggin
                       RoundMetrics)
 from .policies import ExplicitPolicy, IntervalPolicy, LossPlateauPolicy, resolve_policy
 from .session import BACKENDS, RingSession
+from .tenants import AdapterStore, TenantGroup
 
 __all__ = [
     "RingSession", "BACKENDS",
@@ -22,4 +24,5 @@ __all__ = [
     "RoundMetrics", "Callback", "LoggingCallback", "CheckpointCallback",
     "BenchCaptureCallback",
     "RingDataSource", "PjitDataSource",
+    "AdapterStore", "TenantGroup",
 ]

@@ -1,5 +1,5 @@
 """Backend adapters: one ``step`` protocol over every training path (the
-reference's ``api/backends.py``, one tenant, no mesh).
+reference's ``api/backends.py``, no mesh).
 
 A :class:`Backend` adapts a driver to the surface
 :class:`~repro_torch.api.session.RingSession` drives:
@@ -12,15 +12,15 @@ A :class:`Backend` adapts a driver to the surface
         @classmethod
         def build(cls, cfg, tc, policy, *, n_stages, spans, device_profiles,
                   params, slots_per_epoch, cache_capacity, packed,
-                  cache_dtype, impl, device, log) -> Backend
+                  cache_dtype, impl, tenants, device, log) -> Backend
         def step(self, batch) -> dict           # raw metrics (may hold device tensors)
         def state(self) -> dict                 # {"format", "params", "opt"}
         def load_state(self, params, opt, *, step) -> None
         def export_params(self) -> params tree  # the port's flat layout
 
 ``build`` takes the same keywords for every backend and validates or ignores
-what it does not support (pjit refuses spans, cached needs
-``slots_per_epoch``).
+what it does not support (pjit refuses spans, the reference and pjit
+backends refuse ``tenants > 1``, cached needs ``slots_per_epoch``).
 
 Contracts every adapter keeps:
 
@@ -32,15 +32,18 @@ Contracts every adapter keeps:
     ``load_state`` copies into them and never rebinds them; ``state()``
     returns new tensors in the reference's layout;
   * **cache invalidation**: the activation cache is keyed ``(slot,
-    boundary)``, cleared on every boundary drop and on ``load_state`` (a
-    restored session never serves activations from before the restore).
+    boundary)`` (``(tenant, slot, boundary)`` with several tenants), cleared
+    on every boundary drop and on ``load_state`` (a restored session never
+    serves activations from before the restore).
 
 ``state()`` gives the trainable set and the optimizer state in the
 reference's layout (``repro_torch.bridge``): params ``{"blocks":
 ({"adapter": [R, C, ...]},), "head": ...}`` and, for the ring, the moments
 in its ``[S, max_span, C, ...]`` stage stack, so a session checkpoint
-restores in either package. ``state()["format"]`` tags the moments' layout
-(``ring/S4``, ``ring/S4/spans4-5-2-3``, ``pjit``) as the reference does; a
+restores in either package; with several tenants, the reference's
+tenant-stacked layout (``bridge.ring_state_to_reference``).
+``state()["format"]`` tags the moments' layout (``ring/S4``,
+``ring/S4/spans4-5-2-3``, ``ring/S4/T3``, ``pjit``) as the reference does; a
 checkpoint restores only into a backend of the same format.
 """
 from __future__ import annotations
@@ -57,7 +60,7 @@ from repro_torch import device as dev_rule
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core import pipeline as pl
 from repro_torch.core import training
-from repro_torch.core.executor import RingExecutor
+from repro_torch.core.executor import RingExecutor, tenant_view
 from repro_torch.core.partition import (parse_device_profiles, span_sizes, spans_from_profiles,
                                         uniform_assignment)
 from repro_torch.core.ring import RingTrainer
@@ -126,6 +129,7 @@ class _RingBackendBase:
     unpacking, the checkpoint layout."""
 
     kind = "ring"
+    T = 1                                  # tenants (the fused backends take more)
 
     def __init__(self, cfg: ModelConfig, tc: TrainConfig, policy, *, n_stages: int,
                  params=None, spans=None, device_profiles=None, device=None):
@@ -142,10 +146,13 @@ class _RingBackendBase:
     @property
     def format(self) -> str:
         """The moments' layout tag; a layout other than the balanced one is
-        part of it (the moments are stacked per span)."""
+        part of it (the moments are stacked per span), and so are several
+        tenants (``/T{T}``: tenant-stacked moments)."""
         if self.spans == tuple(uniform_assignment(self.cfg.repeats, self.S)):
-            return f"ring/S{self.S}"
-        return f"ring/S{self.S}/spans{'-'.join(str(n) for n in span_sizes(self.spans))}"
+            tag = f"ring/S{self.S}"
+        else:
+            tag = f"ring/S{self.S}/spans{'-'.join(str(n) for n in span_sizes(self.spans))}"
+        return tag if self.T == 1 else f"{tag}/T{self.T}"
 
     def export_params(self) -> Dict[str, Any]:
         return self.driver.export_params()
@@ -166,16 +173,13 @@ class _RingBackendBase:
                 "tokens": int(np.size(tokens)), "extras": extras}
 
     def _checkpoint_state(self, stage_adapters, head, opt) -> Dict[str, Any]:
-        flat = [a for stage in stage_adapters for a in stage]
-        return {"format": self.format,
-                "params": bridge.trainable_to_reference(flat, head, self.cfg),
-                "opt": bridge.ring_opt_to_reference(opt, self.cfg, self.spans)}
+        params, opt = bridge.ring_state_to_reference(stage_adapters, head, opt, self.cfg,
+                                                     self.spans, self.T)
+        return {"format": self.format, "params": params, "opt": opt}
 
     def _from_checkpoint(self, params, opt):
         """(stage adapters, head, ring opt state) from ``state()``'s layout."""
-        adapters, head = bridge.trainable_from_reference(params, self.cfg)
-        return (bridge.stage_layout(adapters, self.spans), head,
-                bridge.ring_opt_from_reference(opt, self.cfg, self.spans))
+        return bridge.ring_state_from_reference(params, opt, self.cfg, self.spans, self.T)
 
     def repartition(self, spans) -> None:
         """Switch the live span layout (executor-backed backends only); the
@@ -210,8 +214,13 @@ class ReferenceBackend(_RingBackendBase):
     @classmethod
     def build(cls, cfg, tc, policy, *, n_stages, spans=None, device_profiles=None,
               params=None, slots_per_epoch=None, cache_capacity=None, packed=True,
-              cache_dtype="native", impl="kernel", device=None,
+              cache_dtype="native", impl="kernel", tenants=1, device=None,
               log=print) -> "ReferenceBackend":
+        if tenants > 1:
+            raise ValueError(
+                "tenants > 1 needs the fused executable (tenant-stacked adapters + the "
+                "T-tenant conveyor) — use backend='fused' or 'cached'; the reference oracle "
+                "is single-tenant")
         return cls(cfg, tc, policy, n_stages=n_stages, params=params, spans=spans,
                    device_profiles=device_profiles, impl=impl, device=device)
 
@@ -254,20 +263,23 @@ class FusedBackend(_RingBackendBase):
 
     def __init__(self, cfg, tc, policy, *, n_stages: int, params=None,
                  cache_capacity: int = 0, packed: bool = True, cache_dtype: str = "native",
-                 spans=None, device_profiles=None, device=None):
+                 spans=None, device_profiles=None, tenants: int = 1, device=None):
         super().__init__(cfg, tc, policy, n_stages=n_stages, params=params, spans=spans,
                          device_profiles=device_profiles, device=device)
+        self.T = tenants
         self.driver = RingExecutor(cfg, tc, self._init_params, n_stages, tc.n_microbatches,
                                    schedule=policy, packed=packed, spans=self.spans,
-                                   cache_capacity=cache_capacity, cache_dtype=cache_dtype)
+                                   cache_capacity=cache_capacity, cache_dtype=cache_dtype,
+                                   tenants=tenants)
 
     @classmethod
     def build(cls, cfg, tc, policy, *, n_stages, spans=None, device_profiles=None,
               params=None, slots_per_epoch=None, cache_capacity=None, packed=True,
-              cache_dtype="native", impl="kernel", device=None, log=print) -> "FusedBackend":
+              cache_dtype="native", impl="kernel", tenants=1, device=None,
+              log=print) -> "FusedBackend":
         return cls(cfg, tc, policy, n_stages=n_stages, params=params, packed=packed,
                    cache_dtype=cache_dtype, spans=spans, device_profiles=device_profiles,
-                   device=device)
+                   tenants=tenants, device=device)
 
     @property
     def compile_count(self) -> int:
@@ -277,9 +289,14 @@ class FusedBackend(_RingBackendBase):
         slot, tokens, labels = self._unpack(batch)
         m = self.driver.round(tokens, labels, slot=slot)
         raw = self._raw(m, slot, tokens, m["losses"])
+        if self.T > 1:
+            raw["extras"]["tenant_losses"] = m["tenant_losses"]
         if self.driver.cache is not None:
             raw["cache"] = {k: m[k] for k in CACHE_STAT_KEYS}
             raw["cache_hit"] = m["cache_hit"]
+            if self.T > 1:
+                raw["cache"]["tenant_cache_hits"] = m["tenant_cache_hits"]
+                raw["cache"]["tenant_cache_misses"] = m["tenant_cache_misses"]
         return raw
 
     def state(self) -> Dict[str, Any]:
@@ -289,6 +306,9 @@ class FusedBackend(_RingBackendBase):
     def load_state(self, params, opt, *, step: int) -> None:
         d = self.driver
         stage_adapters, head, ring_opt = self._from_checkpoint(params, opt)
+        if self.T > 1:
+            layers = [a for stage in stage_adapters for a in stage]
+            d.check_shared_trunk([tenant_view(layers, t) for t in range(self.T)], step)
         # into the executor's own tensors: its graphs read and write them
         bridge.copy_into(d.stage_adapters(), stage_adapters)
         bridge.copy_into(d.shared["head"], head)
@@ -308,31 +328,35 @@ class CachedBackend(FusedBackend):
 
     def __init__(self, cfg, tc, policy, *, n_stages: int, cache_capacity: int, params=None,
                  packed: bool = True, cache_dtype: str = "native", spans=None,
-                 device_profiles=None, device=None):
+                 device_profiles=None, tenants: int = 1, device=None):
         if cache_capacity < 1:
             raise ValueError(f"CachedBackend needs cache_capacity >= 1 (got {cache_capacity}); "
                              f"use FusedBackend for uncached rounds")
         super().__init__(cfg, tc, policy, n_stages=n_stages, params=params,
                          cache_capacity=cache_capacity, packed=packed, cache_dtype=cache_dtype,
-                         spans=spans, device_profiles=device_profiles, device=device)
+                         spans=spans, device_profiles=device_profiles, tenants=tenants,
+                         device=device)
 
     @classmethod
     def build(cls, cfg, tc, policy, *, n_stages, spans=None, device_profiles=None,
               params=None, slots_per_epoch=None, cache_capacity=None, packed=True,
-              cache_dtype="native", impl="kernel", device=None, log=print) -> "CachedBackend":
+              cache_dtype="native", impl="kernel", tenants=1, device=None,
+              log=print) -> "CachedBackend":
         if not slots_per_epoch:
             raise ValueError("backend='cached' needs slots_per_epoch >= 1: the activation "
                              "cache keys on stable batch slots, and streaming draws never "
                              "repeat a key. Use backend='fused' for non-repeating data.")
-        cap = cache_capacity if cache_capacity is not None else slots_per_epoch
-        if 0 < cap < slots_per_epoch:
+        # each tenant owns a (tenant, slot, boundary) key per slot
+        cap = cache_capacity if cache_capacity is not None else slots_per_epoch * tenants
+        if 0 < cap < slots_per_epoch * tenants:
             # round-robin slots and LRU: every slot is evicted before its revisit
-            log(f"WARNING: cache_capacity {cap} < slots_per_epoch {slots_per_epoch}: the "
-                f"cache will thrash (0% hits, capture overhead every round); raise the "
-                f"capacity or use backend='fused'")
+            log(f"WARNING: cache_capacity {cap} < slots_per_epoch {slots_per_epoch}"
+                + (f" x tenants {tenants}" if tenants > 1 else "")
+                + ": the cache will thrash (0% hits, capture overhead every round); raise "
+                  "the capacity or use backend='fused'")
         return cls(cfg, tc, policy, n_stages=n_stages, cache_capacity=cap, params=params,
                    packed=packed, cache_dtype=cache_dtype, spans=spans,
-                   device_profiles=device_profiles, device=device)
+                   device_profiles=device_profiles, tenants=tenants, device=device)
 
 
 class PjitBackend:
@@ -359,10 +383,14 @@ class PjitBackend:
     @classmethod
     def build(cls, cfg, tc, policy, *, n_stages=None, spans=None, device_profiles=None,
               params=None, slots_per_epoch=None, cache_capacity=None, packed=True,
-              cache_dtype="native", impl="kernel", device=None, log=print) -> "PjitBackend":
+              cache_dtype="native", impl="kernel", tenants=1, device=None,
+              log=print) -> "PjitBackend":
         if spans is not None or device_profiles is not None:
             raise ValueError("spans/device_profiles describe the ring's stage layout: they "
                              "have no meaning for the pjit backend")
+        if tenants > 1:
+            raise ValueError("tenants > 1 is a ring concept (T adapter sets over one frozen "
+                             "ring trunk) — use backend='fused' or 'cached'")
         return cls(cfg, tc, policy, params=params, device=device)
 
     @property

@@ -1,5 +1,5 @@
 """RingSession: one training API over backends, policies and caching (the
-reference's ``api/session.py``, one tenant).
+reference's ``api/session.py``).
 
 Every execution path is a :mod:`~repro_torch.api.backends` adapter and every
 unfreeze rule a :mod:`~repro_torch.api.policies` policy:
@@ -34,8 +34,15 @@ Contracts the session keeps (beside the backends'):
     the same frozen trunk (``params=``: the port's random weights are not
     JAX's).
 
-Not ported yet: several tenants (``tenants``, ``export_adapters``: ROADMAP
-Queue 1 item 8) and the elastic ring (``elastic``, ``chaos``: item 9).
+Several tenants (``tenants=T``, the fused and cached backends): one frozen
+trunk, T adapter-and-head sets trained in one joint round; per tenant the
+joint session equals a solo session fed that tenant's stream
+(``RingDataSource(tenant=k)``) bit for bit. ``tenants`` gives each tenant's
+:class:`~repro_torch.api.tenants.TenantGroup` (save and load one tenant
+through an ``AdapterStore``).
+
+Not ported yet: the elastic ring (``elastic``, ``chaos``: ROADMAP Queue 1
+item 9).
 """
 from __future__ import annotations
 
@@ -51,6 +58,7 @@ from .backends import CachedBackend, FusedBackend, PjitBackend, ReferenceBackend
 from .data import PjitDataSource, RingDataSource
 from .metrics import Callback, RoundMetrics
 from .policies import resolve_policy
+from .tenants import TenantGroup
 
 BACKENDS = {"reference": ReferenceBackend, "fused": FusedBackend,
             "cached": CachedBackend, "pjit": PjitBackend}
@@ -98,10 +106,15 @@ class RingSession:
         speed or ``DeviceProfile`` per stage, ring order) runs the paper's
         speed-weighted assignment, and ``spans`` pins a layout (sizes or
         (begin, end) pairs); the layout rides in checkpoints.
+
+        ``tenants=T > 1`` (fused and cached only): T adapter sets over one
+        frozen trunk; batches ``[S, T, M, mb, seq]`` (tenant t's stream from
+        ``tc.seed + 7919 t``), metrics with ``tenant_losses``, the cache
+        partitioned per tenant, and its capacity by default
+        ``slots_per_epoch * T``.
         """
-        if tenants != 1:
-            raise NotImplementedError(f"tenants={tenants}: multi-tenant sessions wait for "
-                                      f"ROADMAP Queue 1 item 8")
+        if tenants < 1:
+            raise ValueError(f"tenants must be >= 1, got {tenants}")
         if elastic or chaos:
             raise NotImplementedError("elastic rings and churn injection (elastic=, chaos=) "
                                       "wait for ROADMAP Queue 1 item 9")
@@ -113,12 +126,17 @@ class RingSession:
             be = BACKENDS[backend].build(
                 cfg, tc, policy, n_stages=S, spans=spans, device_profiles=device_profiles,
                 params=params, slots_per_epoch=slots_per_epoch, cache_capacity=cache_capacity,
-                packed=packed, cache_dtype=cache_dtype, impl=impl, device=device, log=log)
+                packed=packed, cache_dtype=cache_dtype, impl=impl, tenants=tenants,
+                device=device, log=log)
         else:
             be = backend
             # a ready backend embeds the policy that drives its schedule: the
             # session must observe losses into that same object
             policy = getattr(be, "policy", policy)
+            if getattr(be, "T", 1) != tenants and tenants != 1:
+                raise ValueError(f"tenants={tenants} conflicts with the ready backend's "
+                                 f"T={getattr(be, 'T', 1)}: the instance decides")
+            tenants = getattr(be, "T", 1)
             if isinstance(be, CachedBackend) and data is None and not slots_per_epoch:
                 raise ValueError(
                     "a CachedBackend needs slot-keyed batches: pass slots_per_epoch (for the "
@@ -126,19 +144,40 @@ class RingSession:
                     "every round would bypass the cache")
         if data is None:
             data = (PjitDataSource(cfg, tc) if be.kind == "pjit"
-                    else RingDataSource(cfg, tc, be.S, slots_per_epoch=slots_per_epoch))
+                    else RingDataSource(cfg, tc, be.S, slots_per_epoch=slots_per_epoch,
+                                        tenants=tenants))
         be_spans = getattr(be, "spans", None)
         create_args = {"backend": be.name,
                        "n_stages": be.S if be.kind != "pjit" else None,
                        "slots_per_epoch": slots_per_epoch,
                        "cache_capacity": cache_capacity, "impl": impl,
                        "packed": packed, "cache_dtype": cache_dtype,
-                       "tenants": 1, "elastic": False,
+                       "tenants": tenants, "elastic": False,
                        # the span layout rides in the checkpoint so that restore
                        # rebuilds the same partition (JSON: [begin, end] pairs)
                        "spans": ([list(sp) for sp in be_spans]
                                  if be_spans is not None else None)}
         return cls(cfg, tc, be, policy, data, callbacks=callbacks, create_args=create_args)
+
+    # ------------------------------------------------------------------
+    @property
+    def n_tenants(self) -> int:
+        return getattr(self.backend, "T", 1)
+
+    @property
+    def tenants(self) -> List[TenantGroup]:
+        """Each tenant's handle (one, tenant 0, at one tenant)."""
+        return [TenantGroup(self, t) for t in range(self.n_tenants)]
+
+    def export_adapters(self, tenant: int = 0) -> Dict[str, Any]:
+        """One tenant's trainable set as an ``{"adapter", "head"}`` bundle,
+        the unit an ``AdapterStore`` keeps and the server grafts (ring
+        backends only: the pjit backend's set is not adapter-shaped)."""
+        d = getattr(self.backend, "driver", None)
+        if d is None or not hasattr(d, "export_adapters"):
+            raise NotImplementedError(f"backend {self.backend.name!r} has no adapter bundle "
+                                      f"surface; use backend.state() for its trainable set")
+        return d.export_adapters(tenant)
 
     # ------------------------------------------------------------------
     def step(self, batch: Any = None) -> RoundMetrics:
@@ -270,8 +309,9 @@ class RingSession:
                 f"this session has {type(self.policy).__name__!r}: pass the matching policy "
                 f"to restore() so that the depth sequence continues.")
         opt = ckpt.restore_opt(path, st["opt"])
-        self.backend.load_state(params, opt, step=meta["step"])
+        # the policy first: the backend checks the state against its boundary
         self.policy.load_state(saved_policy.get("state", {}))
+        self.backend.load_state(params, opt, step=meta["step"])
         self.data.load_state(ex["data"])
         self.step_count = meta["step"]
         self._last_boundary = ex.get("last_boundary")

@@ -23,7 +23,10 @@ The session's checkpoints (``api/session.py``) hold the trainable set and
 the moments in the reference's layout too, but as tensors
 (``trainable_to_reference``, ``ring_opt_to_reference``,
 ``opt_state_to_reference`` and their inverses), so that a file written by
-either package restores in the other.
+either package restores in the other. A multi-tenant ring's state (every
+leaf ``[T, ...]``) crosses as the reference's tenant-stacked tree
+(``ring_state_to_reference``): adapters ``[T, R, C, ...]``, the head
+``[T, ...]``, the adapters' moments ``[S, T, max_span, C, ...]``.
 """
 from __future__ import annotations
 
@@ -336,3 +339,51 @@ def opt_state_from_reference(tree: Dict[str, Any], cfg: ModelConfig) -> Dict[str
     out = {k: {"adapters": _unstack_entries(tree[k]["adapters"], cfg, lambda x: x),
                "head": tree[k]["head"]} for k in ("m", "v")}
     return {**out, "count": tree["count"]}
+
+
+def ring_state_to_reference(stage_adapters, head, opt: Dict[str, Any], cfg: ModelConfig,
+                            spans, tenants: int = 1):
+    """The ring's trainable set and optimizer state (the executor's layout;
+    leaves ``[T, ...]`` at ``tenants`` > 1) -> ``(params, opt)`` in the
+    reference's layout, as tensors: :func:`trainable_to_reference` and
+    :func:`ring_opt_to_reference`, or at T > 1 the reference's multi-tenant
+    executor's (its ``export_params()`` and ``opt_state``): adapters
+    ``[T, R, C, ...]``, the head and its moments ``[T, ...]``, the adapters'
+    moments ``[S, T, max_span, C, ...]``."""
+    flat = lambda tree: [a for stage in tree for a in stage]
+    if tenants == 1:
+        return (trainable_to_reference(flat(stage_adapters), head, cfg),
+                ring_opt_to_reference(opt, cfg, spans))
+
+    def tenant_major(stage_tree):                  # [T, R, C, ...]
+        (entry,) = _stack_entries(flat(stage_tree), cfg, None, tensors=True)
+        return tree_map(lambda x: x.movedim(2, 0), entry)
+
+    def stage_stacked(stage_tree):                 # [S, T, max_span, C, ...]
+        return tree_map(lambda x: x.movedim(0, 1),
+                        pl.stack_entry(tenant_major(stage_tree), spans, leading=1))
+
+    moments = {k: {"adapter": stage_stacked(opt[k]["adapter"]), "head": opt[k]["head"]}
+               for k in ("m", "v")}
+    return ({"blocks": ({"adapter": tenant_major(stage_adapters)},), "head": head},
+            {**moments, "count": opt["count"]})
+
+
+def ring_state_from_reference(params: Dict[str, Any], opt: Dict[str, Any], cfg: ModelConfig,
+                              spans, tenants: int = 1):
+    """Inverse of :func:`ring_state_to_reference`: (stage adapters, head,
+    ring optimizer state) in the executor's layout, views of ``params`` and
+    ``opt`` (leaves ``[T, ...]`` at ``tenants`` > 1)."""
+    if tenants == 1:
+        adapters, head = trainable_from_reference(params, cfg)
+        return stage_layout(adapters, spans), head, ring_opt_from_reference(opt, cfg, spans)
+
+    def staged(tenant_major):                      # [T, R, C, ...] -> the stage layout
+        entry = tree_map(lambda x: x.movedim(0, 2), tenant_major)
+        return stage_layout(_unstack_entries((entry,), cfg, lambda x: x), spans)
+
+    (entry,) = [e["adapter"] for e in params["blocks"]]
+    moments = {k: {"adapter": staged(pl.unstack_entry(
+                   tree_map(lambda x: x.movedim(1, 0), opt[k]["adapter"]), spans, leading=1)),
+                   "head": opt[k]["head"]} for k in ("m", "v")}
+    return staged(entry), params["head"], {**moments, "count": opt["count"]}

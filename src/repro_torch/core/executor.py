@@ -1,5 +1,4 @@
-"""RingExecutor: the fused RingAda round (the reference's ``core/executor.py``,
-one tenant).
+"""RingExecutor: the fused RingAda round (the reference's ``core/executor.py``).
 
 One round runs all S owner iterations of RingAda Algorithm 1 (each client
 the initiator once) as one program per unfreeze boundary:
@@ -53,6 +52,18 @@ drops (it never runs again). A failed capture raises: nothing falls back to
 eager launches on CUDA tensors. On the CPU the same round functions run
 eagerly.
 
+Several tenants (``tenants=T``): one frozen trunk and T adapter-and-head
+sets. Phase A carries every tenant's microbatches on one ``T*S*M + F - 1``-
+tick conveyor (the frozen stages are every tenant's, the same bits); Phase
+B, its backward and the update run tenant after tenant on one-tenant shapes,
+so a tenant's round equals its solo round bit for bit. The reference sums the
+head's gradient over its stages a second time (a ``psum`` after
+``shard_map`` has summed it); the port does not, so its joint round is its
+own solo rounds' and ``RingTrainer``'s. The cache partitions per tenant under
+``(tenant, slot, boundary)`` keys. On the card there is still one CUDA graph
+per (boundary, mode): a joint round launches T times a solo round's Phase-B
+kernels at the solo shapes.
+
 ``round()`` does not wait for the device: it returns the S losses and their
 mean as device tensors; ``materialize_metrics`` turns them into floats.
 
@@ -69,6 +80,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 from torch.utils._pytree import tree_leaves, tree_map
 
+from repro_torch import bridge
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core import actcache
 from repro_torch.core import pipeline as pl
@@ -101,12 +113,20 @@ def ring_opt_init(stage_adapters, head) -> Dict[str, Any]:
             "count": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def tenant_view(tree: Any, tenant: Optional[int]) -> Any:
+    """Tenant ``tenant``'s slice of a tenant-stacked tree (each leaf's
+    ``x[tenant]``, a contiguous view); ``None``: the tree as it is (one
+    tenant)."""
+    return tree if tenant is None else tree_map(lambda x: x[tenant], tree)
+
+
 def make_fused_round(cfg: ModelConfig, tc: TrainConfig, *, n_stages: int, boundary: int,
                      n_micro: int, packed: bool = True,
                      spans: Optional[Sequence[Span]] = None,
                      tick_record: Optional[Callable[[str, int], None]] = None,
                      mode: str = "direct", cache_dtype: str = "native",
-                     cache_src_dtype: Optional[torch.dtype] = None) -> Callable:
+                     cache_src_dtype: Optional[torch.dtype] = None,
+                     tenants: int = 1) -> Callable:
     """Build one round at ``boundary`` (span-aligned) that updates in place
     the hot stages' adapters, the head, their moments and
     ``opt_state["count"]``, and returns ``(losses [S], mean)``, in one of
@@ -126,20 +146,40 @@ def make_fused_round(cfg: ModelConfig, tc: TrainConfig, *, n_stages: int, bounda
 
     ``tokens`` / ``labels``: ``[S, M, mb, seq]``. ``tick_record(phase,
     ticks)`` receives each tick phase's length ("phase_a_packed", "phase_a"
-    or "phase_b"), as it runs."""
+    or "phase_b"), as it runs.
+
+    ``tenants=T > 1``: one frozen trunk, T adapter sets. The adapters, the
+    head and their moments carry a leading tenant axis on every leaf
+    (``[T, ...]``), tokens and labels are ``[S, T, M, mb, seq]``, ``row`` is
+    T rows (a list or a ``[T]`` device tensor; tenant t's entry has the
+    one-tenant shape), and the round returns ``(losses [S], mean,
+    tenant_losses [T], grid [S, T])``: ``grid`` each owner's loss per
+    tenant, ``losses`` its means over the tenants, ``mean`` its f32 mean.
+    Phase A runs once for every tenant (``ring_phase_a_packed(n_tenants=T)``,
+    on tenant 0's frozen adapters, which are every tenant's); Phase B, its
+    backward and the update run tenant after tenant on one-tenant shapes
+    (batched tenants would sum in another order), so each tenant's round is
+    its solo round bit for bit."""
     if mode not in FUSED_MODES:
         raise ValueError(f"mode must be one of {FUSED_MODES}, got {mode!r}")
+    if tenants < 1:
+        raise ValueError(f"tenants must be >= 1, got {tenants}")
+    T = tenants
     spans = pl.resolve_spans(cfg.repeats, n_stages, spans)
     F = frozen_stage_count(spans, boundary)
     rec = tick_record or (lambda phase, ticks: None)
     geometry = dict(n_stages=n_stages, boundary=boundary, n_micro=n_micro, spans=spans)
     phase_a = pl.ring_phase_a(cfg, record=lambda t: rec("phase_a", t), **geometry)
     phase_a_packed = pl.ring_phase_a_packed(cfg, record=lambda t: rec("phase_a_packed", t),
-                                            **geometry)
+                                            n_tenants=T, **geometry)
     phase_b = pl.ring_phase_b(cfg, record=lambda t: rec("phase_b", t), **geometry)
     use_packed = packed and F >= 2       # at F <= 1 the conveyor saves no tick
     lr = tc.learning_rate
     out_dtype = cache_src_dtype if cache_src_dtype is not None else prm.DTYPES[cfg.dtype]
+    tenant_ids = [None] if T == 1 else list(range(T))
+    # owner o's (and tenant t's) slice of a batch or of Phase A's outputs; tenant t's row
+    at = lambda x, o, t: x[o] if t is None else x[o][t]
+    row_of = lambda row, t: row if t is None else row[t]
 
     def update(g, m, v, p):
         m2, v2, p2 = adamw.leaf_update(g, m, v, p, lr=lr, tc=tc)
@@ -148,61 +188,79 @@ def make_fused_round(cfg: ModelConfig, tc: TrainConfig, *, n_stages: int, bounda
         p.copy_(p2)
 
     def train_owners(stage_blocks, shared, opt_state, h_of, labels):
-        """Each owner's Phase B on ``h_of(owner)`` (its M stage-F inputs) and
-        the raw AdamW update, in owner order."""
+        """Each owner's Phase B on ``h_of(owner, tenant)`` (its M stage-F
+        inputs) and the raw AdamW update, owner after owner, tenant after
+        tenant (``tenant`` None at one tenant)."""
         leaf = lambda t: t.detach().requires_grad_(True)
         m, v = opt_state["m"], opt_state["v"]
-        losses = []
+        losses = [[] for _ in tenant_ids]
         for owner in range(n_stages):
-            h_B = h_of(owner)
-            hot = [[tree_map(leaf, layer["adapter"]) for layer in stage]
-                   for stage in stage_blocks[F:]]
-            head = tree_map(leaf, shared["head"])
-            with torch.enable_grad():
-                loss = phase_b(pl._hot_stages(stage_blocks, hot, F), {**shared, "head": head},
-                               h_B, labels[owner])
-                flat = [t for stage in hot for a in stage for t in a.values()] + \
-                    list(head.values())
-                grads = iter(torch.autograd.grad(loss, flat))
-            with torch.no_grad():
-                for u in range(F, n_stages):
-                    for j, layer in enumerate(stage_blocks[u]):
-                        a = layer["adapter"]
-                        for k in a:
-                            update(next(grads), m["adapter"][u][j][k], v["adapter"][u][j][k],
-                                   a[k])
-                for k, p in shared["head"].items():
-                    update(next(grads), m["head"][k], v["head"][k], p)
-            losses.append(loss.detach())
+            for i, t in enumerate(tenant_ids):
+                h_B = h_of(owner, t)
+                # tenant t's hot adapters and head (views), and leaves of them for autograd
+                hot_t = [[tenant_view(layer["adapter"], t) for layer in stage]
+                         for stage in stage_blocks[F:]]
+                head_t = tenant_view(shared["head"], t)
+                hot = [[tree_map(leaf, a) for a in stage] for stage in hot_t]
+                head = tree_map(leaf, head_t)
+                with torch.enable_grad():
+                    loss = phase_b(pl._hot_stages(stage_blocks, hot, F),
+                                   {**shared, "head": head}, h_B, at(labels, owner, t))
+                    flat = [x for stage in hot for a in stage for x in a.values()] + \
+                        list(head.values())
+                    grads = iter(torch.autograd.grad(loss, flat))
+                with torch.no_grad():
+                    for u, stage in enumerate(hot_t, start=F):
+                        for j, a in enumerate(stage):
+                            m_a = tenant_view(m["adapter"][u][j], t)
+                            v_a = tenant_view(v["adapter"][u][j], t)
+                            for k in a:
+                                update(next(grads), m_a[k], v_a[k], a[k])
+                    m_h, v_h = tenant_view(m["head"], t), tenant_view(v["head"], t)
+                    for k, p in head_t.items():
+                        update(next(grads), m_h[k], v_h[k], p)
+                losses[i].append(loss.detach())
         with torch.no_grad():
             opt_state["count"].add_(n_stages)
-            losses = torch.stack(losses)
-            return losses, losses.mean()
+            per_tenant = [torch.stack(lt) for lt in losses]       # [S] each
+            if T == 1:
+                return per_tenant[0], per_tenant[0].mean()
+            # a tenant's mean is its solo round's mean, the same op on the same [S]
+            tenant_losses = torch.stack([lt.mean() for lt in per_tenant])
+            grid = torch.stack(per_tenant, dim=1)                  # [S, T]
+            return grid.mean(dim=1), grid.mean(), tenant_losses, grid
 
     if mode == "cached":
         def cached(stage_blocks, shared, opt_state, cache_buf, cache_scales, row, labels):
             with torch.no_grad():
-                h = actcache.read_row(cache_buf, cache_scales, row, cache_dtype, out_dtype)
-            return train_owners(stage_blocks, shared, opt_state, lambda o: list(h[o]), labels)
+                h = {t: actcache.read_row(cache_buf, cache_scales, row_of(row, t), cache_dtype,
+                                          out_dtype) for t in tenant_ids}
+            return train_owners(stage_blocks, shared, opt_state,
+                                lambda o, t: list(h[t][o]), labels)
 
         return cached
 
     def fused(stage_blocks, shared, opt_state, tokens, labels, cache_buf=None,
               cache_scales=None, row=None):
         emb_g = pl.gather_embeddings(cfg, shared, tokens)
-        h_all = phase_a_packed(stage_blocks, emb_g) if use_packed else None
-        entry = []
+        # Phase A reads only the frozen stages, whose adapters every tenant shares
+        trunk = [[{**layer, "adapter": tenant_view(layer["adapter"], tenant_ids[0])}
+                  for layer in stage] for stage in stage_blocks]
+        h_all = phase_a_packed(trunk, emb_g) if use_packed else None
+        entry = {t: [] for t in tenant_ids}
 
-        def h_of(owner):
-            h_B = h_all[owner] if use_packed else phase_a(stage_blocks, emb_g[owner])
+        def h_of(owner, t):
+            h_B = at(h_all, owner, t) if use_packed else phase_a(trunk, at(emb_g, owner, t))
             if mode == "capture":
-                entry.append(torch.stack(h_B))
+                entry[t].append(torch.stack(h_B))
             return h_B
 
         out = train_owners(stage_blocks, shared, opt_state, h_of, labels)
         if mode == "capture":
             with torch.no_grad():
-                actcache.write_row(cache_buf, cache_scales, row, torch.stack(entry), cache_dtype)
+                for t in tenant_ids:          # in tenant order, as the rows were taken
+                    actcache.write_row(cache_buf, cache_scales, row_of(row, t),
+                                       torch.stack(entry[t]), cache_dtype)
         return out
 
     return fused
@@ -224,6 +282,9 @@ class _Captured:
                 continue
             if isinstance(x, int):
                 buf.fill_(x)                         # the cache row: no host-to-device copy
+            elif isinstance(x, (list, tuple)):
+                for i, r in enumerate(x):            # a row per tenant
+                    buf[i].fill_(r)
             else:
                 buf.copy_(x)
         self.graph.replay()
@@ -245,18 +306,33 @@ class RingExecutor:
     ``cache_dtype`` entries, and ``round(tokens, labels, slot=s)`` with a
     stable batch-slot id skips Phase A on the revisits of ``(slot,
     boundary)``. ``slot=None`` (or capacity 0) runs the direct round.
+
+    ``tenants=T > 1``: one frozen trunk, T adapter-and-head sets, all
+    starting from ``params``' (``adamw.tenant_stack``). Every adapter, head
+    and moment leaf gains a leading tenant axis, so a tenant's slice is one
+    contiguous tensor (the adapter kernels build TMA descriptors on it);
+    batches are ``[S, T, M, mb, seq]``; the cache keys ``(tenant, slot,
+    boundary)`` and a round hits only when every tenant's key is resident;
+    ``round`` adds ``tenant_losses`` and the per-tenant cache counts.
+    ``export_adapters(t)`` / ``import_adapters(t, bundle)`` and
+    ``export_tenant_opt(t)`` / ``import_tenant_opt(t, opt)`` move one
+    tenant's set (an ``AdapterStore`` bundle's layout) in and out by copy;
+    an import frees only that tenant's cache rows.
     """
 
     def __init__(self, cfg: ModelConfig, tc: TrainConfig, params: Dict[str, Any],
                  n_stages: int, n_micro: int, *, schedule=None, packed: bool = True,
                  spans: Optional[Sequence[Span]] = None, cache_capacity: int = 0,
-                 cache_dtype: str = "native"):
+                 cache_dtype: str = "native", tenants: int = 1):
+        if tenants < 1:
+            raise ValueError(f"tenants must be >= 1, got {tenants}")
         self.cfg, self.tc, self.packed = cfg, tc, packed
-        self.S, self.M = n_stages, n_micro
+        self.S, self.M, self.T = n_stages, n_micro, tenants
         self.spans = pl.resolve_spans(cfg.repeats, n_stages, spans)
         self.lps = None if pl.is_ragged(self.spans) else cfg.repeats // n_stages
         stage_blocks, shared = pl.stage_stack(params, cfg, n_stages, spans=self.spans)
-        own = lambda t: t.detach().clone()
+        own = (lambda t: t.detach().clone()) if tenants == 1 else \
+            (lambda t: adamw.tenant_stack(t.detach(), tenants))
         self.stage_blocks = [[{**layer, "adapter": tree_map(own, layer["adapter"])}
                               for layer in stage] for stage in stage_blocks]
         self.shared = {**shared, "head": tree_map(own, shared["head"])}
@@ -264,6 +340,11 @@ class RingExecutor:
         self.opt_state = ring_opt_init(self.stage_adapters(), self.shared["head"])
         self.sched = schedule if schedule is not None else UnfreezeSchedule.from_train_config(tc)
         self.device = self.shared["head"]["w"].device
+        if tenants > 1 and self.device.type == "cuda":
+            self._check_tenant_views()
+        # per-tenant cache counts: one tenant's invalidation leaves the others'
+        self.tenant_hits = [0] * tenants
+        self.tenant_misses = [0] * tenants
         self.cache_dtype = cache_dtype
         self.cache: Optional[ActivationCache] = None
         if cache_capacity:
@@ -279,8 +360,19 @@ class RingExecutor:
         self.capture_seconds: Dict[Tuple[int, str], float] = {}   # warm-up and capture
 
     def stage_adapters(self):
-        """The adapters in the stage layout: a list per stage of one dict per layer."""
+        """The adapters in the stage layout: a list per stage of one dict per
+        layer (leaves ``[T, ...]`` with several tenants)."""
         return [[layer["adapter"] for layer in stage] for stage in self.stage_blocks]
+
+    def _check_tenant_views(self) -> None:
+        """Every tenant's slice of every tenant-stacked leaf is contiguous and
+        16-byte aligned: the adapter kernels take it as it is."""
+        for x in self.trainable_tensors()[:-1]:
+            for t in range(self.T):
+                v = x[t]
+                assert v.is_contiguous() and v.data_ptr() % 16 == 0, \
+                    f"tenant {t}'s slice of a {tuple(x.shape)} leaf is not a contiguous, " \
+                    f"16-byte aligned tensor"
 
     def boundary_at(self, step: int) -> int:
         """The span-aligned boundary (frozen repeats from the bottom) at ``step``."""
@@ -314,7 +406,7 @@ class RingExecutor:
                               n_micro=self.M, packed=self.packed, spans=self.spans,
                               tick_record=tick_rec, mode=mode, cache_dtype=self.cache_dtype,
                               cache_src_dtype=None if self.cache is None
-                              else self.cache.src_dtype)
+                              else self.cache.src_dtype, tenants=self.T)
         state = lambda: (self.stage_blocks, self.shared, self.opt_state)
         if mode == "direct":
             return lambda tokens, labels, row: fn(*state(), tokens, labels)
@@ -329,7 +421,8 @@ class RingExecutor:
         """Warm the round up on a side stream from a copy of the trainable
         state, put the state back, and capture the round on that stream. The
         graph's inputs are copies of ``tokens`` and ``labels`` and a 0-d
-        device tensor holding the cache row, as the mode takes them."""
+        device tensor holding the cache row (a ``[T]`` one with several
+        tenants), as the mode takes them."""
         fn = self._build(boundary, mode)
         t0 = time.perf_counter()
         inputs = (None if mode == "cached" else tokens.clone(), labels.clone(),
@@ -376,14 +469,23 @@ class RingExecutor:
     def _entry_shape(self, labels: torch.Tensor) -> Tuple[int, ...]:
         """One cache entry's shape for this batch: every owner's stage-F
         inputs, [S_owner, M, mb, seq, D] (the reference's adds a leading
-        S_stage axis: module docstring of ``core/actcache.py``)."""
-        _, M, mb, seq = labels.shape
+        S_stage axis: module docstring of ``core/actcache.py``); with several
+        tenants, each tenant's entry, the same shape."""
+        M, mb, seq = labels.shape[-3:]
         return (self.S, M, mb, seq, self.cfg.d_model)
+
+    def _keys(self, slot: int, boundary: int) -> List[Tuple[int, ...]]:
+        """The round's cache keys: ``(slot, boundary)``, or ``(tenant, slot,
+        boundary)`` per tenant."""
+        if self.T == 1:
+            return [(slot, boundary)]
+        return [(t, slot, boundary) for t in range(self.T)]
 
     def round(self, tokens, labels, *, slot: Optional[int] = None) -> Dict[str, Any]:
         """One training round: every client is the initiator once.
 
-        tokens / labels: [S, M, mb, seq], each client's local data. ``slot``:
+        tokens / labels: [S, M, mb, seq], each client's local data
+        ([S, T, M, mb, seq] with several tenants). ``slot``:
         a stable batch-slot id (the same slot holds the same examples every
         epoch: ``RingBatcher.next_slot``), the cache's key with the boundary.
         On a hit the ``cached`` round runs, on a miss the ``capture`` round
@@ -391,7 +493,11 @@ class RingExecutor:
         bypasses the cache, as ``slot=None`` does. Returns the losses of the
         S owner iterations and their mean (device tensors), the round's
         boundary, the step count, ``cache_hit`` and, with a cache, its
-        ``stats()``.
+        ``stats()``. With several tenants the round hits only when every
+        tenant's key is resident (a miss recaptures every tenant's row), and
+        the record adds ``tenant_losses`` [T], ``tenant_owner_losses`` [S, T]
+        (each owner's loss per tenant) and the per-tenant ``tenant_cache_hits``
+        and ``tenant_cache_misses``.
         """
         tokens, labels = self.to_device(tokens, labels)
         boundary = self.boundary_at(self.step)
@@ -412,21 +518,34 @@ class RingExecutor:
             if not self.cache.compatible(shape):
                 self.cache.bypasses += 1         # the batch does not fit the buffer
             else:
-                key = (slot, boundary)
-                row = self.cache.index_of(key)
-                if row is not None:
+                keys = self._keys(slot, boundary)
+                rows = [self.cache.index_of(k) for k in keys]
+                if self.T > 1:
+                    for t, r in enumerate(rows):
+                        if r is None:
+                            self.tenant_misses[t] += 1
+                        else:
+                            self.tenant_hits[t] += 1
+                if all(r is not None for r in rows):
                     mode = "cached"
                 else:
-                    # put's bookkeeping before the round: the capture writes the row
-                    row = self.cache.reserve(key, shape, self.shared["embed"]["tok"].dtype)
+                    # put's bookkeeping before the round, in tenant order: the
+                    # capture writes the rows (a hit tenant's is refreshed)
+                    dtype = self.shared["embed"]["tok"].dtype
+                    rows = [self.cache.reserve(k, shape, dtype) for k in keys]
                     mode = "capture"
-        losses, mean = self._round_fn(boundary, mode, tokens, labels, row)(tokens, labels, row)
+                row = rows[0] if self.T == 1 else rows
+        out = self._round_fn(boundary, mode, tokens, labels, row)(tokens, labels, row)
         self.step += self.S
-        out = {"loss": mean, "losses": losses, "boundary": boundary, "step": self.step,
+        rec = {"loss": out[1], "losses": out[0], "boundary": boundary, "step": self.step,
                "cache_hit": mode == "cached"}
+        if self.T > 1:
+            rec["tenant_losses"], rec["tenant_owner_losses"] = out[2], out[3]
+            rec["tenant_cache_hits"] = list(self.tenant_hits)
+            rec["tenant_cache_misses"] = list(self.tenant_misses)
         if self.cache is not None:
-            out.update(self.cache.stats())
-        return out
+            rec.update(self.cache.stats())
+        return rec
 
     @staticmethod
     def materialize_metrics(m: Dict[str, Any]) -> Dict[str, Any]:
@@ -486,7 +605,104 @@ class RingExecutor:
             self.cache.set_layout(new)
         self._last_boundary = None
 
-    def export_params(self) -> Dict[str, Any]:
-        """The flat parameter tree (views of the executor's tensors)."""
-        return pl.unstack(self.stage_blocks, self.cfg, self._params_rest, self.shared,
-                          spans=self.spans)
+    def export_params(self, tenant: Optional[int] = None) -> Dict[str, Any]:
+        """The flat parameter tree (views of the executor's tensors): with
+        several tenants, tenant ``tenant``'s model (the shared trunk, its
+        adapters and head), or with ``tenant=None`` the tenant-stacked tree."""
+        t = None if tenant is None else self._tenant(tenant)
+        stage_blocks = [[{**layer, "adapter": tenant_view(layer["adapter"], t)}
+                         for layer in stage] for stage in self.stage_blocks]
+        shared = {**self.shared, "head": tenant_view(self.shared["head"], t)}
+        return pl.unstack(stage_blocks, self.cfg, self._params_rest, shared, spans=self.spans)
+
+    # -- one tenant's set: an AdapterStore bundle's layout, in and out by copy
+
+    def _tenant(self, tenant: int) -> Optional[int]:
+        """``tenant`` as ``tenant_view`` takes it (None at one tenant), checked."""
+        if not 0 <= tenant < self.T:
+            raise ValueError(f"tenant {tenant} outside the executor's {self.T}")
+        return None if self.T == 1 else tenant
+
+    def _bundle(self, stage_tree, head, tenant: Optional[int]) -> Dict[str, Any]:
+        """``{"adapter": [R, C, ...] tree, "head": head}`` (new tensors) from
+        a tree in the stage layout and a head, tenant ``tenant``'s slice."""
+        layers = [tenant_view(a, tenant) for stage in stage_tree for a in stage]
+        ref = bridge.trainable_to_reference(layers, tree_map(
+            lambda x: x.clone(), tenant_view(head, tenant)), self.cfg)
+        (entry,) = ref["blocks"]
+        return {"adapter": entry["adapter"], "head": ref["head"]}
+
+    def _unbundle(self, bundle: Dict[str, Any], stage_tree, head,
+                  tenant: Optional[int]) -> None:
+        """Copy a bundle into tenant ``tenant``'s slice of a stage-layout tree
+        and a head (in place: the graphs read these tensors)."""
+        layers, src_head = bridge.trainable_from_reference(
+            {"blocks": ({"adapter": bundle["adapter"]},), "head": bundle["head"]}, self.cfg)
+        dst = [tenant_view(a, tenant) for stage in stage_tree for a in stage]
+        bridge.copy_into(dst, layers)
+        bridge.copy_into(tenant_view(head, tenant), src_head)
+
+    def export_adapters(self, tenant: int = 0) -> Dict[str, Any]:
+        """Tenant ``tenant``'s trainable set as ``{"adapter": [R, C, ...]
+        tree, "head": head}``, the unit an ``AdapterStore`` keeps and the
+        server grafts (new tensors)."""
+        t = self._tenant(tenant)
+        return self._bundle(self.stage_adapters(), self.shared["head"], t)
+
+    def check_shared_trunk(self, tenant_layers: Sequence[List[Dict[str, Any]]],
+                           step: int) -> None:
+        """Raise unless every tenant's adapters (each a flat list of per-layer
+        trees, bottom up) are equal in the stages frozen at ``step``'s
+        boundary. Phase A runs those stages once, on tenant 0's adapters, so
+        a joint round equals each tenant's solo round, and a cache row built
+        for one tenant holds for the others, only while they are equal."""
+        F = frozen_stage_count(self.spans, self.boundary_at(step))
+        n = sum(len(stage) for stage in self.stage_blocks[:F])
+        first, *rest = tenant_layers
+        for other in rest:
+            for x, y in zip(tree_leaves(first[:n]), tree_leaves(other[:n]), strict=True):
+                if not torch.equal(x, torch.as_tensor(y).to(x)):
+                    raise ValueError(
+                        f"the tenants' adapters differ in the {F} stage(s) frozen at step "
+                        f"{step}; tenants share the frozen trunk (Phase A runs it on tenant "
+                        f"0's adapters), so only the rows above it may differ")
+
+    def import_adapters(self, tenant: int, bundle: Dict[str, Any]) -> None:
+        """Copy a bundle into tenant ``tenant``'s adapters and head, and free
+        only that tenant's cache rows (all of them at one tenant): its
+        stage-F inputs may differ now, the others' stay valid. With several
+        tenants a bundle whose frozen rows differ from the other tenants' is
+        refused (``check_shared_trunk``)."""
+        t = self._tenant(tenant)
+        if t is not None:
+            layers, _ = bridge.trainable_from_reference(
+                {"blocks": ({"adapter": bundle["adapter"]},), "head": bundle["head"]}, self.cfg)
+            other = [tenant_view(a, 1 if t == 0 else 0)
+                     for stage in self.stage_adapters() for a in stage]
+            self.check_shared_trunk([other, layers], self.step)
+        with torch.no_grad():
+            self._unbundle(bundle, self.stage_adapters(), self.shared["head"], t)
+        if self.cache is not None:
+            if t is None:
+                self.cache.invalidate()
+            else:
+                self.cache.invalidate_tenant(t)
+
+    def export_tenant_opt(self, tenant: int = 0) -> Dict[str, Any]:
+        """Tenant ``tenant``'s moments in the bundle's layout, and ``count``
+        (the ring's, shared by its tenants)."""
+        t = self._tenant(tenant)
+        o = self.opt_state
+        return {**{k: self._bundle(o[k]["adapter"], o[k]["head"], t) for k in ("m", "v")},
+                "count": o["count"].clone()}
+
+    def import_tenant_opt(self, tenant: int, opt: Dict[str, Any]) -> None:
+        """Copy a tenant's moments in (the inverse of ``export_tenant_opt``);
+        ``count`` is copied only at one tenant (with several it is the ring's)."""
+        t = self._tenant(tenant)
+        o = self.opt_state
+        with torch.no_grad():
+            for k in ("m", "v"):
+                self._unbundle(opt[k], o[k]["adapter"], o[k]["head"], t)
+            if t is None:
+                o["count"].copy_(torch.as_tensor(opt["count"]))

@@ -101,31 +101,41 @@ def span_maps(spans: Sequence[Span]) -> Tuple[np.ndarray, np.ndarray, np.ndarray
     return stack_idx, valid, stage_of, slot_of
 
 
-def _take(x: Any, *idx: np.ndarray) -> Any:
-    """``x[idx]`` for a numpy array or a tensor (the index moved to its device)."""
+def _take(x: Any, idx: Tuple[np.ndarray, ...], leading: int = 0) -> Any:
+    """``x[:, ..., idx]`` (``leading`` axes passed through) for a numpy array
+    or a tensor (the index moved to its device)."""
+    lead = (slice(None),) * leading
     if isinstance(x, torch.Tensor):
-        return x[tuple(torch.as_tensor(i, dtype=torch.long, device=x.device) for i in idx)]
-    return np.asarray(x)[idx]
+        return x[lead + tuple(torch.as_tensor(i, dtype=torch.long, device=x.device)
+                              for i in idx)]
+    return np.asarray(x)[lead + tuple(idx)]
 
 
-def stack_entry(entry: Any, spans: Sequence[Span]) -> Any:
+def stack_entry(entry: Any, spans: Sequence[Span], *, leading: int = 0) -> Any:
     """Flat block-entry tree (leaves ``[R, C, ...]``, numpy or torch) -> the
     reference's padded stage stack (leaves ``[S, max_span, C, ...]``): a
     reshape for uniform layouts, a gather through :func:`span_maps` for
-    ragged ones, whose padding rows repeat the stage's last block."""
+    ragged ones, whose padding rows repeat the stage's last block.
+    ``leading`` axes before the block axis pass through: the tenant-major
+    ``[T, R, C, ...]`` trees stack with ``leading=1`` to ``[T, S, max_span,
+    C, ...]``."""
     if not is_ragged(spans):
         S, lps = len(spans), span_sizes(spans)[0]
-        return tree_map(lambda x: x.reshape((S, lps) + tuple(x.shape[1:])), entry)
+        return tree_map(lambda x: x.reshape(tuple(x.shape[:leading]) + (S, lps)
+                                            + tuple(x.shape[leading + 1:])), entry)
     stack_idx = span_maps(spans)[0]
-    return tree_map(lambda x: _take(x, stack_idx), entry)
+    return tree_map(lambda x: _take(x, (stack_idx,), leading), entry)
 
 
-def unstack_entry(stacked: Any, spans: Sequence[Span]) -> Any:
-    """Inverse of :func:`stack_entry` (the padding rows dropped)."""
+def unstack_entry(stacked: Any, spans: Sequence[Span], *, leading: int = 0) -> Any:
+    """Inverse of :func:`stack_entry` (the padding rows dropped; ``leading``
+    as there)."""
+    R = spans[-1][1]
     if not is_ragged(spans):
-        return tree_map(lambda x: x.reshape((spans[-1][1],) + tuple(x.shape[2:])), stacked)
+        return tree_map(lambda x: x.reshape(tuple(x.shape[:leading]) + (R,)
+                                            + tuple(x.shape[leading + 2:])), stacked)
     _, _, stage_of, slot_of = span_maps(spans)
-    return tree_map(lambda x: _take(x, stage_of, slot_of), stacked)
+    return tree_map(lambda x: _take(x, (stage_of, slot_of), leading), stacked)
 
 
 def _check_ring(cfg: ModelConfig) -> None:
@@ -258,26 +268,40 @@ def ring_phase_a(cfg: ModelConfig, *, n_stages: int, boundary: int, n_micro: int
 
 def ring_phase_a_packed(cfg: ModelConfig, *, n_stages: int, boundary: int, n_micro: int,
                         spans: Optional[Sequence[Span]] = None, record: Record = None,
-                        impl: str = "kernel") -> Callable:
+                        impl: str = "kernel", n_tenants: int = 1) -> Callable:
     """Phase A for every owner at once: ``fn(stage_blocks, emb_g) -> h_B_all``,
     from ``gather_embeddings``' ``[S, M, mb, seq, D]`` to a list over owners of
     each owner's M stage-F inputs. One ``S*M + F - 1``-tick conveyor in
     owner-major slot order ``o*M + m`` instead of S pipelines of ``M + F - 1``
     ticks: it saves ``(S - 1)(F - 1)`` fill and drain ticks a round. Each
     microbatch meets the same operations as in :func:`ring_phase_a`, so owner
-    o's slice is that function's result for owner o."""
+    o's slice is that function's result for owner o.
+
+    ``n_tenants=T > 1``: ``emb_g`` is ``[S, T, M, mb, seq, D]`` and one
+    ``T*S*M + F - 1``-tick conveyor carries every tenant's round in
+    tenant-major slot order ``t*S*M + o*M + m``; ``h_B_all[o][t]`` is tenant
+    t's owner o. The frozen stages are the same bits for every tenant (they
+    start from one init and are never updated), so ``stage_blocks`` holds
+    any one tenant's adapters, and each microbatch still meets its solo
+    run's operations on its solo run's shapes."""
     _, F = _ring_geometry(cfg, n_stages, boundary, spans)
+    S, M, T = n_stages, n_micro, n_tenants
+    lead = (S, M) if T == 1 else (S, T, M)
 
     def phase_a_packed(stage_blocks, emb_g):
-        if tuple(emb_g.shape[:2]) != (n_stages, n_micro):
+        if tuple(emb_g.shape[:len(lead)]) != lead:
             raise ValueError(f"embeddings {tuple(emb_g.shape)}, the round was built for "
-                             f"[{n_stages}, {n_micro}, ...]")
-        stream = [emb_g[o, m] for o in range(n_stages) for m in range(n_micro)]
+                             f"[{', '.join(map(str, lead))}, ...]")
+        e = emb_g[:, None] if T == 1 else emb_g
+        stream = [e[o, t, m] for t in range(T) for o in range(S) for m in range(M)]
         if F > 0:
             with torch.no_grad():
                 stream = _tick_phase(cfg, stage_blocks, stream, 0, F,
                                      _seq_ctx(cfg, stream[0], impl), record)
-        return [stream[o * n_micro:(o + 1) * n_micro] for o in range(n_stages)]
+        at = lambda t, o: stream[(t * S + o) * M:(t * S + o + 1) * M]
+        if T == 1:
+            return [at(0, o) for o in range(S)]
+        return [[at(t, o) for t in range(T)] for o in range(S)]
 
     return phase_a_packed
 

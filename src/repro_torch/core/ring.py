@@ -24,7 +24,6 @@ from __future__ import annotations
 import time
 from typing import Any, Dict, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
@@ -33,6 +32,12 @@ from repro_torch.core.partition import Span, align_boundary, frozen_stage_count
 from repro_torch.core.unfreeze import UnfreezeSchedule, depth_to_boundary
 from repro_torch.kernels import ops
 from repro_torch.optim import adamw
+
+
+def mean_loss(losses) -> float:
+    """A round's loss: the f32 mean of its owners' f32 losses, as the
+    reference's ``RingTrainer`` and both executors take it."""
+    return float(torch.tensor(losses, dtype=torch.float32).mean())
 
 
 class RingTrainer:
@@ -107,7 +112,7 @@ class RingTrainer:
                                "bwd_ticks": ticks["b"],
                                "launches": {k: n - before[k] for k, n in ops.LAUNCHES.items()}})
             self.step += 1
-        return {"loss": float(np.mean([it["loss"] for it in iterations])),
+        return {"loss": mean_loss([it["loss"] for it in iterations]),
                 "boundary": self.boundary_at(self.step - 1), "step": self.step,
                 "iterations": iterations}
 

@@ -23,7 +23,12 @@ Every mode is a (backend, policy) pair of the session:
     ``cache_hit``), then the last round's record as JSON (with the cache's
     counts). ``--device-speeds`` gives each stage a relative speed and the
     spans come from the speed-weighted partitioner; the balanced layout
-    otherwise. The ring's lr defaults to ``RING_LR``.
+    otherwise. The ring's lr defaults to ``RING_LR``. ``--tenants T``
+    (fused or cached) trains T adapter sets over one frozen trunk in one
+    joint round (per tenant the solo run, bit for bit); ``--adapter-store
+    DIR`` writes each tenant's adapters and moments after the run as the
+    store's entries ``tenant0``, ``tenant1``, ..., which ``launch/serve.py
+    --adapter-store DIR`` serves.
 
 The depth grows by one block every ``--unfreeze-interval`` steps (owner
 iterations in ring mode; 40 by default, as the reference's CLI);
@@ -42,6 +47,8 @@ Usage (on a machine with an NVIDIA GPU; ``--device cpu`` runs the plain versions
         --reduced --layers 14 --stages 4 --rounds 2 --device-speeds 1.0,1.25,0.5,0.75
     PYTHONPATH=src python -m repro_torch.launch.train --mode ring --arch stablelm-3b \\
         --reduced --stages 2 --rounds 8 --unfreeze-interval 8 --slots-per-epoch 2
+    PYTHONPATH=src python -m repro_torch.launch.train --mode ring --reduced --stages 2 \\
+        --rounds 4 --tenants 2 --adapter-store ckpt/adapters
 """
 from __future__ import annotations
 
@@ -51,8 +58,8 @@ import json
 from typing import Any, Dict, Optional
 
 from repro_torch import device as dev_rule
-from repro_torch.api import (ExplicitPolicy, LoggingCallback, PjitDataSource, RingDataSource,
-                             RingSession, resolve_policy)
+from repro_torch.api import (AdapterStore, ExplicitPolicy, LoggingCallback, PjitDataSource,
+                             RingDataSource, RingSession, resolve_policy)
 from repro_torch.configs import TrainConfig, get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.actcache import CACHE_DTYPES
@@ -88,6 +95,7 @@ def train_ring(cfg: ModelConfig, tc: TrainConfig, *, rounds: int, n_stages: int,
                trainer: str = "fused", packed: bool = True,
                slots_per_epoch: Optional[int] = None, cache_capacity: Optional[int] = None,
                cache_dtype: str = "native", device_speeds: Optional[Any] = None,
+               tenants: int = 1, adapter_store: Optional[str] = None,
                policy: Any = None, save_path: Optional[str] = None,
                resume: Optional[str] = None, device=None, log=print) -> Dict[str, Any]:
     """``rounds`` rounds of the ring on ``device`` (default cuda) through a
@@ -99,10 +107,15 @@ def train_ring(cfg: ModelConfig, tc: TrainConfig, *, rounds: int, n_stages: int,
     paper's speed-weighted partitioner. ``policy``: 'interval' (the paper's
     rule, default) or 'plateau'. ``save_path`` saves the session after the
     run; ``resume`` restores a saved one (its backend, stages, slots,
-    capacity, cache dtype and spans) and runs ``rounds`` more. Returns the
-    driver, the session and the per-round history."""
+    capacity, cache dtype, spans and tenants) and runs ``rounds`` more.
+    ``tenants`` > 1 (the fused trainer) trains that many adapter sets over
+    one trunk; ``adapter_store`` writes every tenant's bundle (``tenant0``,
+    ``tenant1``, ...) there after the run. Returns the driver, the session
+    and the per-round history."""
     if trainer not in ("fused", "reference"):
         raise ValueError(f"trainer must be 'fused' or 'reference', got {trainer!r}")
+    if tenants > 1 and trainer != "fused":
+        raise ValueError("--tenants > 1 needs the fused executor (--trainer fused)")
     if resume:
         if device_speeds is not None:
             raise ValueError(
@@ -125,13 +138,18 @@ def train_ring(cfg: ModelConfig, tc: TrainConfig, *, rounds: int, n_stages: int,
                                   slots_per_epoch=slots_per_epoch,
                                   cache_capacity=cache_capacity, packed=packed,
                                   cache_dtype=cache_dtype, device_profiles=device_speeds,
-                                  device=device, log=log)
+                                  tenants=tenants, device=device, log=log)
         if device_speeds is not None:
             log(f"heterogeneous ring: speeds {list(device_speeds)} -> spans "
                 f"{[list(sp) for sp in sess.backend.spans]}")
     history = sess.run(rounds, callbacks=[LoggingCallback(log)])
     if save_path:
         sess.save(save_path)
+    if adapter_store:
+        store = AdapterStore(adapter_store)
+        for group in sess.tenants:
+            group.save_to(store, f"tenant{group.index}")
+        log(f"exported {sess.n_tenants} adapter bundle(s) to {adapter_store}")
     return {"trainer": sess.backend.driver, "session": sess, "history": history}
 
 
@@ -210,6 +228,13 @@ def main(argv=None) -> None:
                     help="ring mode: the cache's storage: 'native' keeps the captured bits, "
                          "'bf16' halves and 'int8' (per-row scales) quarters the bytes of an "
                          "f32 entry")
+    ap.add_argument("--tenants", type=int, default=1,
+                    help="ring mode (fused or cached): train this many adapter sets over one "
+                         "frozen trunk in one joint round; per tenant the solo run, bit for bit")
+    ap.add_argument("--adapter-store", default=None,
+                    help="ring mode: write each tenant's adapters and Adam moments to this "
+                         "AdapterStore directory after the run (entries tenant0, tenant1, "
+                         "...), servable by launch/serve.py --adapter-store")
     ap.add_argument("--policy", choices=["interval", "plateau"], default="interval",
                     help="unfreeze policy: the paper's k-step rule, or adaptive loss-plateau "
                          "unfreezing")
@@ -255,7 +280,8 @@ def main(argv=None) -> None:
     out = train_ring(cfg, tc, rounds=args.rounds, n_stages=args.stages, trainer=args.trainer,
                      packed=not args.no_packed, slots_per_epoch=args.slots_per_epoch or None,
                      cache_capacity=0 if args.no_cache else args.cache_capacity,
-                     cache_dtype=args.cache_dtype, device_speeds=speeds, policy=args.policy,
+                     cache_dtype=args.cache_dtype, device_speeds=speeds, tenants=args.tenants,
+                     adapter_store=args.adapter_store, policy=args.policy,
                      save_path=args.save, resume=args.resume, device=device)
     print(json.dumps(out["history"][-1]))
 

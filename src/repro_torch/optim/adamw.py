@@ -9,7 +9,8 @@ Updates run on explicit tensors under ``torch.no_grad()``, not through
     bias-corrected;
   * ``init`` / ``update`` — the single-device path over the full trainable
     tree: bias-corrected, warmup lr, and the boundary mask;
-  * ``lr_at`` — the warmup schedule.
+  * ``lr_at`` — the warmup schedule;
+  * ``tenant_stack`` — a tenant axis for the multi-tenant ring's state.
 
 Masking (the paper updates only unfrozen adapters): where the mask is zero
 the moments do not decay and the parameter does not move, so a frozen row is
@@ -46,6 +47,14 @@ def init_moments(tree: Any) -> Tuple[Any, Any]:
     zeros = lambda t: tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32,
                                                      device=x.device), t)
     return zeros(tree), zeros(tree)
+
+
+def tenant_stack(tree: Any, n_tenants: int) -> Any:
+    """Tile every leaf with a leading tenant axis of size ``n_tenants`` (new
+    tensors). All tenants start from the same values, so the frozen rows
+    stay bit-identical across tenants: the shared Phase-A trunk of the
+    multi-tenant ring relies on it."""
+    return tree_map(lambda x: torch.stack([x] * n_tenants), tree)
 
 
 @torch.no_grad()

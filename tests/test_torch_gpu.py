@@ -662,3 +662,55 @@ def test_ring_session_resume_equals_uninterrupted_run_on_card(tmp_path):
                                    strict=True)):
         assert torch.equal(a, b), f"tensor {i} {tuple(a.shape)}"
     assert back.backend.driver.compile_counts() == {"4/direct": 1}
+
+
+@pytest.mark.gpu
+def test_ring_tenants_joint_equals_solo_on_card():
+    """Several tenants on the card: a joint cached session of 3 tenants
+    (capture, capture, hit on 2 slots, one CUDA graph per (boundary, mode))
+    against 3 solo cached sessions fed each tenant's stream, each owner's
+    loss and every tensor a round writes bit for bit; each tenant's slice of
+    the stacked state is a contiguous, 16-byte aligned tensor (the executor
+    asserts it on the card), and the joint graph holds 3 times a solo graph's
+    launches. The reduced bf16 stablelm-3b of the tests above, 8 layers as
+    S = 4 stages, boundary 4 (the packed conveyor)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: CUDA graphs and the kernels have no CPU mode")
+    import dataclasses
+
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.api import IntervalPolicy, RingSession
+    from repro_torch.api.data import RingDataSource
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.models import params as prm
+
+    cfg = get_config("stablelm-3b").reduced(n_layers=8, repeats=8)
+    cfg = dataclasses.replace(cfg, adapter=dataclasses.replace(cfg.adapter, zero_init_up=False))
+    S, M, seq, T = 4, 2, 64, 3
+    tc = TrainConfig(learning_rate=1e-4, n_microbatches=M, batch_size=1, seq_len=seq)
+    params = prm.materialize(cfg, seed=0, device="cuda")
+    session = lambda **kw: RingSession.create(
+        cfg, tc, backend="cached", n_stages=S, slots_per_epoch=2, params=params,
+        policy=IntervalPolicy(initial_depth=4, interval=100 * S), log=lambda *a: None, **kw)
+    joint = session(tenants=T)
+    ex, recs = joint.backend.driver, []
+    real = ex.round
+    ex.round = lambda *a, **kw: (recs.append(real(*a, **kw)), recs[-1])[1]
+    hits = [joint.step().materialize().cache_hit for _ in range(3)]
+    assert hits == [False, False, True] and ex.tenant_hits == [1] * T
+    for t in range(T):
+        solo = session()
+        solo.data = RingDataSource(cfg, tc, S, slots_per_epoch=2, tenant=t)
+        for r, rec in enumerate(recs):
+            m = solo.step()
+            assert torch.equal(m.extras["losses"], rec["tenant_owner_losses"][:, t]), (t, r)
+            assert torch.equal(m.loss, rec["tenant_losses"][t]), (t, r)
+        sx = solo.backend.driver
+        mine = tree_leaves((ex.export_adapters(t), ex.export_tenant_opt(t)))
+        theirs = tree_leaves((sx.export_adapters(0), sx.export_tenant_opt(0)))
+        for i, (a, b) in enumerate(zip(mine, theirs, strict=True)):
+            assert torch.equal(a, b), f"tenant {t}: leaf {i} {tuple(a.shape)}"
+        for mode in ("capture", "cached"):
+            assert {k: T * n for k, n in sx.capture_launches[(4, mode)].items()} == \
+                ex.capture_launches[(4, mode)], mode

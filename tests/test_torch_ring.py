@@ -63,6 +63,7 @@ from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import TrainConfig, get_config  # noqa: E402
 from repro_torch.core import partition, training  # noqa: E402
 from repro_torch.core import pipeline as pl  # noqa: E402
+from repro_torch.core import ring  # noqa: E402
 from repro_torch.core.ring import RingTrainer  # noqa: E402
 from repro_torch.core.unfreeze import UnfreezeSchedule  # noqa: E402
 from repro_torch.data import pipeline  # noqa: E402
@@ -521,6 +522,26 @@ def test_ring_trainer_matches_jax_ring_trainer_round_for_round(jax_ring_run):
             _close(got["v_ad"][k], end["v_ad"][k], 2 * RTOL_GRAD, f"round {r} v {k}")
         _close(got["m_hd"]["w"], end["m_hd"]["w"], RTOL_GRAD, f"round {r} m head")
         _close(got["v_hd"]["w"], end["v_hd"]["w"], 2 * RTOL_GRAD, f"round {r} v head")
+
+
+def test_ring_trainer_loss_is_the_f32_mean_of_its_owners(jax_ring_run):
+    """A round's loss is the f32 mean of its owners' losses, the JAX
+    package's: the port's ``mean_loss`` of the JAX RingTrainer's owner
+    losses is its round loss bit for bit, and a port round's loss is
+    ``mean_loss`` of its own owners' (the mean the JAX RingTrainer takes,
+    ``jnp.mean`` in f32)."""
+    ref = jax_ring_run
+    for r in range(3):
+        owners = [float(x) for x in ref["losses"][S * r:S * (r + 1)]]
+        assert ring.mean_loss(owners) == float(ref[f"r{r}/loss"]) == \
+            float(jnp.mean(jnp.array(owners)))
+    _, tcfg = _configs()
+    tc = TrainConfig(learning_rate=LR, n_microbatches=M, batch_size=MB, seq_len=SEQ)
+    trainer = RingTrainer(tcfg, tc, _port_params(), S, M,
+                          schedule=UnfreezeSchedule(depths=DEPTHS[:1], interval=S))
+    rec = trainer.round(*train.ring_data_source(tcfg, tc, S).next())
+    owners = [it["loss"] for it in rec["iterations"]]
+    assert rec["loss"] == ring.mean_loss(owners) == float(jnp.mean(jnp.array(owners)))
 
 
 # ---------------------------------------------------------------- refusals, CLI, imports

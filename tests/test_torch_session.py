@@ -456,8 +456,8 @@ def test_fused_session_equals_reference_session_bit_for_bit():
         a, b = ref.step().materialize(), fused.step().materialize()
         assert (a.boundary, a.step, a.extras["losses"]) == \
             (b.boundary, b.step, b.extras["losses"])
-        # the mean: RingTrainer's of the host floats, the executor's in f32 on the device
-        assert a.loss == np.mean(b.extras["losses"]) and b.loss == np.float32(b.loss)
+        # the mean: the f32 mean of the owners' losses in both, as the reference's
+        assert a.loss == b.loss == np.float32(b.loss)
     _assert_states_equal(_state_np(ref), _state_np(fused), "fused against reference")
     # the reference's rule: the fused backend builds once a boundary, the
     # reference backend S times
@@ -555,8 +555,15 @@ def test_session_refuses_a_rising_boundary():
 
 
 def test_session_refuses_what_waits_for_later_items():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        _session("fused", tenants=2)
+    # several tenants: the fused and cached backends take them, the reference
+    # and pjit backends refuse them with the reference's messages
+    assert _session("fused", tenants=2).n_tenants == 2
+    cached = _session("cached", tenants=2, slots_per_epoch=2)
+    assert cached.backend.driver.cache.capacity == 4 and cached.backend.format == "ring/S4/T2"
+    with pytest.raises(ValueError, match="the reference oracle is single-tenant"):
+        _session("reference", tenants=2)
+    with pytest.raises(ValueError, match="tenants > 1 is a ring concept"):
+        _session("pjit", tenants=2)
     with pytest.raises(NotImplementedError, match="item 9"):
         _session("fused", elastic=True)
     with pytest.raises(NotImplementedError, match="item 9"):
