@@ -150,7 +150,22 @@ run with a non-zero exit and no result line:
      slots (capture, capture, hit, hit) against a direct joint executor
      seeded with its state before each round (``torch.equal``), then tenant
      1's ``import_adapters``, which frees its rows alone: the next round
-     hits tenant 0 and recaptures tenant 1;
+     hits tenant 0 and recaptures tenant 1. Then the elastic ring
+     (``phase_ring_elastic``), on fresh weights of the same ring at depth 8:
+     a cached ``RingSession`` on 2 slots loses device 2 before round 2
+     (spans 11, 11, 10, boundary 22) and takes it back before round 5 (4
+     stages of 8, boundary 24 again), each of its 8 rounds ``torch.equal`` to
+     a from-scratch ``RingExecutor`` at the live spans seeded with the state
+     before it (the first round after the crash also to ``RingTrainer`` at S
+     = 3), each graph's launches at L·M·S forward (Phase B's alone on a
+     hit), d·M·S and (d − 1)·M·S backward, each round's event ms or capture
+     seconds and allocated, peak and reserved memory printed, the first hit
+     of each geometry replayed once more and timed, and the reserved memory
+     after the rejoin's recapture within 2 GiB of that before the crash (no
+     dropped graph's pool kept); then a fused joint session of 2 tenants
+     loses device 1 before round 1, each round after it ``torch.equal`` to a
+     from-scratch joint executor at the shrunk spans, every tenant's slice a
+     contiguous, aligned view after the restack;
   4. rwkv6-7b at its published width (32 layers, d_model 4096, 64 heads of 64,
      vocab 65536), random weights from the seed with non-zero adapters, served
      by ``BatchServer`` as in phase 3 (qwen2.5-3b is freed first); the counters
@@ -318,6 +333,17 @@ SESSION_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", 
 # it); the 4 tenants' bundles served, 2 requests each, 8 new tokens
 TENANTS, TENANT_ROUNDS, CACHE_TENANTS = 4, 2, 2
 TENANT_PROMPT, TENANT_NEW = 128, 8
+# the elastic ring (phase_ring_elastic), fresh weights of the same ring at
+# depth 8: a cached session on 2 slots loses device 2 before round 2 and takes
+# it back before round 5, 8 rounds (4 stages of 8 at boundary 24, then spans
+# 11, 11, 10 at boundary 22, then 4 of 8 at 24 again); then a fused joint
+# session of 2 tenants loses device 1 before round 1, 3 rounds. Reserved
+# memory after the rejoin's recapture may exceed that after the first
+# captures at S = 4 by at most ELASTIC_POOL_SLACK_GIB (a dropped graph whose
+# pool stayed reserved would add GiBs: three graphs reserve about 30 at full width)
+ELASTIC_CHAOS, ELASTIC_ROUNDS = ("2:crash:2", "5:join:2"), 8
+ELASTIC_TENANT_CHAOS, ELASTIC_TENANT_ROUNDS = "1:crash:1", 3
+ELASTIC_POOL_SLACK_GIB = 2.0
 SOURCES = {
     "adapter_fused": ("src/repro_torch/kernels/csrc/adapter_fused.cu",
                       "src/repro/kernels/adapter_fused.py:55"),
@@ -2164,6 +2190,234 @@ def phase_ring_tenants(arch: str, records) -> None:
     del sess, exc, exd
 
 
+def _seed_trainer(trainer, ex) -> None:
+    """Copy executor ``ex``'s trainable state into ``RingTrainer`` ``trainer``
+    (the inverse of ``_seed_executor``)."""
+    for mine, theirs in ((trainer.stage_adapters(), ex.stage_adapters()),
+                         (trainer.m_ad, ex.opt_state["m"]["adapter"]),
+                         (trainer.v_ad, ex.opt_state["v"]["adapter"])):
+        for a, b in zip(tree_leaves(mine), tree_leaves(theirs), strict=True):
+            a.copy_(b)
+    for mine, theirs in ((trainer.shared["head"], ex.shared["head"]),
+                         (trainer.m_hd, ex.opt_state["m"]["head"]),
+                         (trainer.v_hd, ex.opt_state["v"]["head"])):
+        for k in mine:
+            mine[k].copy_(theirs[k])
+    trainer.step = ex.step
+
+
+def _own_trainables(params):
+    """``params`` with its adapters and head cloned (a ``RingTrainer`` trains
+    the tree it is given in place; the frozen trunk stays shared)."""
+    return {**params, "head": {k: v.clone() for k, v in params["head"].items()},
+            "blocks": [{**layer, "adapter": {k: v.clone() for k, v in layer["adapter"].items()}}
+                       for layer in params["blocks"]]}
+
+
+def _spans_of(ex):
+    return [list(sp) for sp in ex.spans]
+
+
+def _elastic_launches(cfg, S, boundary, mode, T=1):
+    """What a ring round's graph launches: every layer's forward kernels for
+    each owner's microbatches (Phase B's alone on a hit), the backward
+    kernels over the hot layers."""
+    L, b, per = cfg.n_layers, boundary * cfg.layers_per_repeat, RING_M * S * T
+    fwd = (L if mode != "cached" else L - b) * per
+    return {"adapter_fused": fwd, "flash_attention": fwd, "adapter_fused_bwd": (L - b) * per,
+            "flash_attention_bwd": (L - b - 1) * per, "mamba_scan": 0, "rwkv_scan": 0}
+
+
+def phase_ring_elastic(arch: str, records) -> None:
+    """The elastic ring at full width (fresh weights of the ring of
+    ``phase_ring``, depth 8). A cached session on CACHE_SLOTS slots under
+    ELASTIC_CHAOS (``elastic=True``) crashes device 2 before round 2 (spans
+    11, 11, 10, boundary 22) and takes it back before round 5 (4 stages of 8,
+    boundary 24). Every round is held with ``torch.equal`` (losses and every
+    tensor a round writes) to a from-scratch fused ``RingExecutor`` at the
+    live spans seeded with the state before the round (one twin per
+    geometry, dropped before the change), the first round after the crash
+    also to ``RingTrainer`` at S = 3; the graph's launches to L·M·S forward
+    (Phase B's alone on a hit), d·M·S and (d − 1)·M·S backward, a build
+    counting them twice and a replay none; the first hit of each geometry is
+    replayed once more from the same state and timed. Each round prints S,
+    spans, boundary, mode, event ms or capture s, allocated, peak and
+    reserved GiB; reserved after the rejoin's recapture must stay within
+    ELASTIC_POOL_SLACK_GIB of reserved after the first captures at S = 4.
+    Then a fused joint session of CACHE_TENANTS tenants under
+    ELASTIC_TENANT_CHAOS, each round after the crash held to a from-scratch
+    joint executor at the shrunk spans, every tenant's slice of every leaf a
+    contiguous, aligned view after the restack."""
+    cfg = served_config(arch)
+    tc = TrainConfig(learning_rate=RING_LR, batch_size=1, seq_len=TRAIN_S,
+                     n_microbatches=RING_M, n_stages=RING_S, seed=SEED)
+    params = prm.materialize(cfg, seed=SEED, device="cuda")
+    policy = lambda: IntervalPolicy(initial_depth=SESSION_DEPTH, interval=100 * RING_S)
+    logs, launches = [], {name: 0 for name in ops.LAUNCHES}
+    ops.reset_launches()
+    sess = RingSession.create(cfg, tc, backend="cached", n_stages=RING_S, policy=policy(),
+                              slots_per_epoch=CACHE_SLOTS, params=params,
+                              chaos=list(ELASTIC_CHAOS), elastic=True, device="cuda",
+                              log=logs.append)
+    ex, be = sess.backend.driver, sess.backend
+    ptrs = [t.data_ptr() for t in ex.trainable_tensors()]
+    ran = {name: 0 for name in ops.LAUNCHES}            # the session's own launches
+    twin, reserved, trace = None, {}, []
+    crash_round = int(ELASTIC_CHAOS[0].split(":")[0])
+    for r in range(ELASTIC_ROUNDS):
+        if be.events and be.events[0].round == r:
+            twin = None                                 # the old geometry's twin goes first
+            gc.collect()
+        slot, tokens, labels = sess.data.next()
+        before, step = [t.clone() for t in ex.trainable_tensors()], ex.step
+        builds = dict(ex.build_counts)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counted = dict(ops.LAUNCHES)
+        m, ms, wall = _session_round(sess, (slot, tokens, labels))
+        counted = {k: ops.LAUNCHES[k] - counted[k] for k in counted}
+        for k, n in counted.items():
+            ran[k] += n
+        mem = (torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated(),
+               torch.cuda.memory_reserved())
+        mode = "cached" if m.cache_hit else "capture"
+        built = ex.build_counts.get((m.boundary, mode), 0) != builds.get((m.boundary, mode), 0)
+        graph = ex.capture_launches[(m.boundary, mode)]
+        _count_session_launches(sess, m, {}, launches)
+        want_graph = _elastic_launches(cfg, ex.S, m.boundary, mode)
+        rows = list(be.survivors)
+        tokens_d, labels_d = ex.to_device(tokens[rows], labels[rows])
+        if twin is None:
+            twin = RingExecutor(cfg, tc, params, ex.S, RING_M, spans=ex.spans, schedule=policy())
+        if twin.spans != ex.spans:
+            raise AssertionError(f"round {r}: the layout moved to {ex.spans} without an event")
+        for a, b in zip(twin.trainable_tensors(), before, strict=True):
+            a.copy_(b)
+        twin.step = step
+        trainer_equal = None
+        if r == crash_round:                            # the first round after the crash
+            trainer = RingTrainer(cfg, tc, _own_trainables(params), ex.S, RING_M,
+                                  spans=ex.spans, schedule=policy())
+            _seed_trainer(trainer, twin)
+        want, twin_ms = _event_round(lambda: twin.round(tokens_d, labels_d))
+        equal = m.extras["losses"] == want["losses"].tolist() and all(
+            torch.equal(a, b) for a, b in zip(ex.trainable_tensors(), twin.trainable_tensors(),
+                                              strict=True))
+        if r == crash_round:
+            rec = trainer.round(tokens_d, labels_d)
+            F = frozen_stage_count(ex.spans, m.boundary)
+            mine, theirs = _trainable_state(ex, F), _trainable_state(trainer, F)
+            trainer_equal = [it["loss"] for it in rec["iterations"]] == m.extras["losses"] \
+                and all(torch.equal(mine[k], theirs[k]) for k in theirs)
+            del trainer, rec, mine, theirs
+        hit_ms = None
+        if mode == "cached" and built:                  # time a replay of the new hit graph
+            after = [t.clone() for t in ex.trainable_tensors()]
+            for a, b in zip(ex.trainable_tensors(), before, strict=True):
+                a.copy_(b)
+            ex.step = step
+            again, hit_ms = _event_round(lambda: ex.round(tokens_d, labels_d, slot=slot))
+            if not (again["cache_hit"] and again["losses"].tolist() == m.extras["losses"]
+                    and all(torch.equal(a, b) for a, b in zip(ex.trainable_tensors(), after))):
+                raise AssertionError(f"round {r}: the hit's replay is not its round")
+            del after, again
+        trace.append((ex.S, m.boundary, mode))
+        say("ring_elastic_round", round=r, slot=slot, S=ex.S,
+            spans=json.dumps(_spans_of(ex)).replace(" ", ""), boundary=m.boundary, mode=mode,
+            layout_changed=bool(m.extras.get("layout_changed")),
+            survivors=json.dumps(rows).replace(" ", ""),
+            losses=json.dumps([round(x, 5) for x in m.extras["losses"]]),
+            equal_to_twin=equal, equal_to_ring_trainer=trainer_equal,
+            **({"capture_s": f"{ex.capture_seconds[(m.boundary, mode)]:.2f}",
+                "build_round_event_ms": f"{ms:.3f}"} if built else
+               {"replay_event_ms": f"{ms:.3f}"}),
+            replay_wall_ms=f"{wall:.1f}", hit_replay_event_ms=None if hit_ms is None
+            else f"{hit_ms:.3f}", twin_direct_event_ms=f"{twin_ms:.3f}",
+            allocated_gib=_gib(mem[0]), peak_gib=_gib(mem[1]), reserved_gib=_gib(mem[2]),
+            launches_in_graph=json.dumps(graph).replace(" ", ""),
+            launches_counted=json.dumps(counted).replace(" ", ""), card=repr(CARD))
+        reserved[r] = mem[2]
+        if not equal or trainer_equal is False or not all(
+                math.isfinite(x) for x in m.extras["losses"]):
+            raise AssertionError(f"round {r}: not its from-scratch twin's (equal {equal}) or "
+                                 f"RingTrainer's ({trainer_equal}): {m.extras['losses']} "
+                                 f"against {want['losses'].tolist()}")
+        if graph != want_graph or counted != ({k: 2 * n for k, n in graph.items()} if built
+                                              else {k: 0 for k in graph}):
+            raise AssertionError(f"round {r} ({mode}, S {ex.S}, boundary {m.boundary}): the "
+                                 f"graph holds {graph}, expected {want_graph}; the round "
+                                 f"counted {counted} (built: {built})")
+        del before, want
+    twin = None
+    gc.collect()
+    want_trace = [(4, 24, "capture")] * 2 + [(3, 22, "capture")] * 2 + [(3, 22, "cached")] + \
+        [(4, 24, "capture")] * 2 + [(4, 24, "cached")]
+    leak = (reserved[6] - reserved[1]) / 2**30
+    say("ring_elastic_memory", reserved_before_crash_gib=_gib(reserved[1]),
+        reserved_after_recapture_at_S3_gib=_gib(reserved[3]),
+        reserved_after_rejoin_recapture_gib=_gib(reserved[6]), rise_gib=f"{leak:.3f}",
+        slack_gib=ELASTIC_POOL_SLACK_GIB, card=repr(CARD))
+    say("ring_elastic_log", lines=json.dumps([str(x) for x in logs]))
+    if trace != want_trace or be.shrinks != 1 or be.survivors != list(range(RING_S)):
+        raise AssertionError(f"the elastic walk: {trace} against {want_trace}, shrinks "
+                             f"{be.shrinks}, survivors {be.survivors}")
+    if leak > ELASTIC_POOL_SLACK_GIB:
+        raise AssertionError(f"reserved memory rose {leak:.3f} GiB across the crash and the "
+                             f"rejoin: a dropped graph's pool stayed reserved")
+    if [t.data_ptr() for t in ex.trainable_tensors()] != ptrs:
+        raise AssertionError("a shrink or grow reallocated a state tensor")
+    _path_kernels_ran(ran, "the elastic session")
+    del sess, ex, be
+    freed()
+    # -- a fused joint session of 2 tenants through a crash
+    ops.reset_launches()
+    sess = RingSession.create(cfg, tc, backend="fused", n_stages=RING_S, policy=policy(),
+                              tenants=CACHE_TENANTS, params=params, chaos=ELASTIC_TENANT_CHAOS,
+                              elastic=True, device="cuda", log=logs.append)
+    ex, be = sess.backend.driver, sess.backend
+    ran = {name: 0 for name in ops.LAUNCHES}
+    twin = None
+    for r in range(ELASTIC_TENANT_ROUNDS):
+        slot, tokens, labels = sess.data.next()
+        before, step = [t.clone() for t in ex.trainable_tensors()], ex.step
+        counted = dict(ops.LAUNCHES)
+        m, ms, _ = _session_round(sess, (slot, tokens, labels))
+        for k in ran:
+            ran[k] += ops.LAUNCHES[k] - counted[k]
+        _count_session_launches(sess, m, {}, launches)
+        graph = ex.capture_launches[(m.boundary, "direct")]
+        equal = None
+        if ex.S < RING_S:
+            ex._check_tenant_views()
+            rows = list(be.survivors)
+            if twin is None:
+                twin = RingExecutor(cfg, tc, params, ex.S, RING_M, spans=ex.spans,
+                                    schedule=policy(), tenants=CACHE_TENANTS)
+            for a, b in zip(twin.trainable_tensors(), before, strict=True):
+                a.copy_(b)
+            twin.step = step
+            want = twin.round(*ex.to_device(tokens[rows], labels[rows]))
+            equal = m.extras["losses"] == want["losses"].tolist() and \
+                m.extras["tenant_losses"] == want["tenant_losses"].tolist() and all(
+                    torch.equal(a, b) for a, b in zip(ex.trainable_tensors(),
+                                                      twin.trainable_tensors(), strict=True))
+        say("ring_elastic_tenants_round", round=r, S=ex.S,
+            spans=json.dumps(_spans_of(ex)).replace(" ", ""), boundary=m.boundary,
+            tenant_losses=json.dumps([round(x, 5) for x in m.extras["tenant_losses"]]),
+            equal_to_twin=equal, event_ms=f"{ms:.3f}",
+            capture_s=f"{ex.capture_seconds[(m.boundary, 'direct')]:.2f}",
+            launches_in_graph=json.dumps(graph).replace(" ", ""),
+            reserved_gib=_gib(torch.cuda.memory_reserved()), card=repr(CARD))
+        if graph != _elastic_launches(cfg, ex.S, m.boundary, "direct", T=CACHE_TENANTS) or \
+                (ex.S < RING_S and not equal) or (ex.S < RING_S) != (r >= 1):
+            raise AssertionError(f"joint round {r}: S {ex.S}, equal to its twin {equal}, "
+                                 f"graph {graph}")
+        del before
+    _path_kernels_ran(ran, "the elastic joint session")
+    count_launches(records, f"{cfg.name}_ring_elastic", launches)
+    del sess, ex, be, twin
+
+
 def freed() -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -2201,6 +2455,10 @@ def main() -> None:
     t0 = time.perf_counter()
     phase_ring_tenants("stablelm-3b", records)
     say("ring_tenants", seconds=f"{time.perf_counter() - t0:.1f}")
+    freed()                                             # fresh weights for the elastic ring
+    t0 = time.perf_counter()
+    phase_ring_elastic("stablelm-3b", records)
+    say("ring_elastic", seconds=f"{time.perf_counter() - t0:.1f}")
     freed()                                             # stablelm-3b before rwkv6-7b
     phase_serve("rwkv6-7b", records, cpu_witness=False)
     freed()                                             # rwkv6-7b before hymba-1.5b

@@ -7,9 +7,13 @@ reference, fused or cached ring, or the one-device pjit path) under a
 resumable state in the reference's format. A multi-tenant session
 (``tenants=T``) trains T adapter sets over one trunk; ``TenantGroup`` and
 ``AdapterStore`` move one tenant's set in and out. The elastic ring
-(``ChaosBackend``) waits for ROADMAP Queue 1 item 9.
+(``ChaosBackend``, ``elastic=``/``chaos=``) absorbs churn: a crash shrinks
+the ring, a rejoin grows it, a straggler is repartitioned away.
 """
-from .backends import CachedBackend, FusedBackend, PjitBackend, ReferenceBackend
+from repro_torch.core.elastic import StragglerDetector, parse_chaos_events
+from repro_torch.core.simulator import ChurnEvent
+
+from .backends import CachedBackend, ChaosBackend, FusedBackend, PjitBackend, ReferenceBackend
 from .data import PjitDataSource, RingDataSource
 from .metrics import (BenchCaptureCallback, Callback, CheckpointCallback, LoggingCallback,
                       RoundMetrics)
@@ -20,6 +24,7 @@ from .tenants import AdapterStore, TenantGroup
 __all__ = [
     "RingSession", "BACKENDS",
     "ReferenceBackend", "FusedBackend", "CachedBackend", "PjitBackend",
+    "ChaosBackend", "ChurnEvent", "StragglerDetector", "parse_chaos_events",
     "IntervalPolicy", "ExplicitPolicy", "LossPlateauPolicy", "resolve_policy",
     "RoundMetrics", "Callback", "LoggingCallback", "CheckpointCallback",
     "BenchCaptureCallback",

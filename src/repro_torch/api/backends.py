@@ -45,11 +45,16 @@ tenant-stacked layout (``bridge.ring_state_to_reference``).
 ``state()["format"]`` tags the moments' layout (``ring/S4``,
 ``ring/S4/spans4-5-2-3``, ``ring/S4/T3``, ``pjit``) as the reference does; a
 checkpoint restores only into a backend of the same format.
+
+:class:`ChaosBackend` wraps a fused or cached backend for the elastic ring:
+it fires churn events (crash, leave, slowdown, join) before their rounds,
+shrinks and grows the ring through ``RingExecutor.shrink``/``grow``, and
+repartitions away a straggler its ``StragglerDetector`` finds.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -60,10 +65,12 @@ from repro_torch import device as dev_rule
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core import pipeline as pl
 from repro_torch.core import training
+from repro_torch.core.elastic import StragglerDetector
 from repro_torch.core.executor import RingExecutor, tenant_view
-from repro_torch.core.partition import (parse_device_profiles, span_sizes, spans_from_profiles,
-                                        uniform_assignment)
+from repro_torch.core.partition import (DeviceProfile, parse_device_profiles, span_sizes,
+                                        spans_from_profiles, uniform_assignment)
 from repro_torch.core.ring import RingTrainer
+from repro_torch.core.simulator import ChurnEvent
 from repro_torch.core.unfreeze import depth_to_boundary
 from repro_torch.data.pipeline import to_device
 from repro_torch.models import params as prm
@@ -165,7 +172,7 @@ class _RingBackendBase:
         return None, tokens, labels
 
     def _raw(self, m: Dict[str, Any], slot: Optional[int], tokens, losses) -> Dict[str, Any]:
-        extras = {"round": m["step"] // self.S - 1, "losses": losses}
+        extras = {"losses": losses}
         if slot is not None:
             extras["slot"] = slot
         return {"loss": m["loss"], "boundary": m["boundary"],
@@ -190,12 +197,26 @@ class _RingBackendBase:
         d.repartition(pl.resolve_spans(self.cfg.repeats, self.S, spans))
         self.spans = d.spans
 
-    def shrink(self, dead_stage: int, **_) -> None:
-        raise NotImplementedError("shrinking the ring waits for ROADMAP Queue 1 item 9 "
-                                  "(elastic)")
+    def shrink(self, dead_stage: int, profiles: Sequence[DeviceProfile]) -> None:
+        """S -> S - 1 (executor-backed backends only): drop stage
+        ``dead_stage`` and lay the survivors out by their ``profiles``. The
+        caller flushes pending device metrics first."""
+        d = self.driver
+        if not hasattr(d, "shrink"):
+            raise NotImplementedError(f"backend {self.name!r} cannot shrink mid-run — use "
+                                      f"backend='fused' or 'cached'")
+        d.shrink(dead_stage, profiles)
+        self.S, self.spans = d.S, d.spans
 
-    def grow(self, profile=None, **_) -> None:
-        raise NotImplementedError("growing the ring waits for ROADMAP Queue 1 item 9 (elastic)")
+    def grow(self, profiles: Sequence[DeviceProfile]) -> None:
+        """The inverse of ``shrink``: a device joins, S grows by one;
+        ``profiles`` describe the fleet after the join."""
+        d = self.driver
+        if not hasattr(d, "grow"):
+            raise NotImplementedError(f"backend {self.name!r} cannot grow mid-run — use "
+                                      f"backend='fused' or 'cached'")
+        d.grow(profiles)
+        self.S, self.spans = d.S, d.spans
 
 
 class ReferenceBackend(_RingBackendBase):
@@ -432,3 +453,180 @@ class PjitBackend:
         self._params = training.write_back(self._params, {"adapters": adapters, "head": head})
         self._opt = bridge.opt_state_from_reference(opt, self.cfg)
         self._step = step
+
+
+class ChaosBackend:
+    """Churn injection and elasticity over a ring backend.
+
+    Wraps an executor-backed ring backend (fused or cached) and, each
+    ``step``:
+
+      1. fires every pending :class:`~repro_torch.core.simulator.ChurnEvent`
+         whose round has come (``round=3``: rounds 0-2 ran on the old fleet):
+         a ``crash`` or ``leave`` shrinks the ring (with ``elastic=True``;
+         without it the crash raises, as a ring without elasticity would
+         stall), a ``slowdown`` makes that device's true speed lower, a
+         ``join`` gives a device of the original fleet its place back;
+      2. trims the round's ``[S0, ...]`` batch to the survivors' rows (the
+         data source keeps producing at the original ring size, so that save
+         and resume replay the same batches across a shrink);
+      3. runs the inner backend's step;
+      4. puts the stage times of the true speeds, ``span_size / speed`` (the
+         tick model; a deployment would measure them), in
+         ``extras["stage_times"]``, and the survivors in
+         ``extras["survivors"]``;
+      5. with ``elastic=True`` feeds those times to a
+         :class:`~repro_torch.core.elastic.StragglerDetector` and applies its
+         hysteresis-gated repartition.
+
+    A round that changed the layout is marked ``raw["layout_changed"]``, so
+    that the session re-seeds its monotone-boundary check and suspends a
+    plateau policy for the blip. Everything else delegates to the inner
+    backend.
+    """
+
+    def __init__(self, inner, *, events: Sequence[ChurnEvent] = (), elastic: bool = False,
+                 device_profiles=None, log=print):
+        self.inner = inner
+        self.elastic = elastic
+        self.log = log
+        self.events: List[ChurnEvent] = sorted(events, key=lambda e: e.round)
+        if device_profiles is not None:
+            profs = parse_device_profiles(device_profiles)
+            if len(profs) != inner.S:
+                raise ValueError(f"{len(profs)} device profiles for a {inner.S}-stage ring")
+        else:
+            profs = [DeviceProfile(1.0, float("inf")) for _ in range(inner.S)]
+        # keyed by the ORIGINAL device index; survivors maps stage -> original device
+        self.profiles: Dict[int, DeviceProfile] = dict(enumerate(profs))
+        self.speeds: Dict[int, float] = {i: p.compute_speed for i, p in self.profiles.items()}
+        self.survivors: List[int] = list(range(inner.S))
+        self.detector: Optional[StragglerDetector] = (
+            StragglerDetector(profs, inner.cfg.repeats) if elastic else None)
+        self.flush_hook = None              # the session's: flush lazy metrics
+        self.round_idx = 0                  # rounds of this run (a resumed run starts at 0)
+        self.shrinks = 0
+        self.repartitions = 0
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def _flush(self) -> None:
+        if self.flush_hook is not None:
+            self.flush_hook()
+
+    def _survivor_profiles(self) -> List[DeviceProfile]:
+        if self.detector is not None:
+            return self.detector.fleet      # the EWMA-refit speeds
+        return [self.profiles[d] for d in self.survivors]
+
+    def _drop(self, device: int) -> None:
+        """Shrink original device ``device``'s stage out of the ring."""
+        stage = self.survivors.index(device)
+        self.survivors.pop(stage)
+        if self.detector is not None:
+            self.detector.remove(stage)
+        self.inner.shrink(stage, self._survivor_profiles())
+        self.shrinks += 1
+
+    def _apply(self, ev: ChurnEvent) -> bool:
+        """Fire one event against the live ring; True if the layout moved."""
+        if ev.kind in ("crash", "leave"):
+            if ev.device not in self.survivors:
+                raise ValueError(f"churn {ev.kind} targets device {ev.device}, which is not "
+                                 f"alive (survivors: {self.survivors})")
+            if not self.elastic:
+                raise RuntimeError(
+                    f"device {ev.device} {'crashed' if ev.kind == 'crash' else 'left'} at "
+                    f"round {self.round_idx} and the ring is not elastic — run with "
+                    f"elastic=True (--elastic) to shrink and continue")
+            self._flush()
+            old = [list(sp) for sp in self.inner.spans]
+            self._drop(ev.device)
+            self.log(f"[elastic] device {ev.device} {ev.kind} at round {self.round_idx}: ring "
+                     f"{len(self.survivors) + 1} -> {len(self.survivors)} stages, spans {old} "
+                     f"-> {[list(sp) for sp in self.inner.spans]} (cache re-captures next "
+                     f"round)")
+            return True
+        if ev.kind == "slowdown":
+            if ev.device not in self.survivors:
+                raise ValueError(f"churn slowdown targets device {ev.device}, which is not "
+                                 f"alive (survivors: {self.survivors})")
+            self.speeds[ev.device] /= ev.factor
+            self.log(f"[elastic] device {ev.device} slowed {ev.factor}x at round "
+                     f"{self.round_idx}"
+                     + ("" if self.elastic else
+                        " (not elastic: the ring will limp, not repartition)"))
+            return False                    # the detector finds it from the stage times
+        # join: only a device of the original fleet can take its place back,
+        # since the data source owns exactly the original S0 rows
+        if ev.device in self.survivors:
+            raise ValueError(f"churn join: device {ev.device} is already in the ring")
+        if ev.device not in self.profiles:
+            raise ValueError(f"churn join: device {ev.device} was never part of the original "
+                             f"fleet — only rejoining devices are supported (the data source "
+                             f"owns the original rows)")
+        if not self.elastic:
+            raise RuntimeError(f"device {ev.device} rejoined at round {self.round_idx} and the "
+                               f"ring is not elastic — run with elastic=True (--elastic)")
+        prof = ev.profile or self.profiles[ev.device]
+        stage = sum(1 for d in self.survivors if d < ev.device)
+        self._flush()
+        self.survivors.insert(stage, ev.device)
+        if self.detector is not None:
+            self.detector.insert(stage, prof)
+        self.inner.grow(self._survivor_profiles())
+        self.log(f"[elastic] device {ev.device} rejoined at round {self.round_idx}: ring "
+                 f"{len(self.survivors) - 1} -> {len(self.survivors)} stages, spans "
+                 f"{[list(sp) for sp in self.inner.spans]}")
+        return True
+
+    def step(self, batch) -> Dict[str, Any]:
+        layout_changed = False
+        while self.events and self.events[0].round <= self.round_idx:
+            layout_changed |= self._apply(self.events.pop(0))
+        if len(self.survivors) != len(self.profiles):
+            rows = list(self.survivors)     # axis 0 of [S0, ...] and [S0, T, ...] alike
+            if len(batch) == 3:
+                slot, tokens, labels = batch
+                batch = (slot, tokens[rows], labels[rows])
+            else:
+                tokens, labels = batch
+                batch = (tokens[rows], labels[rows])
+        raw = self.inner.step(batch)
+        stage_times = [(e - b) / self.speeds[dev]
+                       for (b, e), dev in zip(self.inner.spans, self.survivors)]
+        extras = raw.setdefault("extras", {})
+        extras["stage_times"] = stage_times
+        extras["survivors"] = list(self.survivors)
+        if self.detector is not None:
+            self.detector.observe(self.inner.spans, stage_times)
+            prop = self.detector.propose(self.inner.spans)
+            if prop is not None:
+                self._flush()
+                old = [list(sp) for sp in self.inner.spans]
+                self.inner.repartition(prop)
+                self.repartitions += 1
+                layout_changed = True
+                self.log(f"[elastic] straggler repartition at round {self.round_idx}: spans "
+                         f"{old} -> {[list(sp) for sp in self.inner.spans]} (EWMA speeds "
+                         f"{[round(s, 3) for s in self.detector.speeds]})")
+        if layout_changed:
+            raw["layout_changed"] = True
+            extras["layout_changed"] = True
+        self.round_idx += 1
+        return raw
+
+    def restore_membership(self, survivors: Sequence[int], spans=None) -> None:
+        """Replay a checkpoint's fleet onto a ring freshly built at the
+        original size: shrink away every device missing from ``survivors``
+        (in stage order), then repartition to the saved ``spans``. Runs
+        before ``load_state``, so that the stage-stacked moments land on the
+        geometry they were saved from."""
+        for dead in [d for d in self.survivors if d not in survivors]:
+            self._drop(dead)
+        if list(survivors) != self.survivors:
+            raise ValueError(f"saved survivors {list(survivors)} are not a subset of the "
+                             f"original fleet {sorted(self.profiles)}")
+        if spans is not None:
+            self.inner.repartition(spans)

@@ -118,10 +118,12 @@ class LoggingCallback(Callback):
     cadence follows materialization batches, so asynchronous rounds stay so).
 
     The lines are the port's CLI's: a ring round as ``round r boundary b
-    depth d loss x round_ms t`` (and ``cache_hit h`` with a cache), ``r``
-    counting from the run's first round ever (a resumed run goes on
-    counting); a one-device step as ``step s boundary b loss x accuracy a
-    grad_norm g``, ``s`` the step's index."""
+    depth d loss x round_ms t`` (and ``cache_hit h`` with a cache, and
+    ``[elastic S=n]`` after a round that moved an elastic ring's layout),
+    ``r`` counting from the run's first round ever (a resumed run goes on
+    counting; ``?`` where the checkpoint does not say); a one-device step as
+    ``step s boundary b loss x accuracy a grad_norm g``, ``s`` the step's
+    index."""
 
     def __init__(self, log=print, every: int = 1):
         self.log = log
@@ -134,8 +136,16 @@ class LoggingCallback(Callback):
         if "round" in d:
             hit = "" if d.get("cache_hit") is None else f" cache_hit {d['cache_hit']}"
             ms = d.get("round_ms")
-            self.log(f"round {d['round']} boundary {d['boundary']} depth {d['depth']} "
-                     f"loss {d['loss']:.4f} round_ms {ms if ms is None else f'{ms:.1f}'}{hit}")
+            # a round that shrank, grew or repartitioned the ring is marked, so
+            # that the loss blip after it reads as recovery, not divergence
+            el = ""
+            if d.get("layout_changed"):
+                surv = d.get("survivors")
+                el = " [elastic]" if surv is None else f" [elastic S={len(surv)}]"
+            r = "?" if d["round"] is None else d["round"]
+            self.log(f"round {r} boundary {d['boundary']} depth {d['depth']} "
+                     f"loss {d['loss']:.4f} round_ms {ms if ms is None else f'{ms:.1f}'}"
+                     f"{hit}{el}")
         else:
             self.log(f"step {d['step'] - 1} boundary {d['boundary']} loss {d['loss']:.4f} "
                      f"accuracy {d.get('accuracy', float('nan')):.4f} "

@@ -41,8 +41,14 @@ joint session equals a solo session fed that tenant's stream
 :class:`~repro_torch.api.tenants.TenantGroup` (save and load one tenant
 through an ``AdapterStore``).
 
-Not ported yet: the elastic ring (``elastic``, ``chaos``: ROADMAP Queue 1
-item 9).
+The elastic ring (``elastic=``, ``chaos=``, the ring backends): a
+:class:`~repro_torch.api.backends.ChaosBackend` fires churn events before
+their rounds, shrinks the ring on a crash and grows it on a rejoin, without
+reading a checkpoint, and repartitions away a straggler. The data source
+stays at the original S0 clients (the backend trims each batch to the
+survivors), a round that moved the layout re-seeds the monotone-boundary
+check, and a checkpoint records the survivors, so that ``restore`` rebuilds
+the ring at S0 and replays the membership before it loads.
 """
 from __future__ import annotations
 
@@ -53,8 +59,11 @@ from typing import Any, Dict, List, Optional, Sequence
 
 from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.core.elastic import parse_chaos_events
+from repro_torch.core.partition import parse_device_profiles, spans_from_profiles
+from repro_torch.core.simulator import ChurnEvent
 
-from .backends import CachedBackend, FusedBackend, PjitBackend, ReferenceBackend
+from .backends import CachedBackend, ChaosBackend, FusedBackend, PjitBackend, ReferenceBackend
 from .data import PjitDataSource, RingDataSource
 from .metrics import Callback, RoundMetrics
 from .policies import resolve_policy
@@ -75,8 +84,13 @@ class RingSession:
         self.backend, self.policy, self.data = backend, policy, data
         self.callbacks: List[Callback] = list(callbacks)
         self.step_count = 0
+        # a ring's rounds since its first ever (a resumed run goes on counting;
+        # None where a checkpoint does not say, see _load_into)
+        self.rounds: Optional[int] = 0
         self._last_boundary: Optional[int] = None
         self._create_args = create_args or {"backend": backend.name}
+        if hasattr(backend, "flush_hook"):
+            backend.flush_hook = self.flush_metrics
         # every un-materialized RoundMetrics handed out, flushed (host-synced
         # in place) before a backend call that changes the tensors they read
         self._live_metrics: "weakref.WeakSet[RoundMetrics]" = weakref.WeakSet()
@@ -112,12 +126,15 @@ class RingSession:
         ``tc.seed + 7919 t``), metrics with ``tenant_losses``, the cache
         partitioned per tenant, and its capacity by default
         ``slots_per_epoch * T``.
+
+        ``chaos`` (a ``"round:event:device[:factor]"`` spec, a ``ChurnEvent``
+        or a list of them) and ``elastic`` (ring backends): the backend is
+        wrapped in a ``ChaosBackend``; with ``elastic=True`` a crash shrinks
+        the ring and a straggler is repartitioned away, without it a crash
+        raises. Shrinking and growing need the fused or cached backend.
         """
         if tenants < 1:
             raise ValueError(f"tenants must be >= 1, got {tenants}")
-        if elastic or chaos:
-            raise NotImplementedError("elastic rings and churn injection (elastic=, chaos=) "
-                                      "wait for ROADMAP Queue 1 item 9")
         policy = resolve_policy(policy, tc)
         S = n_stages or tc.n_stages
         if isinstance(backend, str):
@@ -142,17 +159,32 @@ class RingSession:
                     "a CachedBackend needs slot-keyed batches: pass slots_per_epoch (for the "
                     "default data source) or a slot-yielding data=; with streaming draws "
                     "every round would bypass the cache")
+        S0 = getattr(be, "S", S)           # the ring's size before any churn
+        if elastic or chaos:
+            if be.kind == "pjit":
+                raise ValueError("elastic/chaos is a ring feature — the pjit baseline has no "
+                                 "span layout to shrink or repartition")
+            specs = [chaos] if isinstance(chaos, (str, ChurnEvent)) else list(chaos)
+            events = (list(parse_chaos_events([e for e in specs if isinstance(e, str)]))
+                      + [e for e in specs if isinstance(e, ChurnEvent)])
+            be = ChaosBackend(be, events=events, elastic=elastic,
+                              device_profiles=device_profiles, log=log)
         if data is None:
+            # an elastic ring keeps the original S0 clients: ChaosBackend trims
+            # each batch to the survivors, so the data cursor (and a resume)
+            # does not depend on the churn
             data = (PjitDataSource(cfg, tc) if be.kind == "pjit"
-                    else RingDataSource(cfg, tc, be.S, slots_per_epoch=slots_per_epoch,
+                    else RingDataSource(cfg, tc, S0, slots_per_epoch=slots_per_epoch,
                                         tenants=tenants))
         be_spans = getattr(be, "spans", None)
         create_args = {"backend": be.name,
-                       "n_stages": be.S if be.kind != "pjit" else None,
+                       # the original ring size: the data source and a restore
+                       # are anchored to it after a shrink
+                       "n_stages": S0 if be.kind != "pjit" else None,
                        "slots_per_epoch": slots_per_epoch,
                        "cache_capacity": cache_capacity, "impl": impl,
                        "packed": packed, "cache_dtype": cache_dtype,
-                       "tenants": tenants, "elastic": False,
+                       "tenants": tenants, "elastic": elastic,
                        # the span layout rides in the checkpoint so that restore
                        # rebuilds the same partition (JSON: [begin, end] pairs)
                        "spans": ([list(sp) for sp in be_spans]
@@ -187,6 +219,24 @@ class RingSession:
         if batch is None:
             batch = self.data.next()
         raw = self.backend.step(batch)
+        if self.backend.kind == "ring":
+            raw["extras"] = {"round": self.rounds, **raw.get("extras", {})}
+            if self.rounds is not None:
+                self.rounds += 1
+        if raw.get("layout_changed"):
+            # an elastic shrink, grow or repartition happened inside the step:
+            # the span edges moved, so the monotone check re-seeds from this
+            # round's boundary, the checkpointed layout and membership follow
+            # the live ring, and a plateau policy skips the recovery blip
+            self._last_boundary = None
+            be_spans = getattr(self.backend, "spans", None)
+            self._create_args["spans"] = ([list(sp) for sp in be_spans]
+                                          if be_spans is not None else None)
+            surv = getattr(self.backend, "survivors", None)
+            if surv is not None:
+                self._create_args["survivors"] = list(surv)
+            if hasattr(self.policy, "suspend"):
+                self.policy.suspend(1)
         boundary = raw["boundary"]
         if self._last_boundary is not None and boundary > self._last_boundary:
             raise RuntimeError(
@@ -283,6 +333,8 @@ class RingSession:
             "last_boundary": self._last_boundary,
             "policy": {"type": type(self.policy).__name__, "state": self.policy.state()},
             "data": self.data.state(),
+            # a ring's rounds so far: after a shrink the step is no multiple of S
+            "rounds": self.rounds if self.backend.kind == "ring" else None,
             **self._create_args,
         }
         ckpt.save(path, st["params"], step=self.step_count, opt_state=st["opt"],
@@ -312,6 +364,14 @@ class RingSession:
         # the policy first: the backend checks the state against its boundary
         self.policy.load_state(saved_policy.get("state", {}))
         self.backend.load_state(params, opt, step=meta["step"])
+        if "rounds" in ex:
+            self.rounds = ex["rounds"]
+        elif ex.get("survivors") is None:
+            # the JAX package records no round count: exact from the step
+            # while the ring kept its size, unknown after it changed
+            self.rounds = meta["step"] // (self._create_args.get("n_stages") or 1)
+        else:
+            self.rounds = None
         self.data.load_state(ex["data"])
         self.step_count = meta["step"]
         self._last_boundary = ex.get("last_boundary")
@@ -323,7 +383,15 @@ class RingSession:
         """Rebuild a session from a checkpoint. Backend and shape arguments
         default to what the checkpoint recorded; the policy must be of the
         type it was saved with (its host state is restored). The frozen
-        trunk is the seed's unless ``params=`` gives it."""
+        trunk is the seed's unless ``params=`` gives it.
+
+        A checkpoint saved after an elastic shrink records the surviving
+        original devices: the ring is built at the original size, the
+        membership is replayed (the dead stages shrunk away, the saved spans
+        restored), and only then is the state loaded. With ``elastic=True``
+        and ``device_profiles`` whose layout differs from the checkpoint's
+        spans, the saved layout is loaded first, then the ring repartitions
+        to the fleet's layout (logged old -> new)."""
         with open(path + ".json") as f:
             meta = json.load(f)
         ex = meta["extra"]
@@ -339,5 +407,28 @@ class RingSession:
             # a ring checkpoint's layout means nothing to pjit; the format
             # check gives the real diagnostic
             create_kwargs.pop("spans", None)
+        surv = ex.get("survivors")
+        saved_spans = create_kwargs.get("spans")
+        shrunk = surv is not None and len(surv) < int(ex.get("n_stages") or 0)
+        if shrunk:
+            # build at the original size on the balanced layout (the saved
+            # spans are the shrunk ring's), then replay the membership
+            create_kwargs.pop("spans", None)
+            create_kwargs["elastic"] = True
         sess = cls.create(cfg, tc, backend=backend, policy=policy, log=log, **create_kwargs)
-        return sess._load_into(path)
+        if shrunk:
+            sess.backend.restore_membership(surv, spans=saved_spans)
+            sess._create_args["spans"] = saved_spans
+            sess._create_args["survivors"] = list(surv)
+        sess._load_into(path)
+        if create_kwargs.get("elastic") and create_kwargs.get("device_profiles") is not None:
+            profs = parse_device_profiles(create_kwargs["device_profiles"])
+            live = getattr(sess.backend, "spans", None)
+            if live is not None and len(profs) == len(live):
+                desired = [list(sp) for sp in spans_from_profiles(cfg.repeats, profs)]
+                if desired != [list(sp) for sp in live]:
+                    log(f"[elastic] checkpoint layout {[e - b for b, e in live]} is stale for "
+                        f"the given fleet -> repartitioning to "
+                        f"{[e - b for b, e in desired]}")
+                    sess.repartition(desired)
+        return sess

@@ -32,7 +32,8 @@ rounds (``make_fused_round``'s modes):
     ``direct`` (a hit).
 
 A boundary drop invalidates the whole cache (the schedule is monotone);
-``repartition`` flushes it (``set_layout``).
+``repartition`` flushes it (``set_layout``); ``shrink`` and ``grow`` (the
+elastic ring: S - 1 or S + 1 stages over the same tensors) rebind it.
 
 On a CUDA device each (boundary, mode) round is one CUDA graph, the
 counterpart of the reference's one donated executable per (boundary, mode).
@@ -85,7 +86,8 @@ from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core import actcache
 from repro_torch.core import pipeline as pl
 from repro_torch.core.actcache import ActivationCache
-from repro_torch.core.partition import Span, align_boundary, frozen_stage_count
+from repro_torch.core.partition import (DeviceProfile, Span, align_boundary, frozen_stage_count,
+                                        spans_from_profiles)
 from repro_torch.core.unfreeze import UnfreezeSchedule, depth_to_boundary
 from repro_torch.kernels import ops
 from repro_torch.models import params as prm
@@ -589,21 +591,70 @@ class RingExecutor:
         dropped, the cache is flushed (``set_layout``; its buffer stays), and
         the boundary check starts afresh (span edges moved)."""
         new = pl.resolve_spans(self.cfg.repeats, self.S, spans)
-        if new == self.spans:
-            return
+        if new != self.spans:
+            self._relayout(self.S, new)
+
+    def _relayout(self, n_stages: int, new: Tuple[Span, ...]) -> None:
+        """Re-list the same per-layer tensors of the stages and of the
+        adapters' moments into ``n_stages`` stages of ``new`` spans (the head,
+        its moments and ``count`` stay as they are; no tensor is copied), drop
+        every built round and tick ledger, and start the boundary check
+        afresh. A change of S rebinds the cache (an entry's shape carries S):
+        its buffer goes with the graphs that held it, and on the card the
+        dropped graphs' pools go back to the device (``empty_cache``), so a
+        crash and a rejoin do not leave one set of graphs' memory reserved."""
         per = self.cfg.layers_per_repeat
         restage = lambda stages: [[x for stage in stages for x in stage][b * per:e * per]
                                   for b, e in new]
         self.stage_blocks = restage(self.stage_blocks)
         for name in ("m", "v"):
             self.opt_state[name]["adapter"] = restage(self.opt_state[name]["adapter"])
-        self.spans = new
-        self.lps = None if pl.is_ragged(new) else self.cfg.repeats // self.S
+        resized = n_stages != self.S
+        self.S, self.spans = n_stages, new
+        self.lps = None if pl.is_ragged(new) else self.cfg.repeats // n_stages
         self._rounds.clear()
         self.tick_scan_lens.clear()
         if self.cache is not None:
-            self.cache.set_layout(new)
+            if resized:
+                self.cache.rebind(layout=new)
+            else:
+                self.cache.set_layout(new)
+        if resized and self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        if self.T > 1 and self.device.type == "cuda":
+            self._check_tenant_views()
         self._last_boundary = None
+
+    # -- elastic membership: S -> S - 1 (shrink), S -> S + 1 (grow)
+
+    def _resize(self, n_stages: int, profiles: Sequence[DeviceProfile]) -> None:
+        """Relayout onto ``n_stages`` stages at the speed-weighted spans
+        (``spans_from_profiles``) of ``profiles``, one a stage."""
+        R = self.cfg.repeats
+        if len(profiles) != n_stages:
+            raise ValueError(f"got {len(profiles)} profiles for a {n_stages}-stage ring")
+        if R < n_stages:
+            raise ValueError(f"cannot run {n_stages} stages over {R} blocks")
+        self._relayout(n_stages, spans_from_profiles(R, list(profiles)))
+
+    def shrink(self, dead_stage: int, profiles: Sequence[DeviceProfile]) -> None:
+        """Run on as S - 1 stages after stage ``dead_stage`` dies: its span
+        goes to the survivors by their ``profiles`` (one a survivor). Nothing
+        is lost: on one device every stage's layers are the executor's own
+        tensors, so they are re-listed into the new stages as they are (no
+        checkpoint is read), the boundary aligns down to the new span edges
+        at the next round, and the cache re-captures."""
+        if not 0 <= dead_stage < self.S:
+            raise ValueError(f"dead_stage {dead_stage} out of range for S={self.S}")
+        if self.S <= 1:
+            raise RuntimeError("cannot shrink a 1-stage ring")
+        self._resize(self.S - 1, profiles)
+
+    def grow(self, profiles: Sequence[DeviceProfile]) -> None:
+        """The inverse of ``shrink``: a device joins and S grows by one;
+        ``profiles`` describe the whole fleet after the join. One device runs
+        every stage, so no device count limits S."""
+        self._resize(self.S + 1, profiles)
 
     def export_params(self, tenant: Optional[int] = None) -> Dict[str, Any]:
         """The flat parameter tree (views of the executor's tensors): with

@@ -43,6 +43,13 @@ class DeviceProfile:
         if not self.link_mbps > 0:
             raise ValueError(f"link_mbps must be > 0, got {self.link_mbps!r}")
 
+    def slowed(self, factor: float) -> "DeviceProfile":
+        """This device, ``factor`` times slower (churn's slowdown event)."""
+        if math.isnan(factor) or factor <= 0:
+            raise ValueError(f"slowdown factor must be > 0, got {factor!r}")
+        return DeviceProfile(compute_speed=self.compute_speed / factor,
+                             memory_mb=self.memory_mb, link_mbps=self.link_mbps)
+
 
 def assign_layers(layer_costs: Sequence[float], layer_mem_mb: Sequence[float],
                   devices: Sequence[DeviceProfile]) -> List[Span]:

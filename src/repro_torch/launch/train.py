@@ -28,7 +28,11 @@ Every mode is a (backend, policy) pair of the session:
     joint round (per tenant the solo run, bit for bit); ``--adapter-store
     DIR`` writes each tenant's adapters and moments after the run as the
     store's entries ``tenant0``, ``tenant1``, ..., which ``launch/serve.py
-    --adapter-store DIR`` serves.
+    --adapter-store DIR`` serves. ``--chaos ROUND:EVENT:DEVICE[:FACTOR]``
+    (repeatable) injects churn before a round, ``--elastic`` lets the ring
+    absorb it: a crash shrinks the ring to the survivors (no checkpoint is
+    read), a rejoin grows it back, a straggler is repartitioned away (an
+    ``[elastic]`` line each, and ``[elastic S=n]`` on the round).
 
 The depth grows by one block every ``--unfreeze-interval`` steps (owner
 iterations in ring mode; 40 by default, as the reference's CLI);
@@ -49,6 +53,8 @@ Usage (on a machine with an NVIDIA GPU; ``--device cpu`` runs the plain versions
         --reduced --stages 2 --rounds 8 --unfreeze-interval 8 --slots-per-epoch 2
     PYTHONPATH=src python -m repro_torch.launch.train --mode ring --reduced --stages 2 \\
         --rounds 4 --tenants 2 --adapter-store ckpt/adapters
+    PYTHONPATH=src python -m repro_torch.launch.train --mode ring --arch stablelm-3b \\
+        --reduced --rounds 6 --chaos 3:crash:2 --elastic
 """
 from __future__ import annotations
 
@@ -96,6 +102,7 @@ def train_ring(cfg: ModelConfig, tc: TrainConfig, *, rounds: int, n_stages: int,
                slots_per_epoch: Optional[int] = None, cache_capacity: Optional[int] = None,
                cache_dtype: str = "native", device_speeds: Optional[Any] = None,
                tenants: int = 1, adapter_store: Optional[str] = None,
+               chaos: Any = (), elastic: bool = False,
                policy: Any = None, save_path: Optional[str] = None,
                resume: Optional[str] = None, device=None, log=print) -> Dict[str, Any]:
     """``rounds`` rounds of the ring on ``device`` (default cuda) through a
@@ -110,8 +117,11 @@ def train_ring(cfg: ModelConfig, tc: TrainConfig, *, rounds: int, n_stages: int,
     capacity, cache dtype, spans and tenants) and runs ``rounds`` more.
     ``tenants`` > 1 (the fused trainer) trains that many adapter sets over
     one trunk; ``adapter_store`` writes every tenant's bundle (``tenant0``,
-    ``tenant1``, ...) there after the run. Returns the driver, the session
-    and the per-round history."""
+    ``tenant1``, ...) there after the run. ``chaos`` (``--chaos`` specs)
+    injects churn events, counted from this run's first round (a resumed run
+    counts from its own), and ``elastic`` lets the ring absorb them; without
+    it a crash raises. Returns the driver, the session and the per-round
+    history."""
     if trainer not in ("fused", "reference"):
         raise ValueError(f"trainer must be 'fused' or 'reference', got {trainer!r}")
     if tenants > 1 and trainer != "fused":
@@ -126,7 +136,14 @@ def train_ring(cfg: ModelConfig, tc: TrainConfig, *, rounds: int, n_stages: int,
         # the checkpoint records backend, stages, slots, capacity and spans:
         # re-deriving them from flags could resume a cached run as a
         # streaming one, on other data
-        sess = RingSession.restore(resume, cfg, tc, policy=policy, device=device, log=log)
+        # elastic defaults to the checkpoint's value
+        kw: Dict[str, Any] = {}
+        if chaos:
+            kw["chaos"] = chaos
+        if elastic:
+            kw["elastic"] = True
+        sess = RingSession.restore(resume, cfg, tc, policy=policy, device=device, log=log,
+                                   **kw)
         if sess.backend.kind != "ring":
             raise ValueError(f"--resume checkpoint was saved by the {sess.backend.name!r} "
                              f"backend; resume it with --mode pjit")
@@ -138,7 +155,8 @@ def train_ring(cfg: ModelConfig, tc: TrainConfig, *, rounds: int, n_stages: int,
                                   slots_per_epoch=slots_per_epoch,
                                   cache_capacity=cache_capacity, packed=packed,
                                   cache_dtype=cache_dtype, device_profiles=device_speeds,
-                                  tenants=tenants, device=device, log=log)
+                                  tenants=tenants, chaos=chaos, elastic=elastic,
+                                  device=device, log=log)
         if device_speeds is not None:
             log(f"heterogeneous ring: speeds {list(device_speeds)} -> spans "
                 f"{[list(sp) for sp in sess.backend.spans]}")
@@ -235,6 +253,17 @@ def main(argv=None) -> None:
                     help="ring mode: write each tenant's adapters and Adam moments to this "
                          "AdapterStore directory after the run (entries tenant0, tenant1, "
                          "...), servable by launch/serve.py --adapter-store")
+    ap.add_argument("--chaos", action="append", default=[],
+                    metavar="ROUND:EVENT:DEVICE[:FACTOR]",
+                    help="ring mode: inject a churn event (repeatable): EVENT in {crash, leave, "
+                         "slowdown, join}, ROUND when it fires (the rounds before it run on "
+                         "the old fleet), DEVICE the original stage index, FACTOR the "
+                         "slowdown's multiplier (default 2.0); e.g. --chaos 3:crash:2 kills "
+                         "device 2 before round 3; a crash needs --elastic to survive")
+    ap.add_argument("--elastic", action=argparse.BooleanOptionalAction, default=False,
+                    help="ring mode: absorb churn live: a crash shrinks the ring to the "
+                         "survivors (no checkpoint is read), a rejoin grows it, a straggler "
+                         "found from the stage times is repartitioned away")
     ap.add_argument("--policy", choices=["interval", "plateau"], default="interval",
                     help="unfreeze policy: the paper's k-step rule, or adaptive loss-plateau "
                          "unfreezing")
@@ -268,6 +297,8 @@ def main(argv=None) -> None:
                      max_unfreeze_depth=args.max_unfreeze_depth,
                      n_stages=args.stages, n_microbatches=args.microbatches, seed=args.seed)
     if args.mode == "pjit":
+        if args.chaos or args.elastic:
+            raise SystemExit("--chaos/--elastic are ring-mode features (--mode ring)")
         train(cfg, tc, steps=args.steps, scheme=args.scheme, policy=args.policy,
               save_path=args.save, resume=args.resume, device=device)
         return
@@ -281,7 +312,8 @@ def main(argv=None) -> None:
                      packed=not args.no_packed, slots_per_epoch=args.slots_per_epoch or None,
                      cache_capacity=0 if args.no_cache else args.cache_capacity,
                      cache_dtype=args.cache_dtype, device_speeds=speeds, tenants=args.tenants,
-                     adapter_store=args.adapter_store, policy=args.policy,
+                     adapter_store=args.adapter_store, chaos=args.chaos,
+                     elastic=args.elastic, policy=args.policy,
                      save_path=args.save, resume=args.resume, device=device)
     print(json.dumps(out["history"][-1]))
 

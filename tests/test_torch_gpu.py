@@ -714,3 +714,57 @@ def test_ring_tenants_joint_equals_solo_on_card():
         for mode in ("capture", "cached"):
             assert {k: T * n for k, n in sx.capture_launches[(4, mode)].items()} == \
                 ex.capture_launches[(4, mode)], mode
+
+
+@pytest.mark.gpu
+def test_ring_elastic_crash_rejoin_equals_fresh_executor_on_card():
+    """The elastic ring on the card: a cached session (the reduced bf16
+    stablelm-3b of the tests above, 8 layers as S = 4 stages, 2 slots, depth
+    3) loses device 1 before round 2 and takes it back before round 5. Every
+    round, before and after each change, equals a from-scratch direct
+    executor at the live spans, seeded with the state before the round
+    (``torch.equal`` on the losses and every tensor a round writes): the
+    graphs of the old geometry are dropped, not replayed. The boundary falls
+    from 4 to 3 at the crash (spans 3, 3, 2) and rises back to 4 at the
+    rejoin; the state tensors are never reallocated."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: CUDA graphs and the kernels have no CPU mode")
+    import dataclasses
+
+    from repro_torch.api import IntervalPolicy, RingSession
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.core.executor import RingExecutor
+    from repro_torch.models import params as prm
+
+    cfg = get_config("stablelm-3b").reduced(n_layers=8, repeats=8)
+    cfg = dataclasses.replace(cfg, adapter=dataclasses.replace(cfg.adapter, zero_init_up=False))
+    S, M, seq = 4, 2, 64
+    tc = TrainConfig(learning_rate=1e-4, n_microbatches=M, batch_size=1, seq_len=seq)
+    params = prm.materialize(cfg, seed=0, device="cuda")
+    policy = lambda: IntervalPolicy(initial_depth=3, interval=100 * S)
+    sess = RingSession.create(cfg, tc, backend="cached", n_stages=S, slots_per_epoch=2,
+                              params=params, policy=policy(), chaos=["2:crash:1", "5:join:1"],
+                              elastic=True, log=lambda *a: None)
+    ex = sess.backend.driver
+    ptrs = [t.data_ptr() for t in ex.trainable_tensors()]
+    boundaries, hits = [], []
+    for r in range(8):
+        slot, tokens, labels = sess.data.next()
+        before, step = [t.clone() for t in ex.trainable_tensors()], ex.step
+        m = sess.step((slot, tokens, labels))
+        rows = sess.backend.survivors
+        twin = RingExecutor(cfg, tc, params, ex.S, M, spans=ex.spans, schedule=policy())
+        for a, b in zip(twin.trainable_tensors(), before, strict=True):
+            a.copy_(b)
+        twin.step = step
+        want = twin.round(tokens[rows], labels[rows])
+        assert torch.equal(m.extras["losses"], want["losses"]), r
+        for i, (a, b) in enumerate(zip(ex.trainable_tensors(), twin.trainable_tensors(),
+                                       strict=True)):
+            assert torch.equal(a, b), f"round {r}: tensor {i} {tuple(a.shape)}"
+        boundaries.append(m.boundary)
+        hits.append(m.cache_hit)
+        del twin
+    assert boundaries == [4, 4, 3, 3, 3, 4, 4, 4]
+    assert hits == [False] * 4 + [True, False, False, True]
+    assert [t.data_ptr() for t in ex.trainable_tensors()] == ptrs and ex.S == S

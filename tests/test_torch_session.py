@@ -75,6 +75,7 @@ from repro_torch.api import (ExplicitPolicy, IntervalPolicy, LossPlateauPolicy, 
 from repro_torch.api.data import RingDataSource  # noqa: E402
 from repro_torch.checkpoint import checkpoint as ckpt  # noqa: E402
 from repro_torch.configs import TrainConfig, get_config  # noqa: E402
+from repro_torch.core.partition import DeviceProfile  # noqa: E402
 from repro_torch.core.ring import RingTrainer  # noqa: E402
 from repro_torch.core.unfreeze import depth_to_boundary  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
@@ -564,10 +565,12 @@ def test_session_refuses_what_waits_for_later_items():
         _session("reference", tenants=2)
     with pytest.raises(ValueError, match="tenants > 1 is a ring concept"):
         _session("pjit", tenants=2)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        _session("fused", elastic=True)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        _session("fused").backend.shrink(1)
+    # the elastic ring: pjit and the RingTrainer oracle refuse it with the
+    # reference's messages
+    with pytest.raises(ValueError, match="ring feature"):
+        _session("pjit", elastic=True)
+    with pytest.raises(NotImplementedError, match="fused"):
+        _session("reference").backend.shrink(1, [DeviceProfile(1.0, math.inf)] * 3)
     with pytest.raises(ValueError, match="slots_per_epoch"):
         _session("cached")
 
