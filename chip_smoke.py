@@ -39,7 +39,12 @@ run with a non-zero exit and no result line:
      edge cases at hd 80 in MHA and with a GQA group of 8. The ring's shapes
      (phase 3's ``phase_ring``: one microbatch of 1 x 512 tokens a launch)
      are held too, in bf16: the adapter and its backward at h [512, 2560],
-     attention and its backward at [1, 512, 32, 80];
+     attention and its backward at [1, 512, 32, 80]; and mbert-squad's
+     training shapes (phase 3's ``phase_train_qa``), forward and backward,
+     bf16 and f32: the adapter at h [2048, 768], m 48, where two of each
+     cluster's 8 blocks own no column (with path and ptxas), and in bf16
+     at T 1, 100 and 512 and with every activation; attention at
+     [4, 512, 12, 64] in MHA, beside SDPA and torch.autograd through SDPA;
   3. qwen2.5-3b at its published width (36 layers, d_model 2048, vocab 152064
      padded), random weights from a seed with non-zero adapters, served by
      ``BatchServer`` (4 slots, 8 requests of 64-512 prompt tokens, 32 new tokens
@@ -68,10 +73,32 @@ run with a non-zero exit and no result line:
      6912, vocab 50304) trains the same way at its published width, after
      qwen2.5-3b is freed: depths 1, 2, 32, the same held checks at depths 1
      and 2 and the same counters (32, 32, d, d - 1), without the depth-36
-     witnesses. Then the RingAda ring (``phase_ring``) on fresh stablelm-3b
-     weights: four stages of 8 layers, ``RingTrainer`` for three rounds with
-     3, 2 and 0 frozen stages (depths 8, 16, 32), each owner's data 4
-     microbatches of 1 x 512 tokens, lr ``RING_LR``. Before each round,
+     witnesses. Then the session's one-device step as one CUDA graph per
+     boundary (``phase_pjit_graph``): on fresh stablelm-3b weights,
+     ``PjitBackend`` (warm-up on a side stream from a copy of the state,
+     capture, replay) against the eager ``PjitBackend`` from the same
+     weights on the same batches, two steps at depth 1 and two at 32, every
+     step's metrics and every adapter, head, moment and the step count
+     ``torch.equal``, the capture's launches at (L, d, L, d - 1) as the
+     eager step's, a build launching the step twice from Python and a replay
+     not at all, the frozen layers bit-identical and the top adapter moved;
+     before the last step the graphed backend steps on other data and then
+     ``load_state`` copies the eager backend's state into its tensors (a
+     resume), whose addresses never change; each step's CUDA-event ms,
+     host wall ms and peak, graphed beside eager. Then the paper's own
+     model, mbert-squad (``phase_train_qa``: 12 layers, d_model 768, 12
+     heads of 64, LayerNorm, learned positions, the span head [768, 2] and
+     ``qa_span_loss``, adapter m 48, vocab 119547 padded), random weights
+     from the seed with non-zero adapters, batches of 4 x 512 from the QA
+     corpus: the loss and gradients held to ``impl="plain"`` at depth 1 as
+     for the LM; at depth 2 (where this random model's gradients turn
+     chaotic) the whole hot region in bf16 as a witness, the backward
+     kernels alone in bf16 and the whole hot region in f32 held; at depth 12
+     the backward kernels alone in bf16; then six graphed steps at depths
+     1, 2, 12 against the eager backend as above, with EM and F1. Then the RingAda ring
+     (``phase_ring``) on fresh stablelm-3b weights: four stages of 8
+     layers, ``RingTrainer`` for three rounds with 3, 2 and 0 frozen stages
+     (depths 8, 16, 32), each owner's data 4 microbatches of 1 x 512 tokens, lr ``RING_LR``. Before each round,
      owner 0's ring loss and gradients are held against the mean of the
      single-device step's (``training.loss_and_grads``) over its 4
      microbatches, each alone (the same shapes, so the same kernels), at
@@ -218,8 +245,9 @@ import torch.nn.functional as F  # noqa: E402
 from torch.utils._pytree import tree_leaves, tree_map  # noqa: E402
 
 from repro_torch import device as dev_rule  # noqa: E402
-from repro_torch.api import AdapterStore, IntervalPolicy, RingSession  # noqa: E402
-from repro_torch.api.data import RingDataSource  # noqa: E402
+from repro_torch.api import AdapterStore, ExplicitPolicy, IntervalPolicy, RingSession  # noqa: E402
+from repro_torch.api.backends import PjitBackend  # noqa: E402
+from repro_torch.api.data import PjitDataSource, RingDataSource  # noqa: E402
 from repro_torch.configs import TrainConfig, get_config  # noqa: E402
 from repro_torch.core import pipeline as ring_pl  # noqa: E402
 from repro_torch.core import training  # noqa: E402
@@ -227,7 +255,8 @@ from repro_torch.core.executor import RingExecutor  # noqa: E402
 from repro_torch.core.partition import (frozen_stage_count, parse_device_profiles,  # noqa: E402
                                         spans_from_profiles)
 from repro_torch.core.ring import RingTrainer  # noqa: E402
-from repro_torch.core.unfreeze import UnfreezeSchedule, boundary_schedule  # noqa: E402
+from repro_torch.core.unfreeze import (UnfreezeSchedule, boundary_schedule,  # noqa: E402
+                                       depth_to_boundary)
 from repro_torch.data.pipeline import to_device  # noqa: E402
 from repro_torch.kernels import adapter_fused as af  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
@@ -302,6 +331,9 @@ DEEP_F32_RMS_RTOL = 1e-3
 # unfreeze depths 1, 2 and every layer, at interval 2; batches of 4 x 512
 TRAIN_INTERVAL, TRAIN_B, TRAIN_S = 2, 4, 512
 STABLELM_HEADS = (32, 32, 80)    # stablelm-3b's (query heads, KV heads, head_dim)
+# mbert-squad (phase train_qa): the adapter's width and bottleneck, attention's
+# heads (MHA at hd 64); six graphed steps at depths 1, 2, 12 (interval 2)
+MBERT_D, MBERT_M, MBERT_HEADS = 768, 48, (12, 12, 64)
 # the ring: four stages, 4 microbatches of 1 x 512 tokens per owner (the
 # training phase's 4 x 512), the depth walking 8, 16, 32 (3, 2, 0 frozen
 # stages), at the ring's lr (launch/train.py's RING_LR).
@@ -483,9 +515,8 @@ def adapter_excess(got, want, h, wd, wu, act, dtype) -> float:
     return ((got.float() - want.float()).abs() - bound).max().item()
 
 
-def adapter_case(T, dtype, act, gen, record=None, D=2048):
+def adapter_case(T, dtype, act, gen, record=None, D=2048, m=64):
     """Returns the kernel's ms."""
-    m = 64
     h = torch.randn(T, D, generator=gen, device="cuda").to(dtype)
     wd = (0.05 * torch.randn(D, m, generator=gen, device="cuda")).to(dtype)
     wu = (0.05 * torch.randn(m, D, generator=gen, device="cuda")).to(dtype)
@@ -722,10 +753,9 @@ def _bwd_excess(got, want) -> float:
                - BWD_RTOL[b.dtype] * b.float().abs().max().item() for a, b in zip(got, want))
 
 
-def adapter_bwd_case(T, D, dtype, gen, record=None, act="gelu"):
+def adapter_bwd_case(T, D, dtype, gen, record=None, act="gelu", m=64):
     """The adapter's backward kernel (dh, mid, g_mid) against the plain
     version of the same function, at the non-zero adapters of phase 2."""
-    m = 64
     h = torch.randn(T, D, generator=gen, device="cuda").to(dtype)
     g = torch.randn(T, D, generator=gen, device="cuda").to(dtype)
     wd = (0.05 * torch.randn(D, m, generator=gen, device="cuda")).to(dtype)
@@ -959,6 +989,29 @@ def phase_kernels(records) -> None:
     attention_bwd_case(512, 128, bf16, gen, heads=(16, 2, 64))
     attention_bwd_case(300, 128, f32, gen, heads=(25, 5, 64))
     attention_bwd_case(331, 96, bf16, gen, heads=(16, 2, 80))
+    # mbert-squad's training shapes (phase train_qa): h [4 x 512, 768], m 48 (a
+    # bf16 cluster of 8 blocks of 128 columns: 2 own none), attention [4, 512,
+    # 12, 64] in MHA, forward and backward, bf16 (recorded) and f32
+    for dtype in (bf16, f32):
+        dt = str(dtype)[6:]
+        adapter_case(2048, dtype, "gelu", gen,
+                     records["adapter_fused"].setdefault("mbert_D768_m48", {}).setdefault(dt, {}),
+                     D=MBERT_D, m=MBERT_M)
+        adapter_bwd_case(2048, MBERT_D, dtype, gen,
+                         records["adapter_fused_bwd"].setdefault("mbert_D768_m48", {})
+                         .setdefault(dt, {}), m=MBERT_M)
+        attention_case(512, None, dtype, gen,
+                       records["flash_attention"].setdefault("mbert_hd64_mha", {})
+                       .setdefault(dt, {}), heads=MBERT_HEADS)
+        attention_bwd_case(512, None, dtype, gen,
+                           records["flash_attention_bwd"].setdefault("mbert_hd64_mha", {})
+                           .setdefault(dt, {}), heads=MBERT_HEADS)
+    for act in ("relu", "silu"):
+        adapter_case(2048, bf16, act, gen, D=MBERT_D, m=MBERT_M)
+        adapter_bwd_case(2048, MBERT_D, bf16, gen, act=act, m=MBERT_M)
+    for T in (1, 100, 512):                                      # decode cluster and ragged tiles
+        adapter_case(T, bf16, "gelu", gen, D=MBERT_D, m=MBERT_M)
+        adapter_bwd_case(T, MBERT_D, bf16, gen, m=MBERT_M)
 
 
 # ---------------------------------------------------------------- phases 3 and 4
@@ -1250,6 +1303,188 @@ def phase_train(arch: str, params, records) -> None:
     if not shallow < deep:
         raise AssertionError(f"{cfg.name}: the forward and backward at depth {depths[0]} peak "
                              f"at {shallow:.3f} GiB, not below depth {depths[-1]}'s {deep:.3f}")
+
+
+def _own_copy(params):
+    """``params`` with its own adapters and head (the frozen weights shared):
+    a second backend's trainable set, written in place by its steps."""
+    clone = lambda tree: {k: t.clone() for k, t in tree.items()}
+    return {**params, "blocks": [{**b, "adapter": clone(b["adapter"])} for b in params["blocks"]],
+            "head": clone(params["head"])}
+
+
+def _pjit_walk(cfg, tc, params, depths, label, resume_at=None):
+    """``PjitBackend`` on the card, graphed (one CUDA graph per boundary),
+    against the eager backend (the same functional step, launched from
+    Python) from the same weights on the same batches: TRAIN_INTERVAL steps
+    at each depth of ``depths``. Every step's metrics and every adapter,
+    head, moment and the step count ``torch.equal``; the capture's launches
+    at (L, d, L, d - 1) and the eager step's the same; a build launches the
+    step twice from Python (warm-up and capture), a replay nothing; the
+    frozen layers' adapters and moments bit-identical, the top adapter
+    moved. At step ``resume_at`` the graphed backend first takes a step on
+    other data, then ``load_state`` puts the eager backend's state back
+    into its tensors (the same addresses). Returns (the launches of the
+    graphed steps, counted from the captures, and per depth the replays'
+    event ms, graphed and eager)."""
+    steps = TRAIN_INTERVAL * len(depths)
+    policy = lambda: ExplicitPolicy(depths, interval=TRAIN_INTERVAL)
+    eager = PjitBackend(cfg, tc, policy(), params=_own_copy(params), device="cuda", graphs=False)
+    graphed = PjitBackend(cfg, tc, policy(), params=params, device="cuda")
+    data = PjitDataSource(cfg, tc)
+    other = PjitDataSource(cfg, dataclasses.replace(tc, seed=SEED + 1))
+    ptrs = [t.data_ptr() for t in graphed.state_tensors()]
+    L = cfg.n_layers
+    launches = {name: 0 for name in ops.LAUNCHES}
+    times = {}
+    for s in range(steps):
+        resumed = s == resume_at
+        if resumed:
+            st = eager.state()
+            saved = tree_map(torch.clone, {"params": st["params"], "opt": st["opt"]})
+            graphed.step(other.next())
+            graphed.load_state(saved["params"], saved["opt"], step=eager._step)
+            del saved
+        batch = data.next()
+        boundary = depth_to_boundary(cfg, graphed.policy.depth_at(graphed._step, L))
+        n_frozen = boundary * cfg.layers_per_repeat
+        d = L - n_frozen
+        mine, opt = graphed.export_params(), graphed._opt
+        clone = lambda tree: {k: t.clone() for k, t in tree.items()}
+        frozen = [(clone(mine["blocks"][i]["adapter"]), clone(opt["m"]["adapters"][i]),
+                   clone(opt["v"]["adapters"][i])) for i in range(n_frozen)]
+        top = clone(mine["blocks"][-1]["adapter"])
+        built = not any(k[0] == boundary for k in graphed.capture_launches)
+        rec = {}
+        for name, be in (("graphed", graphed), ("eager", eager)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = dict(ops.LAUNCHES)
+            t0 = time.perf_counter()
+            out, ms = _event_round(lambda: be.step(batch))
+            rec[name] = dict(out=out, ms=ms, wall=1e3 * (time.perf_counter() - t0),
+                             peak=torch.cuda.max_memory_allocated() / 2**30,
+                             launched={k: n - before[k] for k, n in ops.LAUNCHES.items()})
+        want = {"adapter_fused": L, "adapter_fused_bwd": d, "flash_attention": L,
+                "flash_attention_bwd": d - 1, "rwkv_scan": 0, "mamba_scan": 0}
+        cap = graphed.capture_launches[graphed.last_key]
+        from_python = rec["graphed"]["launched"]
+        g, e = rec["graphed"]["out"], rec["eager"]["out"]
+        metrics = {k: float(v) for k, v in g["extras"].items()}
+        say(f"{label}_step", arch=cfg.name, step=s, depth=d, boundary=boundary,
+            loss=f"{float(g['loss']):.5f}", **{k: f"{v:.4g}" for k, v in metrics.items()},
+            built=built, resumed=resumed,
+            **({"capture_s": f"{graphed.capture_seconds[graphed.last_key]:.2f}"} if built else {}),
+            graphed_event_ms=f"{rec['graphed']['ms']:.3f}",
+            eager_event_ms=f"{rec['eager']['ms']:.3f}",
+            graphed_wall_ms=f"{rec['graphed']['wall']:.3f}",
+            eager_wall_ms=f"{rec['eager']['wall']:.3f}",
+            graphed_peak_gib=f"{rec['graphed']['peak']:.3f}",
+            eager_peak_gib=f"{rec['eager']['peak']:.3f}",
+            reserved_gib=f"{torch.cuda.memory_reserved() / 2**30:.3f}",
+            launches_at_capture=json.dumps(cap).replace(" ", ""), card=repr(CARD))
+        if g["boundary"] != boundary or e["boundary"] != boundary:
+            raise AssertionError(f"{label} step {s}: boundaries {g['boundary']}, "
+                                 f"{e['boundary']} against {boundary}")
+        if cap != want or rec["eager"]["launched"] != want:
+            raise AssertionError(f"{label} step {s}: launches {cap} (graph), "
+                                 f"{rec['eager']['launched']} (eager) != {want}")
+        expect = {k: 2 * n for k, n in want.items()} if built else \
+            {k: 0 for k in want}
+        if from_python != expect:
+            raise AssertionError(f"{label} step {s}: the graphed step launched {from_python} "
+                                 f"from Python, not {expect}")
+        if not (torch.equal(g["loss"], e["loss"]) and set(g["extras"]) == set(e["extras"]) and
+                all(torch.equal(v, e["extras"][k]) for k, v in g["extras"].items())):
+            raise AssertionError(f"{label} step {s}: graphed metrics {g} against eager {e}")
+        bad = [i for i, (a, b) in enumerate(zip(graphed.state_tensors(), eager.state_tensors(),
+                                                strict=True)) if not torch.equal(a, b)]
+        if bad:
+            raise AssertionError(f"{label} step {s}: leaves {bad} of the graphed step differ "
+                                 f"from the eager step's")
+        if not math.isfinite(float(g["loss"])):
+            raise AssertionError(f"{label} step {s}: loss {float(g['loss'])}")
+        for i, trees in enumerate(frozen):
+            now = (mine["blocks"][i]["adapter"], opt["m"]["adapters"][i], opt["v"]["adapters"][i])
+            if not all(torch.equal(a[k], b[k]) for a, b in zip(now, trees) for k in a):
+                raise AssertionError(f"{label} step {s}: frozen layer {i} moved")
+        if all(torch.equal(mine["blocks"][-1]["adapter"][k], t) for k, t in top.items()):
+            raise AssertionError(f"{label} step {s}: the top adapter did not move")
+        for k, n in cap.items():
+            launches[k] += n
+        if not built:
+            t = times.setdefault(d, {"graphed_event_ms": [], "eager_event_ms": [],
+                                     "graphed_wall_ms": [], "eager_wall_ms": []})
+            for name in ("graphed", "eager"):
+                t[f"{name}_event_ms"].append(rec[name]["ms"])
+                t[f"{name}_wall_ms"].append(rec[name]["wall"])
+    if [t.data_ptr() for t in graphed.state_tensors()] != ptrs:
+        raise AssertionError(f"{label}: the graphed backend's state moved")
+    return launches, times
+
+
+def phase_train_qa(arch: str, records) -> None:
+    """The paper's own model (mbert-squad) at its published width, random
+    weights from the seed with non-zero adapters, the QA corpus's batches of
+    4 x 512: the loss and the gradients of the kernel path against
+    impl="plain" (the module docstring says which are held), then six steps
+    of ``PjitBackend`` at depths 1, 2, 12, graphed against eager
+    (:func:`_pjit_walk`)."""
+    cfg = served_config(arch)
+    tc = TrainConfig(batch_size=TRAIN_B, seq_len=TRAIN_S, seed=SEED)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    params = prm.materialize(cfg, seed=SEED, device="cuda")
+    batch = to_device(PjitDataSource(cfg, tc).next(), "cuda")
+    torch.cuda.synchronize()
+    say("materialize", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+        heads=f"{cfg.n_heads}/{cfg.n_kv_heads}", head_dim=cfg.head_dim,
+        vocab=cfg.padded_vocab, head_out=cfg.head_out, norm=cfg.norm,
+        params=sum(t.numel() for t in tree_leaves(params)),
+        seconds=f"{time.perf_counter() - t0:.2f}",
+        gib_on_card=f"{torch.cuda.memory_allocated() / 2**30:.2f}")
+    # depth 1 held as phase_train holds it. Below the top layer this random
+    # model's gradients are chaotic: the kernel and plain paths' forwards,
+    # ulps apart in f32, give L10's adapter gradients 7% apart, and in bf16
+    # each path's gradient is as far from the f32 one as from the other
+    # (PERF.md section 6). So at depth 2 the whole hot region in bf16 is a
+    # witness, as at full depth in phase_train, and held are the backward
+    # kernels alone in bf16 and the whole hot region in f32; at depth 12 the
+    # backward kernels alone in bf16
+    _grad_check(cfg, params, batch, depth_to_boundary(cfg, 1))
+    two = depth_to_boundary(cfg, 2)
+    _grad_check(cfg, params, batch, two, gate=False)
+    _grad_check(cfg, params, batch, two, backward_only=True)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = tree_map(lambda t: t.float(), params)
+    _grad_check(cfg32, params32, batch, two, rtol=DEEP_F32_RMS_RTOL)
+    del params32
+    _grad_check(cfg, params, batch, 0, backward_only=True)
+    launches, times = _pjit_walk(cfg, tc, params, (1, 2, cfg.n_layers), "train_qa")
+    _path_kernels_ran(ops.LAUNCHES, "the QA steps")
+    count_launches(records, f"{cfg.name}_train_qa", launches)
+    say("train_qa_time", arch=cfg.name, batch=TRAIN_B, seq_len=TRAIN_S,
+        **{f"depth{d}_{k}": json.dumps([round(x, 3) for x in v]).replace(" ", "")
+           for d, t in times.items() for k, v in t.items()}, card=repr(CARD))
+
+
+def phase_pjit_graph(arch: str, records) -> None:
+    """The one-device step of the main path's arch (stablelm-3b) at full
+    width as a CUDA graph per boundary, against the eager step: depths 1 and
+    32, two steps each, a resume through ``load_state`` at the second step
+    at depth 32 (:func:`_pjit_walk`)."""
+    cfg = served_config(arch)
+    tc = TrainConfig(batch_size=TRAIN_B, seq_len=TRAIN_S, seed=SEED)
+    ops.reset_launches()
+    params = prm.materialize(cfg, seed=SEED, device="cuda")
+    depths = (1, cfg.n_layers)
+    launches, times = _pjit_walk(cfg, tc, params, depths, "pjit_graph",
+                                 resume_at=TRAIN_INTERVAL * len(depths) - 1)
+    _path_kernels_ran(ops.LAUNCHES, "the graphed steps")
+    count_launches(records, f"{cfg.name}_pjit_graph", launches)
+    say("pjit_graph_time", arch=cfg.name, batch=TRAIN_B, seq_len=TRAIN_S,
+        **{f"depth{d}_{k}": json.dumps([round(x, 3) for x in v]).replace(" ", "")
+           for d, t in times.items() for k, v in t.items()}, card=repr(CARD))
 
 
 def _plain_run(cfg, params, requests, horizon):
@@ -1822,13 +2057,13 @@ def _resume(path: str, cfg, tc, policy, state_of, want, want_state, rounds, labe
 
 
 def _count_session_launches(sess, m, before, launches) -> None:
-    """Add one session step's kernel launches: a ring round's graph holds
-    what each replay launches (``capture_launches``); pjit steps launch
-    eagerly (the change in the counters)."""
+    """Add one session step's kernel launches: a ring round's graph, and a
+    pjit step's, holds what each replay launches (``capture_launches``)."""
     ex = getattr(sess.backend, "driver", None)
     if ex is None:
-        for name, n in ops.LAUNCHES.items():
-            launches[name] += n - before[name]
+        be = sess.backend
+        for name, n in be.capture_launches[be.last_key].items():
+            launches[name] += n
         return
     mode = "direct" if m.cache_hit is None else "cached" if m.cache_hit else "capture"
     for name, n in ex.capture_launches[(m.boundary, mode)].items():
@@ -2443,6 +2678,14 @@ def main() -> None:
     del params
     freed()                                             # qwen2.5-3b before stablelm-3b
     phase_train_only("stablelm-3b", records)
+    freed()                                             # fresh weights, graphed steps
+    t0 = time.perf_counter()
+    phase_pjit_graph("stablelm-3b", records)
+    say("pjit_graph", seconds=f"{time.perf_counter() - t0:.1f}")
+    freed()                                             # the paper's own model
+    t0 = time.perf_counter()
+    phase_train_qa("mbert-squad", records)
+    say("train_qa", seconds=f"{time.perf_counter() - t0:.1f}")
     freed()                                             # fresh weights for the ring
     phase_ring("stablelm-3b", records)
     freed()                                             # fresh weights for the cached ring

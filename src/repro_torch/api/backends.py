@@ -27,10 +27,10 @@ Contracts every adapter keeps:
   * **monotone boundary**: the backend evaluates its policy's ``depth_at``
     per step or round; the boundary never rises (checked again in
     ``core/executor.py`` and by the session);
-  * **the executor's tensors stay put**: on the card the fused rounds are
-    CUDA graphs that read and write the executor's own tensors, so
-    ``load_state`` copies into them and never rebinds them; ``state()``
-    returns new tensors in the reference's layout;
+  * **the backend's tensors stay put**: on the card the fused rounds and
+    the pjit steps are CUDA graphs that read and write the executor's or
+    the backend's own tensors, so ``load_state`` copies into them and never
+    rebinds them; ``state()`` returns new tensors in the reference's layout;
   * **cache invalidation**: the activation cache is keyed ``(slot,
     boundary)`` (``(tenant, slot, boundary)`` with several tenants), cleared
     on every boundary drop and on ``load_state`` (a restored session never
@@ -54,6 +54,7 @@ repartitions away a straggler its ``StragglerDetector`` finds.
 from __future__ import annotations
 
 import math
+import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -66,13 +67,14 @@ from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core import pipeline as pl
 from repro_torch.core import training
 from repro_torch.core.elastic import StragglerDetector
-from repro_torch.core.executor import RingExecutor, tenant_view
+from repro_torch.core.executor import RingExecutor, _Captured, tenant_view
 from repro_torch.core.partition import (DeviceProfile, parse_device_profiles, span_sizes,
                                         spans_from_profiles, uniform_assignment)
 from repro_torch.core.ring import RingTrainer
 from repro_torch.core.simulator import ChurnEvent
 from repro_torch.core.unfreeze import depth_to_boundary
 from repro_torch.data.pipeline import to_device
+from repro_torch.kernels import ops
 from repro_torch.models import params as prm
 from repro_torch.optim import adamw
 
@@ -87,7 +89,8 @@ def _validate_ring(cfg: ModelConfig, n_stages: int) -> None:
     if cfg.head_out is not None:
         raise ValueError(
             f"ring backends train with the LM objective, but this config has a task head "
-            f"(head_out={cfg.head_out}); use an LM config")
+            f"(head_out={cfg.head_out}) — the loss would be garbage/NaN. Use an LM config, or "
+            f"reduce with head_out=None like examples/ring_finetune.py.")
     if cfg.repeats < n_stages:
         raise ValueError(f"ring training needs at least one block per stage: "
                          f"cfg.repeats={cfg.repeats} < n_stages={n_stages}.")
@@ -381,24 +384,40 @@ class CachedBackend(FusedBackend):
 
 
 class PjitBackend:
-    """The one-device path: ``core/training.make_train_step`` built once per
-    boundary and run eagerly (its CUDA graph per boundary waits for ROADMAP
-    Queue 1 item 10). The LM objective only: a QA head waits for item 12."""
+    """The one-device path: ``core/training.make_step`` (the QA step for a
+    span head, else the LM step) built once per boundary.
+
+    The backend's tensors stay put: each step writes the new adapters, head,
+    moments and ``count`` into the tensors the backend owns, as the ring's
+    raw update does, and ``load_state`` copies into them. On the card
+    (``graphs=True``, the default) the first step of a (boundary, batch
+    shape) warms the step up on a side stream from a copy of the state,
+    puts the state back and captures it as a CUDA graph; later steps copy
+    the batch into the graph's inputs and replay it (the reference jits and
+    donates one step a boundary). The boundary never rises, so a drop
+    frees the graphs of the higher boundaries and their pools.
+    ``capture_launches`` and ``capture_seconds`` are keyed like the graphs:
+    a graph's launches are counted once, at its capture (the warm-up counts
+    them too), and never at a replay. On the CPU, or with ``graphs=False``,
+    the same step runs eagerly."""
 
     kind = "pjit"
     name = "pjit"
     steps_per_call = 1
 
     def __init__(self, cfg: ModelConfig, tc: TrainConfig, policy, *,
-                 params: Optional[Dict[str, Any]] = None, device=None):
-        if cfg.head_out is not None:
-            raise NotImplementedError(f"{cfg.name}: the QA step (head_out={cfg.head_out}) "
-                                      f"waits for ROADMAP Queue 1 item 12")
+                 params: Optional[Dict[str, Any]] = None, device=None, graphs: bool = True):
         self.cfg, self.tc, self.policy = cfg, tc, policy
         self._params = _materialize(cfg, tc, params, device)
         self.device = self._params["head"]["w"].device
         self._opt = adamw.init(training.full_trainable(self._params, cfg))
         self._fns: Dict[int, Any] = {}      # boundary -> step
+        self.graphs = graphs and self.device.type == "cuda"
+        # (boundary, batch shapes) -> (graph, the names of its metric outputs)
+        self._graphs: Dict[Tuple, Tuple[_Captured, List[str]]] = {}
+        self.capture_launches: Dict[Tuple, Dict[str, int]] = {}
+        self.capture_seconds: Dict[Tuple, float] = {}
+        self.last_key: Optional[Tuple] = None         # the key of the last step's graph
         self._step = 0
 
     @classmethod
@@ -422,16 +441,76 @@ class PjitBackend:
     def compile_count(self) -> int:
         return len(self._fns)
 
+    def _trainable(self) -> Dict[str, Any]:
+        return training.full_trainable(self._params, self.cfg)
+
+    def state_tensors(self) -> List[torch.Tensor]:
+        """Every tensor a step writes: the adapters, the head, the moments, ``count``."""
+        return tree_leaves((self._trainable(), self._opt))
+
     def _fn(self, boundary: int):
         if boundary not in self._fns:
-            self._fns[boundary] = training.make_train_step(self.cfg, self.tc, boundary)
+            self._fns[boundary] = training.make_step(self.cfg, self.tc, boundary)
         return self._fns[boundary]
+
+    def _step_in_place(self, boundary: int, batch: Dict[str, torch.Tensor]):
+        """The functional step, its new trainable set and optimizer state
+        copied into the backend's own tensors (a frozen layer's, passed
+        through, onto itself: no copy). Returns the metrics."""
+        new_params, new_opt, metrics = self._fn(boundary)(self._params, self._opt, batch)
+        with torch.no_grad():
+            bridge.copy_into(self._trainable(), training.full_trainable(new_params, self.cfg))
+            bridge.copy_into(self._opt, new_opt)
+        return metrics
+
+    def _graphed(self, boundary: int, batch: Dict[str, torch.Tensor]):
+        names = sorted(batch)
+        key = (boundary,) + tuple((k, tuple(batch[k].shape)) for k in names)
+        if key not in self._graphs:
+            stale = [k for k in self._graphs if k[0] > boundary]
+            for k in stale:
+                del self._graphs[k]
+            if stale:
+                torch.cuda.empty_cache()             # the dropped graphs' pools
+            self._graphs[key] = self._capture(key, boundary, names, batch)
+        self.last_key = key
+        graph, metric_names = self._graphs[key]
+        return dict(zip(metric_names, graph(*(batch[k] for k in names)), strict=True))
+
+    def _capture(self, key, boundary: int, names, batch) -> Tuple[_Captured, List[str]]:
+        """Warm the step up on a side stream from a copy of the state, put
+        the state back, capture the step on that stream: (the graph, the
+        names of its metric outputs)."""
+        t0 = time.perf_counter()
+        inputs = [batch[k].clone() for k in names]
+        state = self.state_tensors()
+        saved = [t.clone() for t in state]
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            self._step_in_place(boundary, dict(zip(names, inputs)))
+            for t, s_ in zip(state, saved):
+                t.copy_(s_)
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        del saved
+        graph = torch.cuda.CUDAGraph()
+        before = dict(ops.LAUNCHES)
+        with torch.cuda.graph(graph, stream=stream):
+            metrics = self._step_in_place(boundary, dict(zip(names, inputs)))
+        self.capture_launches[key] = {k: n - before[k] for k, n in ops.LAUNCHES.items()}
+        self.capture_seconds[key] = time.perf_counter() - t0
+        metric_names = sorted(metrics)
+        return _Captured(graph, inputs, tuple(metrics[k] for k in metric_names), None), \
+            metric_names
 
     def step(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         depth = self.policy.depth_at(self._step, self.cfg.n_layers)
         boundary = depth_to_boundary(self.cfg, depth)
-        self._params, self._opt, metrics = self._fn(boundary)(
-            self._params, self._opt, to_device(batch, self.device))
+        on_device = to_device(batch, self.device)
+        if self.graphs:
+            metrics = self._graphed(boundary, on_device)
+        else:
+            metrics = self._step_in_place(boundary, on_device)
         self._step += 1
         extras = {k: v for k, v in metrics.items() if k != "loss"}
         return {"loss": metrics["loss"], "boundary": boundary, "depth": depth,
@@ -449,9 +528,11 @@ class PjitBackend:
                 "opt": bridge.opt_state_to_reference(self._opt, self.cfg)}
 
     def load_state(self, params, opt, *, step: int) -> None:
+        """Copy the state into the backend's tensors (its graphs read them)."""
         adapters, head = bridge.trainable_from_reference(params, self.cfg)
-        self._params = training.write_back(self._params, {"adapters": adapters, "head": head})
-        self._opt = bridge.opt_state_from_reference(opt, self.cfg)
+        with torch.no_grad():
+            bridge.copy_into(self._trainable(), {"adapters": adapters, "head": head})
+            bridge.copy_into(self._opt, bridge.opt_state_from_reference(opt, self.cfg))
         self._step = step
 
 

@@ -13,7 +13,7 @@ Batch shapes:
     behind one shared slot cursor (a joint round touches the same slot for
     every tenant: the partitioned cache's key);
   * the pjit backend takes ``Batcher``'s flat numpy dicts
-    (``{"tokens", "labels"}``).
+    (``{"tokens", "labels"}``; a QA config's ``{"tokens", "starts", "ends"}``).
 """
 from __future__ import annotations
 
@@ -88,17 +88,16 @@ class RingDataSource:
 
 
 class PjitDataSource:
-    """Merged-client flat batches for the one-device (pjit) backend, LM
-    objective. A QA head waits for ROADMAP Queue 1 item 12."""
+    """Merged-client flat batches for the one-device (pjit) backend: the QA
+    corpus for a span head (``{"tokens", "starts", "ends"}``), else the LM
+    corpus (``{"tokens", "labels"}``)."""
 
     def __init__(self, cfg: ModelConfig, tc: TrainConfig, *, n_clients: int = 4,
                  n_per_client: int = 256):
-        if cfg.head_out is not None:
-            raise NotImplementedError(f"{cfg.name}: a task head (head_out={cfg.head_out}) "
-                                      f"and its QA data wait for ROADMAP Queue 1 item 12")
+        kind = "qa" if cfg.head_out == 2 else "lm"
         ds = merged(make_client_datasets(n_clients, vocab=cfg.vocab_size,
                                          n_per_client=n_per_client, seq=tc.seq_len,
-                                         seed=tc.seed))
+                                         seed=tc.seed, kind=kind))
         self.batcher = Batcher(ds, tc.batch_size, seed=tc.seed)
 
     def next(self) -> Dict[str, Any]:

@@ -123,7 +123,8 @@ class LoggingCallback(Callback):
     ``r`` counting from the run's first round ever (a resumed run goes on
     counting; ``?`` where the checkpoint does not say); a one-device step as
     ``step s boundary b loss x accuracy a grad_norm g``, ``s`` the step's
-    index."""
+    index, and a QA step as ``step s boundary b loss x em e f1 f`` (the
+    reference's ``acc/f1=`` shows its F1 there)."""
 
     def __init__(self, log=print, every: int = 1):
         self.log = log
@@ -146,6 +147,9 @@ class LoggingCallback(Callback):
             self.log(f"round {r} boundary {d['boundary']} depth {d['depth']} "
                      f"loss {d['loss']:.4f} round_ms {ms if ms is None else f'{ms:.1f}'}"
                      f"{hit}{el}")
+        elif "f1" in d:                   # the QA step: EM and F1 of the argmax spans
+            self.log(f"step {d['step'] - 1} boundary {d['boundary']} loss {d['loss']:.4f} "
+                     f"em {d['em']:.4f} f1 {d['f1']:.4f}")
         else:
             self.log(f"step {d['step'] - 1} boundary {d['boundary']} loss {d['loss']:.4f} "
                      f"accuracy {d.get('accuracy', float('nan')):.4f} "

@@ -42,10 +42,13 @@ from repro_torch.core import pipeline as pl
 
 
 def to_tensor(arr: Any, device=None) -> torch.Tensor:
-    """numpy (bf16 included) -> torch tensor on ``device`` (default cuda)."""
+    """numpy (bf16 included) -> torch tensor on ``device`` (default cuda).
+
+    The tensor owns its memory, on the CPU too: a step that writes its
+    trainable set in place never writes into the caller's array."""
     device = dev_rule.resolve(device)
     arr = np.asarray(arr)
-    if not arr.flags.writeable:        # e.g. a view of a JAX array
+    if device.type == "cpu" or not arr.flags.writeable:   # e.g. a view of a JAX array
         arr = arr.copy()
     # np.ascontiguousarray makes a 0-d array 1-d: the shape is restored
     if arr.dtype.name == "bfloat16":

@@ -13,6 +13,11 @@ only with respect to that set, so autograd builds
 Trees follow ``models/params.py``: ``{"adapters": [one adapter dict per
 layer], "head": {"w"}}``; ``boundary`` counts frozen repeats from the bottom,
 as the model's forward takes it.
+
+Two objectives share one forward, backward and AdamW body: the language
+model's cross-entropy and, for a span head (``cfg.head_out == 2``, the
+paper's mBERT + SQuAD), ``qa_span_loss``. :func:`make_step` is the one place
+that picks the step for a config.
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ from torch.utils._pytree import tree_flatten, tree_leaves, tree_unflatten
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.models import transformer as tfm
-from repro_torch.models.losses import cross_entropy
+from repro_torch.models.losses import cross_entropy, qa_span_loss
 from repro_torch.optim import adamw
 
 Batch = Dict[str, torch.Tensor]
@@ -69,10 +74,20 @@ def slice_to_full(params: Dict[str, Any], trainable_sliced: Dict[str, Any], boun
             "head": trainable_sliced["head"]}
 
 
+def objective(cfg: ModelConfig, logits: torch.Tensor, batch: Batch):
+    """(loss, metrics) of the config's task: the span loss for a QA head
+    (batch ``starts``, ``ends`` [B]), else the LM cross-entropy (``labels``
+    [B, S], optional ``mask``; chunked at vocabularies of 32768 and more)."""
+    if cfg.head_out == 2:
+        return qa_span_loss(logits, batch["starts"], batch["ends"])
+    ce_chunk = 512 if cfg.out_dim >= 32768 else None
+    return cross_entropy(logits, batch["labels"], batch.get("mask"), chunk=ce_chunk)
+
+
 def loss_and_grads(params: Dict[str, Any], batch: Batch, cfg: ModelConfig, boundary: int, *,
                    impl: str = "kernel") -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Any]:
-    """(loss, metrics, grads): the LM loss of ``batch`` and its gradients with
-    respect to :func:`split_trainable`'s tree (the same structure)."""
+    """(loss, metrics, grads): the config's objective on ``batch`` and its
+    gradients with respect to :func:`split_trainable`'s tree (the same structure)."""
     trainable = split_trainable(params, boundary, cfg)
     leaves, spec = tree_flatten(trainable)
     leaves = [t.detach().requires_grad_(True) for t in leaves]
@@ -80,12 +95,25 @@ def loss_and_grads(params: Dict[str, Any], batch: Batch, cfg: ModelConfig, bound
     with torch.enable_grad():
         logits = tfm.forward(params, batch["tokens"], cfg, boundary=boundary, impl=impl,
                              hot_adapters=tr["adapters"], head_params=tr["head"])
-        ce_chunk = 512 if cfg.out_dim >= 32768 else None
-        loss, metrics = cross_entropy(logits, batch["labels"], batch.get("mask"),
-                                      chunk=ce_chunk)
+        loss, metrics = objective(cfg, logits, batch)
         grads = torch.autograd.grad(loss, leaves)
     metrics = {k: v.detach() for k, v in metrics.items()}
     return loss.detach(), metrics, tree_unflatten(list(grads), spec)
+
+
+def _make_step(cfg: ModelConfig, tc: TrainConfig, boundary: int, grad_norm: bool) -> Callable:
+    def train_step(params, opt_state, batch: Batch):
+        _, metrics, grads = loss_and_grads(params, batch, cfg, boundary)
+        with torch.no_grad():
+            tr_full = slice_to_full(params, split_trainable(params, boundary, cfg), boundary,
+                                    cfg)
+            new_tr_full, new_opt = adamw.update(grads, opt_state, tr_full, tc, boundary, cfg)
+            if grad_norm:
+                metrics["grad_norm"] = torch.sqrt(sum(g.float().square().sum()
+                                                      for g in tree_leaves(grads)))
+        return write_back(params, new_tr_full), new_opt, metrics
+
+    return train_step
 
 
 def make_train_step(cfg: ModelConfig, tc: TrainConfig, boundary: int) -> Callable:
@@ -96,19 +124,26 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, boundary: int) -> Callabl
     batch: {"tokens": [B, S], "labels": [B, S], optional "mask": [B, S]}. The
     order of the reference's: split off the trainable leaves, the forward with
     the boundary, the cross-entropy, the backward, the bias-corrected AdamW
-    with the boundary mask, the new leaves written back.
+    with the boundary mask, the new leaves written back. The metrics carry
+    the gradients' norm.
     """
+    return _make_step(cfg, tc, boundary, grad_norm=True)
 
-    def train_step(params, opt_state, batch: Batch):
-        _, metrics, grads = loss_and_grads(params, batch, cfg, boundary)
-        with torch.no_grad():
-            tr_full = slice_to_full(params, split_trainable(params, boundary, cfg), boundary,
-                                    cfg)
-            new_tr_full, new_opt = adamw.update(grads, opt_state, tr_full, tc, boundary, cfg)
-            gnorm = torch.sqrt(sum(g.float().square().sum() for g in tree_leaves(grads)))
-        return write_back(params, new_tr_full), new_opt, {**metrics, "grad_norm": gnorm}
 
-    return train_step
+def make_qa_train_step(cfg: ModelConfig, tc: TrainConfig, boundary: int) -> Callable:
+    """The SQuAD span-extraction step (the paper's task): batch {"tokens" [B,
+    S], "starts" [B], "ends" [B]}, the head [B, S, 2]; metrics loss, em, f1."""
+    if cfg.head_out != 2:
+        raise ValueError(f"{cfg.name}: the QA step needs a span head (head_out=2)")
+    return _make_step(cfg, tc, boundary, grad_norm=False)
+
+
+def make_step(cfg: ModelConfig, tc: TrainConfig, boundary: int) -> Callable:
+    """The step a config trains with: the QA step for a span head, else the
+    LM step."""
+    if cfg.head_out == 2:
+        return make_qa_train_step(cfg, tc, boundary)
+    return make_train_step(cfg, tc, boundary)
 
 
 def make_eval_step(cfg: ModelConfig) -> Callable:

@@ -2,16 +2,23 @@
 
 One architecture at its published width (qwen2.5-3b by default; random
 weights from seed 0, non-zero adapters; ``--arch stablelm-3b`` for the main
-path's arch), batches of 4 x 512 tokens from the merged synthetic client
-corpora. For each depth (``--depths``, default 1 and the layer count: the top
-block only, and every block) it runs one train step to warm up,
-then prints the step's host wall time without the profiler, the memory
-resident before it, its peak device memory (``torch.cuda.max_memory_allocated``)
-and the peak of its forward and backward alone, then the traced step's
-device time summed over kernels, the traced device span (first device event
-to last) and its gap to that sum, the device's idle share of the unprofiled
-wall time, the kernels that took the most device time and the port's own
-kernels (forward and backward).
+path's arch, ``--arch mbert-squad`` for the paper's QA model), batches of 4
+x 512 tokens from the merged synthetic client corpora (the QA corpus for a
+span head). For each depth (``--depths``, default 1 and the layer count: the
+top block only, and every block) it runs ``PjitBackend.step`` (the session's
+one-device step, the batch moved to the card in each step) twice: eager
+(``graphs=False``) and as the boundary's CUDA graph. Each takes one step to
+warm up (the graphed one's builds the graph), then the step's host wall time
+without the profiler, its time by CUDA events, the memory resident before
+it and its peak device memory (``torch.cuda.max_memory_allocated``; the
+eager step's also the peak of its forward and backward alone, the graphed
+step's the build's peak, its reserved memory, capture seconds and the
+launches the capture recorded), then the traced step's device time summed
+over kernels, the traced device span (first device event to last) and its
+gap to that sum, the device's idle share of the unprofiled wall time, the
+kernels that took the most device time and the port's own kernels (forward
+and backward). Both backends share the frozen weights; each step moves the
+adapters and the head, which a step's time does not depend on.
 
 ``--mode ring`` traces the RingAda ring round instead: ``--stages`` stages of
 the model on the card (4 by default), each owner's data ``--microbatches``
@@ -40,6 +47,7 @@ one, two and every stage's layers), on the same batch:
 then the traced round as above.
 
     PYTHONPATH=src python -m repro_torch.launch.trace_train [--arch stablelm-3b] [--depths 1 32]
+    PYTHONPATH=src python -m repro_torch.launch.trace_train --arch mbert-squad
     PYTHONPATH=src python -m repro_torch.launch.trace_train --mode ring --arch stablelm-3b \
         [--trainer reference]
 
@@ -54,6 +62,8 @@ import json
 import torch
 
 from repro_torch import device as dev_rule
+from repro_torch.api import ExplicitPolicy
+from repro_torch.api.backends import PjitBackend
 from repro_torch.configs import TrainConfig, get_config
 from repro_torch.core import training
 from repro_torch.core.executor import RingExecutor
@@ -63,7 +73,6 @@ from repro_torch.data.pipeline import to_device
 from repro_torch.launch.trace_serve import traced, wall_ms
 from repro_torch.launch.train import RING_LR, data_source, ring_data_source
 from repro_torch.models import params as prm
-from repro_torch.optim import adamw
 
 SEED = 0
 
@@ -168,6 +177,47 @@ def trace_ring(cfg, args, device) -> None:
         traced(run, device, f"ring depth {depth}", unprofiled)
 
 
+def trace_pjit(cfg, args, device) -> None:
+    """The one-device step at each depth, eager and graphed (module docstring)."""
+    tc = TrainConfig(batch_size=args.batch_size, seq_len=args.seq_len, seed=SEED)
+    params = prm.materialize(cfg, seed=SEED, device=device)
+    batch = data_source(cfg, tc).next()
+    for depth in args.depths or (1, cfg.n_layers):
+        boundary = depth_to_boundary(cfg, depth)
+        for graphs in (False, True):
+            be = PjitBackend(cfg, tc, ExplicitPolicy((depth,)), params=params, device=device,
+                             graphs=graphs)
+            run = lambda: be.step(batch)
+            resident = torch.cuda.memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            build = wall_ms(run, device)         # kernel build and cuBLAS, or the capture
+            build_peak = torch.cuda.max_memory_allocated(device)
+            run()
+            torch.cuda.reset_peak_memory_stats(device)
+            unprofiled = wall_ms(run, device)
+            peak = torch.cuda.max_memory_allocated(device)
+            event_ms = _event_ms(run)
+            if graphs:
+                key = be.last_key
+                extra = (f"build_ms={build:.1f} build_peak_gib={build_peak / 2**30:.3f} "
+                         f"reserved_gib={torch.cuda.memory_reserved(device) / 2**30:.3f} "
+                         f"capture_s={be.capture_seconds[key]:.2f} launches_at_capture="
+                         f"{json.dumps(be.capture_launches[key]).replace(' ', '')}")
+            else:
+                torch.cuda.reset_peak_memory_stats(device)
+                training.loss_and_grads(params, to_device(batch, device), cfg, boundary)
+                extra = f"fwd_bwd_peak_gib={torch.cuda.max_memory_allocated(device) / 2**30:.3f}"
+            label = "graphed" if graphs else "eager"
+            print(f"[trace] arch={cfg.name} step={label} depth={depth} boundary={boundary} "
+                  f"batch={args.batch_size} seq_len={args.seq_len} "
+                  f"resident_gib={resident / 2**30:.3f} step_peak_gib={peak / 2**30:.3f} "
+                  f"wall_ms={unprofiled:.3f} event_ms={event_ms:.3f} {extra} "
+                  f"device={torch.cuda.get_device_name(device)}")
+            traced(run, device, f"train {label} depth {depth}", unprofiled)
+            del be, run
+            torch.cuda.empty_cache()
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2.5-3b", help="a dense port architecture")
@@ -189,28 +239,7 @@ def main(argv=None) -> None:
     if args.mode == "ring":
         trace_ring(cfg, args, device)
         return
-    tc = TrainConfig(batch_size=args.batch_size, seq_len=args.seq_len, seed=SEED)
-    params = prm.materialize(cfg, seed=SEED, device=device)
-    opt_state = adamw.init(training.full_trainable(params, cfg))
-    batch = to_device(data_source(cfg, tc).next(), device)
-    for depth in args.depths or (1, cfg.n_layers):
-        boundary = depth_to_boundary(cfg, depth)
-        step = training.make_train_step(cfg, tc, boundary)
-        run = lambda: step(params, opt_state, batch)        # the same step, from the same state
-        run()                                               # warm-up: kernel build, cuBLAS
-        resident = torch.cuda.memory_allocated(device)
-        torch.cuda.reset_peak_memory_stats(device)
-        unprofiled = wall_ms(run, device)
-        peak = torch.cuda.max_memory_allocated(device)
-        torch.cuda.reset_peak_memory_stats(device)
-        training.loss_and_grads(params, batch, cfg, boundary)
-        fwd_bwd = torch.cuda.max_memory_allocated(device)
-        print(f"[trace] arch={cfg.name} depth={depth} boundary={boundary} "
-              f"batch={args.batch_size} seq_len={args.seq_len} "
-              f"resident_gib={resident / 2**30:.3f} step_peak_gib={peak / 2**30:.3f} "
-              f"fwd_bwd_peak_gib={fwd_bwd / 2**30:.3f} "
-              f"device={torch.cuda.get_device_name(device)}")
-        traced(run, device, f"train depth {depth}", unprofiled)
+    trace_pjit(cfg, args, device)
 
 
 if __name__ == "__main__":

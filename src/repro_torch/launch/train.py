@@ -5,9 +5,11 @@ a thin CLI over :class:`~repro_torch.api.RingSession` (the reference's
 Every mode is a (backend, policy) pair of the session:
 
   * ``--mode pjit`` (one device): the ``PjitBackend``, one
-    :func:`~repro_torch.core.training.make_train_step` per boundary on a
-    batch of the merged synthetic client corpora; one loss line a step with
-    its boundary. ``--scheme all_hot`` trains every adapter from step 0.
+    :func:`~repro_torch.core.training.make_step` per boundary (on the card
+    one CUDA graph per boundary) on a batch of the merged synthetic client
+    corpora; one loss line a step with its boundary (and EM and F1 for a
+    span head: mbert-squad, the default arch, as the reference's CLI).
+    ``--scheme all_hot`` trains every adapter from step 0.
   * ``--mode ring``: ``--stages`` stages of the model on the device, each
     client with its own corpus, ``--rounds`` rounds (every client the
     initiator once a round, ``--microbatches`` microbatches of
@@ -41,6 +43,8 @@ writes the session after the run and ``--resume`` continues a saved one, bit
 for bit, in the reference's checkpoint format.
 
 Usage (on a machine with an NVIDIA GPU; ``--device cpu`` runs the plain versions):
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced --steps 12 \\
+        --unfreeze-interval 4
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b --reduced \\
         --steps 12 --unfreeze-interval 4
     PYTHONPATH=src python -m repro_torch.launch.train --mode ring --arch stablelm-3b \\
@@ -51,8 +55,8 @@ Usage (on a machine with an NVIDIA GPU; ``--device cpu`` runs the plain versions
         --reduced --layers 14 --stages 4 --rounds 2 --device-speeds 1.0,1.25,0.5,0.75
     PYTHONPATH=src python -m repro_torch.launch.train --mode ring --arch stablelm-3b \\
         --reduced --stages 2 --rounds 8 --unfreeze-interval 8 --slots-per-epoch 2
-    PYTHONPATH=src python -m repro_torch.launch.train --mode ring --reduced --stages 2 \\
-        --rounds 4 --tenants 2 --adapter-store ckpt/adapters
+    PYTHONPATH=src python -m repro_torch.launch.train --mode ring --arch qwen2.5-3b \\
+        --reduced --stages 2 --rounds 4 --tenants 2 --adapter-store ckpt/adapters
     PYTHONPATH=src python -m repro_torch.launch.train --mode ring --arch stablelm-3b \\
         --reduced --rounds 6 --chaos 3:crash:2 --elastic
 """
@@ -203,7 +207,7 @@ def train(cfg: ModelConfig, tc: TrainConfig, *, steps: int, scheme: str = "ringa
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen2.5-3b")
+    ap.add_argument("--arch", default="mbert-squad")
     ap.add_argument("--mode", choices=["pjit", "ring"], default="pjit",
                     help="pjit: one device; ring: the RingAda ring, its stages on the device")
     ap.add_argument("--trainer", choices=["fused", "reference"], default="fused",

@@ -65,10 +65,20 @@ def rmsnorm(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     return (xf * torch.rsqrt(var + 1e-6) * p["scale"]).to(x.dtype)
 
 
+def layernorm(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """The reference's LayerNorm: f32 inside, the population variance (as
+    ``jnp.var``), ``rsqrt(var + 1e-5)``, ``scale`` and an optional ``bias``."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    out = (xf - mu) * torch.rsqrt(var + 1e-5) * p["scale"]
+    if "bias" in p:
+        out = out + p["bias"]
+    return out.to(x.dtype)
+
+
 def norm(cfg: ModelConfig, p, x):
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(f"{cfg.norm} is not ported yet ({_LATER})")
-    return rmsnorm(p, x)
+    return layernorm(p, x) if cfg.norm == "layernorm" else rmsnorm(p, x)
 
 
 def _chunk_of(n: int, cap: int) -> int:

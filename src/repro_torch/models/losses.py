@@ -1,5 +1,5 @@
-"""Losses and metrics (the reference's ``models/losses.py``, language-model
-cross-entropy; the QA span loss waits for the QA head, ROADMAP.md Queue 1)."""
+"""Losses and metrics (the reference's ``models/losses.py``): the language
+model's cross-entropy and the SQuAD span loss of a ``head_out=2`` head."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -36,8 +36,10 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     if chunk and S > chunk and S % chunk == 0:
         nll_sum = corr = msum = 0.0
         for c in range(0, S, chunk):
+            # no RNG to replay, and a CUDA graph may capture the recompute
             n, k, m = checkpoint(_ce_terms, logits[:, c:c + chunk], labels[:, c:c + chunk],
-                                 mask[:, c:c + chunk], use_reentrant=False)
+                                 mask[:, c:c + chunk], use_reentrant=False,
+                                 preserve_rng_state=False)
             nll_sum, corr, msum = nll_sum + n, corr + k, msum + m
     else:
         nll_sum, corr, msum = _ce_terms(logits, labels, mask)
@@ -46,3 +48,26 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     loss = nll_sum / denom
     acc = corr / denom
     return loss, {"loss": loss, "accuracy": acc, "tokens": denom}
+
+
+def qa_span_loss(logits: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor,
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """SQuAD-style span prediction: logits [B, S, 2] (start, end), starts and
+    ends [B] token indices. The f32 mean of the start and end cross-entropies,
+    and EM and token-level F1 of the argmax spans (the first maximum on a tie)."""
+    lf = logits.float()
+    sl, el = lf[..., 0], lf[..., 1]
+    starts, ends = starts.long(), ends.long()
+
+    def ce1(lg, y):
+        return torch.logsumexp(lg, dim=-1) - torch.gather(lg, 1, y[:, None])[:, 0]
+
+    loss = torch.mean(ce1(sl, starts) + ce1(el, ends)) / 2.0
+    ps, pe = torch.argmax(sl, dim=-1), torch.argmax(el, dim=-1)
+    em = ((ps == starts) & (pe == ends)).float().mean()
+    inter = torch.clamp(torch.minimum(pe, ends) - torch.maximum(ps, starts) + 1, min=0).float()
+    len_p = torch.clamp(pe - ps + 1, min=1).float()
+    len_g = torch.clamp(ends - starts + 1, min=1).float()
+    prec, rec = inter / len_p, inter / len_g
+    f1 = torch.where(inter > 0, 2 * prec * rec / (prec + rec + 1e-9), 0.0).mean()
+    return loss, {"loss": loss, "em": em, "f1": f1}

@@ -768,3 +768,153 @@ def test_ring_elastic_crash_rejoin_equals_fresh_executor_on_card():
     assert boundaries == [4, 4, 3, 3, 3, 4, 4, 4]
     assert hits == [False] * 4 + [True, False, False, True]
     assert [t.data_ptr() for t in ex.trainable_tensors()] == ptrs and ex.S == S
+
+
+# mbert-squad's training shapes: h [4 x 512, 768], m 48 (a bf16 cluster of 8
+# blocks with 128 columns each: blocks 6 and 7 own no column); attention
+# [4, 512, 12, 64], MHA
+MBERT_D, MBERT_M, MBERT_HEADS = 768, 48, (12, 12, 64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("act", ["gelu", "relu", "silu"])
+@pytest.mark.parametrize("T", [1, 100, 512, 2048])
+def test_adapter_fused_mbert_width_on_card(T, act, dtype):
+    """The adapter and its backward at mbert-squad's width against their
+    plain versions: the decode cluster at T = 1, the bf16 tiles (forward and
+    backward) with two column-less blocks in each cluster of 8, the f32
+    kernels; through ops' autograd Function, one launch of each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.kernels import adapter_fused as af
+
+    dt = getattr(torch, dtype)
+    D, m = MBERT_D, MBERT_M
+    gen = torch.Generator(device="cuda").manual_seed(T + 7)
+    rnd = lambda *s, std=1.0: (std * torch.randn(s, generator=gen, device="cuda")).to(dt)
+    h, g = rnd(T, D), rnd(T, D)
+    wd, wu = rnd(D, m, std=0.05), rnd(m, D, std=0.05)
+    if dt == torch.bfloat16 and T > af.SMALL_T:
+        assert af.route(T, D, m, dt).plan.cluster * af.route(T, D, m, dt).plan.dc > D
+        assert af.bwd_route(T, D, m, dt).kernel == "tile"
+    grads = {}
+    for impl in ("kernel", "plain"):
+        leaves = [t.clone().requires_grad_(True) for t in (h, wd, wu)]
+        ops.reset_launches()
+        out = ops.adapter_fused(*leaves, activation=act, impl=impl)
+        grads[impl] = (out.detach(),) + torch.autograd.grad(out, leaves, g)
+        if impl == "kernel":
+            assert ops.LAUNCHES["adapter_fused"] == 1 and ops.LAUNCHES["adapter_fused_bwd"] == 1
+    got, want = grads["kernel"], grads["plain"]
+    if dt == torch.bfloat16:
+        _assert_adapter_close(got[0], h, wd, wu, act, want[0])
+    else:
+        torch.testing.assert_close(got[0], want[0], atol=ATOL[dtype][0], rtol=0.0)
+    for name, a, b in zip(("dh", "dw_down", "dw_up"), got[1:], want[1:]):
+        assert a.dtype == dt
+        _assert_grad_close(a, b, dtype, name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_attention_mbert_mha_on_card(dtype):
+    """Attention forward and backward at mbert-squad's [4, 512, 12, 64]
+    (MHA at hd 64, causal, no window): the kernels against the plain
+    versions on the same inputs, then through ops' autograd Function."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    H, K, hd = MBERT_HEADS
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(512)
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dt)
+    q, k, v, dout = rnd(4, 512, H, hd), rnd(4, 512, K, hd), rnd(4, 512, K, hd), rnd(4, 512, H, hd)
+    out, lse = fa.flash_attention(q, k, v, lse=True)
+    want = ops.flash_attention(q, k, v, impl="plain")
+    torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=ATOL[dtype][1])
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout)
+    for name, a, b in zip(("dq", "dk", "dv"), got,
+                          ref.flash_attention_bwd(q, k, v, out, lse, dout)):
+        _assert_grad_close(a, b, dtype, name)
+    grads = {}
+    for impl in ("kernel", "plain"):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        o = ops.flash_attention(*leaves, impl=impl)
+        grads[impl] = torch.autograd.grad(o, leaves, dout)
+    for name, a, b in zip(("dq", "dk", "dv"), grads["kernel"], grads["plain"]):
+        _assert_grad_close(a, b, dtype, f"{name} through autograd", PIPE_RTOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,vocab,seq", [("stablelm-3b", None, 64),
+                                            ("stablelm-3b", 50304, 1024),
+                                            ("mbert-squad", None, 64)],
+                         ids=["lm", "lm_chunked_ce", "qa"])
+def test_pjit_graph_equals_eager_step_on_card(arch, vocab, seq):
+    """``PjitBackend``'s graphed steps against the eager backend's, from the
+    same weights on the same batches, with ``torch.equal``: the metrics and
+    every adapter, head, moment and the step count, across a boundary walk
+    (3, 3, 2, 2, 1, 1 frozen layers of 4) and a ``load_state`` into the
+    graphed backend (after a step on other data, which it undoes: the graph
+    reads the loaded values, the tensors keep their addresses). Reduced
+    configs of 4 layers in bf16: an LM, the LM at stablelm-3b's vocab with
+    1024 tokens a row (the cross-entropy in checkpointed chunks of 512, whose
+    recompute the graph captures), and mbert-squad's QA step. A capture
+    records the step's launches (L, d, L, d - 1) and a replay launches none
+    from Python; one build a boundary."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: CUDA graphs and the kernels have no CPU mode")
+    import dataclasses
+
+    from torch.utils._pytree import tree_map
+
+    from repro_torch.api import IntervalPolicy
+    from repro_torch.api.backends import PjitBackend
+    from repro_torch.api.data import PjitDataSource
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.models import params as prm
+
+    over = {} if vocab is None else {"vocab_size": vocab}
+    cfg = get_config(arch).reduced(n_layers=4, repeats=4, **over)
+    cfg = dataclasses.replace(cfg, adapter=dataclasses.replace(cfg.adapter, zero_init_up=False))
+    L = cfg.n_layers
+    tc = TrainConfig(batch_size=2, seq_len=seq, warmup_steps=2)
+    params = prm.materialize(cfg, seed=0, device="cuda")
+    policy = lambda: IntervalPolicy(initial_depth=1, interval=2)
+    graphed = PjitBackend(cfg, tc, policy(), params=tree_map(torch.clone, params))
+    eager = PjitBackend(cfg, tc, policy(), params=params, graphs=False)
+    assert graphed.graphs and not eager.graphs
+    ptrs = [t.data_ptr() for t in graphed.state_tensors()]
+    data, other = PjitDataSource(cfg, tc), PjitDataSource(cfg, TrainConfig(
+        batch_size=2, seq_len=seq, seed=1))
+    for s in range(6):
+        if s == 4:                              # a resume: diverge, then load the state
+            st = eager.state()
+            saved = tree_map(torch.clone, {"params": st["params"], "opt": st["opt"]})
+            graphed.step(other.next())
+            graphed.load_state(saved["params"], saved["opt"], step=eager._step)
+        batch = data.next()
+        ops.reset_launches()
+        got = graphed.step(batch)
+        replayed = dict(ops.LAUNCHES)
+        want = eager.step(batch)
+        assert got["boundary"] == want["boundary"] == 3 - s // 2
+        assert torch.equal(got["loss"], want["loss"]), (s, got["loss"], want["loss"])
+        assert set(got["extras"]) == set(want["extras"])
+        for k, v in want["extras"].items():
+            assert torch.equal(got["extras"][k], v), (s, k)
+        for i, (a, b) in enumerate(zip(graphed.state_tensors(), eager.state_tensors(),
+                                       strict=True)):
+            assert torch.equal(a, b), f"step {s}: leaf {i} {tuple(a.shape)}"
+        d = L - got["boundary"]
+        assert graphed.capture_launches[graphed.last_key] == {
+            "adapter_fused": L, "adapter_fused_bwd": d, "flash_attention": L,
+            "flash_attention_bwd": d - 1, "rwkv_scan": 0, "mamba_scan": 0}
+        if s in (1, 3, 4, 5):                   # a replay: nothing launched from Python
+            assert not any(replayed.values()), (s, replayed)
+    assert [t.data_ptr() for t in graphed.state_tensors()] == ptrs
+    assert graphed.compile_count == eager.compile_count == 3
+    assert [k[0] for k in graphed._graphs] == [1]     # the higher boundaries' graphs dropped

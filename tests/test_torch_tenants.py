@@ -644,7 +644,8 @@ def test_cli_trains_tenants_exports_them_and_serves_them(capsys, tmp_path):
     trunk and both tenants from DIR."""
     store = str(tmp_path / "adapters")
     common = ["--reduced", "--layers", "4", "--device", "cpu"]
-    train.main(["--mode", "ring", "--stages", "2", "--rounds", "2", "--microbatches", "2",
+    train.main(["--mode", "ring", "--arch", "qwen2.5-3b", "--stages", "2", "--rounds", "2",
+                "--microbatches", "2",
                 "--batch-size", "1", "--seq-len", "16", "--unfreeze-interval", "2",
                 "--tenants", "2", "--adapter-store", store] + common)
     out = capsys.readouterr().out
