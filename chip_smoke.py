@@ -45,6 +45,14 @@ run with a non-zero exit and no result line:
      cluster's 8 blocks own no column (with path and ptxas), and in bf16
      at T 1, 100 and 512 and with every activation; attention at
      [4, 512, 12, 64] in MHA, beside SDPA and torch.autograd through SDPA;
+     and the shapes of phases 6-9 in bf16, each timed with its bound
+     (``slice_kernel_cases``): the adapter and its backward at starcoder2-7b's
+     D 4608 (the tile path's cluster of 16 blocks of 320 columns, the last
+     owning none) and llama4's D 5120, at 2048 and 512 rows, and decode at T
+     4; attention and its backward at starcoder2's GQA group of 9 (36 over 4
+     heads of 128; ``bwd_parts`` 3 at 4 x 512, 9 at 1 x 512), olmoe's MHA
+     (16 heads of 128) and llama4's group of 5 (40 over 8), beside SDPA and
+     torch.autograd through SDPA;
   3. qwen2.5-3b at its published width (36 layers, d_model 2048, vocab 152064
      padded), random weights from a seed with non-zero adapters, served by
      ``BatchServer`` (4 slots, 8 requests of 64-512 prompt tokens, 32 new tokens
@@ -210,7 +218,45 @@ run with a non-zero exit and no result line:
      per batch (prefill) and ``adapter_fused`` once per layer per step. The
      first batch is served again with ``impl="plain"`` in bf16 and f32, and
      each block and its new cache (k, v, ssm, conv) are held to their kernel
-     version on the same input, as in phase 4.
+     version on the same input, as in phase 4;
+  6. starcoder2-7b at its published width and depth (32 layers, d_model
+     4608, 36 query over 4 KV heads of 128, window 4096, a plain GELU MLP,
+     vocab 49152), random weights from the seed with non-zero adapters,
+     served and held as qwen2.5-3b in phase 3 (no CPU witness), then its
+     loss and gradients held to ``impl="plain"`` at depths 1 and 2 as
+     ``phase_train`` holds them, then six ``PjitBackend`` steps at depths 1,
+     2, 32, graphed against eager as in ``phase_pjit_graph`` (every step
+     ``torch.equal``, the launches at (L, d, L, d - 1));
+  7. olmoe-1b-7b at its published width and depth (16 moe layers, d_model
+     2048, 16 heads of 128, 64 experts top 8 of d_expert 1024 and the
+     reference's shared expert, vocab 50304), served, held and trained as
+     starcoder2-7b (at depth 2 layer 14's gradient passes through layer 15's
+     router softmax, whose backward cancels over 64 nearly equal
+     probabilities: there, as mbert-squad's depth 2 in ``phase_train_qa``,
+     the whole hot region in bf16 is a witness, and the backward kernels
+     alone in bf16 and the whole hot region in f32 are held), then as the
+     ring as ``phase_ring`` runs stablelm-3b: 4
+     stages of 4 layers, 4 microbatches of 1 x 512 tokens an owner, at 3, 2
+     and 0 frozen stages, ``RingTrainer`` held to the single-device step and
+     the fused ``RingExecutor``'s replays equal to ``RingTrainer`` bit for
+     bit. A moe block held to its plain version (serving and gradients) has
+     the plain path take the kernel path's experts (``PinnedRouting``): one
+     ulp before a router can send a token to another expert; the share of
+     tokens the plain path's own top-k would route elsewhere is printed and
+     held below MOE_ROUTED_ELSEWHERE_MAX. The serving line prints the bytes
+     of the experts a decode step reads (every E x C slot is computed, as
+     the reference does) and their time at HBM's rate;
+  8. moonshot-v1-16b-a3b at its published width, 4 of its 48 layers (64
+     experts top 6 of d_expert 1408, vocab 163840): served and held, its
+     gradients held at depth 1, two graphed steps at depth 4 against eager;
+  9. llama4-maverick at its published width, one repeat of its (dense, moe)
+     pattern (d_model 5120, 40 over 8 heads of 128, 128 experts top 1 of
+     8192, vocab 202048; 18.5 B parameters, 37 GB in bf16): served and held
+     in bf16 only (its f32 copy would not fit beside it), its gradients at
+     depth 1 (the repeat: both layers hot, the dense layer's gradient
+     through the moe block: the bf16 whole hot region a witness, the
+     backward kernels alone held) and one eager step there. Each
+     of phases 6-9 frees the card first.
 
 The last four lines are the script's total seconds, a JSON object of
 per-kernel measurements, the card's name and power limit, and
@@ -265,6 +311,7 @@ from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.launch.kernel_times import cold_ms, cuda_ms, graph_ms  # noqa: E402
 from repro_torch.launch.serve import AdapterRegistry, BatchServer, Request  # noqa: E402
 from repro_torch.launch.train import RING_LR, data_source, ring_data_source  # noqa: E402
+from repro_torch.models import blocks, kvcache  # noqa: E402
 from repro_torch.models import params as prm  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
@@ -376,6 +423,24 @@ TENANT_PROMPT, TENANT_NEW = 128, 8
 ELASTIC_CHAOS, ELASTIC_ROUNDS = ("2:crash:2", "5:join:2"), 8
 ELASTIC_TENANT_CHAOS, ELASTIC_TENANT_ROUNDS = "1:crash:1", 3
 ELASTIC_POOL_SLACK_GIB = 2.0
+# the slice's archs (phases 6-9): starcoder2-7b's adapter width and attention
+# (36 query heads over 4 of 128: a GQA group of 9), olmoe-1b-7b's attention
+# (MHA, 16 heads of 128, as moonshot's), llama4-maverick's width and
+# attention (40 over 8: a group of 5). moonshot runs 4 of its 48 layers and
+# llama4 one repeat of its (dense, moe) pattern (18.5 B parameters, 37 GB in
+# bf16; its f32 copy would not fit beside it, so its holds are bf16 only).
+# olmoe's ring: 4 stages of 4 layers at depths 4, 8, 16 (3, 2, 0 frozen
+# stages), 4 microbatches of 1 x 512 tokens an owner, as phase_ring's.
+STARCODER2_D, STARCODER2_HEADS = 4608, (36, 4, 128)
+OLMOE_HEADS = (16, 16, 128)
+LLAMA4_D, LLAMA4_HEADS = 5120, (40, 8, 128)
+MOONSHOT_LAYERS, LLAMA4_LAYERS = 4, 2
+# a moe block held to its plain version takes the kernel path's experts
+# (PinnedRouting); the share of tokens the plain path's own top-k would route
+# elsewhere is printed and held below a quarter: bf16 router logits tie and
+# flip on an ulp, while a wrong kernel upstream routes most tokens elsewhere
+MOE_ROUTED_ELSEWHERE_MAX = 0.25
+OLMOE_RING_DEPTHS = (4, 8, 16)
 SOURCES = {
     "adapter_fused": ("src/repro_torch/kernels/csrc/adapter_fused.cu",
                       "src/repro/kernels/adapter_fused.py:55"),
@@ -869,10 +934,10 @@ def attention_bwd_case(S, window, dtype, gen, record=None, heads=(16, 2, 128), B
     t_ops, t_bytes = 10 * B * H * hd * pairs / rate, nbytes / HBM_BYTES_PER_S
     bound_ms = 1e3 * max(t_ops, t_bytes)
     dt = str(dtype).removeprefix("torch.")
+    parts = fa.bwd_parts(B, S, K, H // K, dev_rule.sm_count(q.device)) \
+        if dtype == torch.bfloat16 else 1
     say("flash_attention_bwd", B=B, H=H, K=K, hd=hd, S=S, window=window, dtype=dt,
-        kernel="tensor_cores" if dtype == torch.bfloat16 else "scalar",
-        parts=fa.bwd_parts(B, S, K, H // K, dev_rule.sm_count(q.device))
-        if dtype == torch.bfloat16 else 1,
+        kernel="tensor_cores" if dtype == torch.bfloat16 else "scalar", parts=parts,
         max_abs_err=f"{err:.3g}", rtol=BWD_RTOL[dtype], ms=f"{ms:.4f}",
         eager_ms=f"{eager_ms:.4f}", plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
         ms_per_library_ms=f"{ms / library_ms:.3f}", library_eager_ms=f"{library_eager_ms:.4f}",
@@ -886,7 +951,7 @@ def attention_bwd_case(S, window, dtype, gen, record=None, heads=(16, 2, 128), B
         record.update(max_abs_err=err, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
                       bound_ms=bound_ms, bound_by="operations" if t_ops > t_bytes else "bytes",
                       library_ms=library_ms, library_eager_ms=library_eager_ms,
-                      library_timer="CUDA graph (torch.autograd.grad through SDPA)",
+                      library_timer="CUDA graph (torch.autograd.grad through SDPA)", parts=parts,
                       shape=f"q,dO[{B},{S},{H},{hd}] kv[{B},{S},{K},{hd}] causal {dt}"
                             + (f" window {window}" if window else ""))
     return ms
@@ -1012,6 +1077,38 @@ def phase_kernels(records) -> None:
     for T in (1, 100, 512):                                      # decode cluster and ragged tiles
         adapter_case(T, bf16, "gelu", gen, D=MBERT_D, m=MBERT_M)
         adapter_bwd_case(T, MBERT_D, bf16, gen, m=MBERT_M)
+    slice_kernel_cases(records, gen)
+
+
+def slice_kernel_cases(records, gen) -> None:
+    """The shapes of the slice's archs (phases 6-9), bf16, each timed with its
+    bound: the adapter at starcoder2-7b's D 4608 (the tile path's cluster of
+    16 with 320 columns a block: block 14 owns 128, block 15 none; decode's
+    cluster 288 columns a block) and llama4's D 5120 (16 blocks of 320),
+    forward and backward at a step's 4 x 512 rows and a ring microbatch's
+    512, and decode at T 4; attention forward and backward at starcoder2's
+    GQA group of 9 (4 x 512: ``bwd_parts`` 3; 1 x 512: 9), olmoe's MHA at
+    hd 128 and llama4's group of 5 (their windows, 4096 and 8192, exceed 512
+    tokens: causal), beside SDPA and torch.autograd through SDPA."""
+    bf16 = torch.bfloat16
+    decode = records["adapter_fused"]["decode_T4_bf16"]
+    for name, D in (("starcoder2", STARCODER2_D), ("llama4", LLAMA4_D)):
+        fwd = records["adapter_fused"].setdefault(f"{name}_D{D}", {})
+        bwd = records["adapter_fused_bwd"].setdefault(f"{name}_D{D}", {})
+        for T in (2048, 512):
+            adapter_case(T, bf16, "gelu", gen, fwd.setdefault(f"T{T}", {}), D=D)
+            adapter_bwd_case(T, D, bf16, gen, bwd.setdefault(f"T{T}", {}))
+        decode[f"D{D}"] = {"ms": adapter_case(4, bf16, "gelu", gen, D=D),
+                           "path": adapter_path(4, D, 64, bf16)}
+    for name, heads, rows in (("starcoder2", STARCODER2_HEADS, (4, 1)),
+                              ("olmoe", OLMOE_HEADS, (4,)), ("llama4", LLAMA4_HEADS, (4,))):
+        for B in rows:
+            key = f"{name}_B{B}"
+            attention_case(512, None, bf16, gen, records["flash_attention"].setdefault(key, {}),
+                           heads=heads, B=B)
+            attention_bwd_case(512, None, bf16, gen,
+                               records["flash_attention_bwd"].setdefault(key, {}),
+                               heads=heads, B=B)
 
 
 # ---------------------------------------------------------------- phases 3 and 4
@@ -1022,15 +1119,20 @@ def count_launches(records, arch: str, launches) -> None:
         records[name].setdefault("launches_by_path", {})[arch] = n
 
 
-def served_config(arch: str):
-    """The architecture at its published width, with non-zero adapters."""
+def served_config(arch: str, layers=None):
+    """The architecture at its published width, with non-zero adapters;
+    ``layers`` cuts the depth to that many layers (whole pattern repeats)."""
     cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers, repeats=layers // cfg.layers_per_repeat)
     return dataclasses.replace(cfg, adapter=dataclasses.replace(cfg.adapter, zero_init_up=False))
 
 
-def phase_serve(arch: str, records, cpu_witness: bool):
-    """Returns the served parameters."""
-    cfg = served_config(arch)
+def phase_serve(arch: str, records, cpu_witness: bool, layers=None, f32: bool = True):
+    """Returns the served parameters. ``layers`` cuts the depth (a whole
+    number of pattern repeats); without ``f32`` the blocks are held in bf16
+    only (a model whose f32 copy does not fit beside it)."""
+    cfg = served_config(arch, layers)
     t0 = time.perf_counter()
     params = prm.materialize(cfg, seed=SEED, device="cuda")
     torch.cuda.synchronize()
@@ -1064,7 +1166,7 @@ def phase_serve(arch: str, records, cpu_witness: bool):
     kinds = {kind for kind, _ in cfg.pattern}
     per_prefill = cfg.n_layers * n_batches
     want = {"adapter_fused": cfg.n_layers * max_new * n_batches,
-            "flash_attention": per_prefill if kinds & {"dense", "hymba"} else 0,
+            "flash_attention": per_prefill if kinds & {"dense", "moe", "hymba"} else 0,
             "mamba_scan": per_prefill if "hymba" in kinds else 0,
             "rwkv_scan": per_prefill if "rwkv" in kinds else 0,
             "adapter_fused_bwd": 0, "flash_attention_bwd": 0}
@@ -1078,57 +1180,73 @@ def phase_serve(arch: str, records, cpu_witness: bool):
     say("serve", arch=cfg.name, requests=len(results), batches=n_batches,
         prompt_lens=list(map(int, lens)), new_tokens=tokens,
         launches=json.dumps(launches).replace(" ", ""))
+    # a moe layer computes all E C slots in decode (the reference's dispatch),
+    # so each step reads every expert's weights: their bytes over HBM's rate
+    # bound a decode step from below
+    n_moe = sum(c for k, c in cfg.pattern if k == "moe") * cfg.repeats
+    expert_bytes = n_moe * sum(math.prod(prm.moe_defs(cfg)[k].shape) for k in
+                               ("we_gate", "we_up", "we_down")) * 2 if n_moe else 0
     say("serve_time", arch=cfg.name, prefill_ms=[f"{x:.2f}" for x in prefill_ms],
         decode_ms_per_step=[f"{x:.3f}" for x in decode_ms],
-        tokens_per_s=f"{tokens / wall:.1f}", wall_s=f"{wall:.3f}", card=repr(CARD))
+        tokens_per_s=f"{tokens / wall:.1f}", wall_s=f"{wall:.3f}",
+        **({"expert_gb_per_decode_step": f"{expert_bytes / 1e9:.2f}",
+            "expert_bound_ms_per_decode_step": f"{1e3 * expert_bytes / HBM_BYTES_PER_S:.3f}"}
+           if n_moe else {}), card=repr(CARD))
 
     V = cfg.vocab_size                                  # the pad logits are -1e30
     first = requests()[:slots]
-    plain, plain_results, gaps16 = _plain_run(cfg, params, first, horizon)
+    plain, plain_results, gaps16, routed16 = _plain_run(cfg, params, first, horizon)
     k16 = server.batches[0]["prefill_logits"][:, :V].float()
     p16 = plain.batches[0]["prefill_logits"][:, :V].float()
     if not torch.isfinite(k16).all() or k16.shape != (slots, V):
         raise AssertionError(f"prefill logits: shape {tuple(k16.shape)} or non-finite values")
 
-    # the same weights in f32 (bf16 -> f32 is exact): prefill and one decode step
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
-    params32 = tree_map(lambda t: t.float(), params)
-    two = [Request(r.rid, r.prompt, 2) for r in first]
-    kernel32 = BatchServer(cfg32, params32, slots=slots, horizon=horizon, device="cuda")
-    kernel32.run(two, log=lambda *a: None)
-    plain32, _, gaps32 = _plain_run(cfg32, params32, two, horizon)
-    k32 = kernel32.batches[0]["prefill_logits"][:, :V].float()
-    p32 = plain32.batches[0]["prefill_logits"][:, :V].float()
     gap = lambda a, b: (a - b).abs().max().item()
     rms = lambda x: x.square().mean().sqrt().item()
-    witness = {}
-    if cpu_witness:
-        # witness of the chaos: the plain path on the CPU sums in another order
-        params_cpu = tree_map(lambda t: t.cpu(), params32)
-        del params32
-        t0 = time.perf_counter()
-        cpu32 = BatchServer(cfg32, params_cpu, slots=slots, horizon=horizon, impl="plain",
-                            device="cpu")
-        cpu32.run([Request(r.rid, r.prompt, 1) for r in first], log=lambda *a: None)
-        c32 = cpu32.batches[0]["prefill_logits"][:, :V].float().to("cuda")
-        witness = {"f32_plain_vs_cpu_plain_rms": f"{rms(p32 - c32):.4g}",
-                   "f32_plain_vs_cpu_plain_max": f"{gap(p32, c32):.4g}",
-                   "cpu_s": f"{time.perf_counter() - t0:.1f}"}
-        del params_cpu
+    held = [(torch.bfloat16, gaps16)]
+    witness, routing = {}, {"bf16_routed_elsewhere": routed16} if routed16 is not None else {}
+    if f32:
+        # the same weights in f32 (bf16 -> f32 is exact): prefill and one decode step
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        params32 = tree_map(lambda t: t.float(), params)
+        two = [Request(r.rid, r.prompt, 2) for r in first]
+        kernel32 = BatchServer(cfg32, params32, slots=slots, horizon=horizon, device="cuda")
+        kernel32.run(two, log=lambda *a: None)
+        plain32, _, gaps32, routed32 = _plain_run(cfg32, params32, two, horizon)
+        k32 = kernel32.batches[0]["prefill_logits"][:, :V].float()
+        p32 = plain32.batches[0]["prefill_logits"][:, :V].float()
+        held.insert(0, (torch.float32, gaps32))
+        if routed32 is not None:
+            routing["f32_routed_elsewhere"] = routed32
+        if cpu_witness:
+            # witness of the chaos: the plain path on the CPU sums in another order
+            params_cpu = tree_map(lambda t: t.cpu(), params32)
+            del params32
+            t0 = time.perf_counter()
+            cpu32 = BatchServer(cfg32, params_cpu, slots=slots, horizon=horizon, impl="plain",
+                                device="cpu")
+            cpu32.run([Request(r.rid, r.prompt, 1) for r in first], log=lambda *a: None)
+            c32 = cpu32.batches[0]["prefill_logits"][:, :V].float().to("cuda")
+            witness = {"f32_plain_vs_cpu_plain_rms": f"{rms(p32 - c32):.4g}",
+                       "f32_plain_vs_cpu_plain_max": f"{gap(p32, c32):.4g}",
+                       "cpu_s": f"{time.perf_counter() - t0:.1f}"}
+            del params_cpu
 
+    short = {torch.float32: "f32", torch.bfloat16: "bf16"}
     say("blocks_vs_plain", arch=cfg.name,
-        **{f"{dt}_{mode}": f"{g:.3g}" for dt, gaps in
-           (("f32", gaps32), ("bf16", gaps16)) for mode, g in gaps.items()},
-        f32_rtol=BLOCK_RTOL[torch.float32], bf16_rtol=BLOCK_RTOL[torch.bfloat16])
-    say("prefill_logits", arch=cfg.name, f32_kernel_vs_plain_rms=f"{rms(k32 - p32):.4g}",
-        tol=f"{LOGIT_RMS_FRACTION * rms(p32):.4g}", rms_logit=f"{rms(p32):.4g}",
-        f32_kernel_vs_plain_max=f"{gap(k32, p32):.4g}",
-        max_abs_logit=f"{p32.abs().max().item():.4g}",
-        bf16_kernel_vs_plain=f"{gap(k16, p16):.4g}", bf16_plain_vs_f32=f"{gap(p16, p32):.4g}",
-        same_argmax=f"{int((k16.argmax(-1) == p16.argmax(-1)).sum())}/{slots}",
-        same_tokens=f"{sum(results[i] == plain_results[i] for i in plain_results)}/{slots}",
-        **witness)
-    for dtype, gaps in ((torch.float32, gaps32), (torch.bfloat16, gaps16)):
+        **{f"{short[dt]}_{mode}": f"{g:.3g}" for dt, gaps in held for mode, g in gaps.items()},
+        **{k: f"{v:.4f}" for k, v in routing.items()},
+        **{f"{short[dt]}_rtol": BLOCK_RTOL[dt] for dt, _ in held})
+    if f32:
+        say("prefill_logits", arch=cfg.name, f32_kernel_vs_plain_rms=f"{rms(k32 - p32):.4g}",
+            tol=f"{LOGIT_RMS_FRACTION * rms(p32):.4g}", rms_logit=f"{rms(p32):.4g}",
+            f32_kernel_vs_plain_max=f"{gap(k32, p32):.4g}",
+            max_abs_logit=f"{p32.abs().max().item():.4g}",
+            bf16_kernel_vs_plain=f"{gap(k16, p16):.4g}", bf16_plain_vs_f32=f"{gap(p16, p32):.4g}",
+            same_argmax=f"{int((k16.argmax(-1) == p16.argmax(-1)).sum())}/{slots}",
+            same_tokens=f"{sum(results[i] == plain_results[i] for i in plain_results)}/{slots}",
+            **witness)
+    for dtype, gaps in held:
         if set(gaps) != {"prefill", "step", "prefill_cache", "step_cache"}:
             raise AssertionError(f"the block check saw modes {sorted(gaps)}")
         for mode, g in gaps.items():
@@ -1136,7 +1254,11 @@ def phase_serve(arch: str, records, cpu_witness: bool):
                 raise AssertionError(f"a {dtype} {mode} block of {cfg.name} differs from its "
                                      f"plain version by {g} of its output "
                                      f"(rtol {BLOCK_RTOL[dtype]})")
-    if not rms(k32 - p32) <= LOGIT_RMS_FRACTION * rms(p32):
+    bad = {k: v for k, v in routing.items() if not v <= MOE_ROUTED_ELSEWHERE_MAX}
+    if bad:
+        raise AssertionError(f"{cfg.name}: the plain path's own top-k routes {bad} of the tokens "
+                             f"elsewhere (at most {MOE_ROUTED_ELSEWHERE_MAX})")
+    if f32 and not rms(k32 - p32) <= LOGIT_RMS_FRACTION * rms(p32):
         raise AssertionError(f"{cfg.name} f32 prefill logits: kernel path {rms(k32 - p32)} "
                              f"(RMS) from the plain path, beyond {LOGIT_RMS_FRACTION} x "
                              f"their RMS {rms(p32)}")
@@ -1150,7 +1272,8 @@ def _grad_check(cfg, params, batch, boundary, *, backward_only=False, gate=True,
     batch. The frozen trunk runs on the kernels in both (blocks that run with
     no gradient), so both hot regions start from the same boundary input: the
     random model is chaotic, and a last-digit change below would otherwise
-    reach the gradients. With ``backward_only`` the plain path is the kernel
+    reach the gradients. A moe block of the plain path takes the kernel
+    path's experts (``PinnedRouting``). With ``backward_only`` the plain path is the kernel
     path with each backward kernel swapped for its plain version (the same
     forward, bit for bit): this holds the chain of backward launches alone,
     at any depth. Without ``gate`` only a non-finite loss fails: the line is
@@ -1158,7 +1281,9 @@ def _grad_check(cfg, params, batch, boundary, *, backward_only=False, gate=True,
     the chaotic forward separates the paths. ``rtol``: the gradients' RMS
     gap held (GRAD_RMS_RTOL by default)."""
     rtol = GRAD_RMS_RTOL if rtol is None else rtol
-    lk, _, gk = training.loss_and_grads(params, batch, cfg, boundary, impl="kernel")
+    pin = PinnedRouting()
+    with pin:
+        lk, _, gk = training.loss_and_grads(params, batch, cfg, boundary, impl="kernel")
     real = tfm.apply_block, af.adapter_fused_bwd, fa.flash_attention_bwd
 
     def trunk_on_kernels(kind, cfg, p, h, ctx, cache=None):
@@ -1172,8 +1297,10 @@ def _grad_check(cfg, params, batch, boundary, *, backward_only=False, gate=True,
     else:
         tfm.apply_block = trunk_on_kernels
     try:
-        lp, _, gp = training.loss_and_grads(params, batch, cfg, boundary,
-                                            impl="kernel" if backward_only else "plain")
+        pin.mode = "pin"
+        with pin:
+            lp, _, gp = training.loss_and_grads(params, batch, cfg, boundary,
+                                                impl="kernel" if backward_only else "plain")
     finally:
         tfm.apply_block, af.adapter_fused_bwd, fa.flash_attention_bwd = real
     rms = lambda x: x.float().square().mean().sqrt().item()
@@ -1192,6 +1319,7 @@ def _grad_check(cfg, params, batch, boundary, *, backward_only=False, gate=True,
         grad_norm_kernel=f"{norm(gk):.6g}", grad_norm_plain=f"{norm(gp):.6g}",
         worst_leaf=worst, worst_gap=f"{gaps[worst]:.3g}",
         dtype=cfg.dtype, grad_rms_rtol=rtol if gate else "none (witness)",
+        **({"moe_routed_elsewhere": f"{pin.share():.4f}"} if pin.share() is not None else {}),
         grad_rms_gaps=json.dumps({k: float(f"{v:.3g}") for k, v in gaps.items()}).replace(" ", ""))
     if not (torch.isfinite(lk) and torch.isfinite(lp)):
         raise AssertionError(f"train loss: kernel {lk.item()}, plain {lp.item()}")
@@ -1487,12 +1615,52 @@ def phase_pjit_graph(arch: str, records) -> None:
            for d, t in times.items() for k, v in t.items()}, card=repr(CARD))
 
 
+class PinnedRouting:
+    """While a kernel path is held to its plain version: the kernel path's
+    expert choices (``blocks.moe_topk``) are recorded in order, and the plain
+    path, run next on the same inputs, takes the same experts (its gates
+    from its own probabilities), so both compute the same function and
+    differ by rounding alone. One ulp before a router can otherwise send a
+    token to another expert and move its output by a whole expert's; the
+    tokens the plain path's own top-k would have sent elsewhere are counted
+    (``share``). Outside the ``with`` block the model routes as always."""
+
+    def __init__(self):
+        self.real, self.mode, self.choices = blocks.moe_topk, "record", []
+        self.tokens = self.elsewhere = 0
+
+    def __call__(self, probs, k):
+        gates, eidx = self.real(probs, k)
+        if self.mode == "record":
+            self.choices.append(eidx)
+            return gates, eidx
+        want = self.choices.pop(0)
+        self.tokens += eidx.shape[0]
+        self.elsewhere += int((eidx.sort(-1).values != want.sort(-1).values).any(-1).sum())
+        return probs.gather(-1, want), want
+
+    def share(self):
+        """The share of the plain path's tokens routed elsewhere by its own
+        top-k, or None where no moe block ran."""
+        return self.elsewhere / self.tokens if self.tokens else None
+
+    def __enter__(self):
+        blocks.moe_topk = self
+        return self
+
+    def __exit__(self, *exc):
+        blocks.moe_topk = self.real
+
+
 def _plain_run(cfg, params, requests, horizon):
     """Serve ``requests`` (one batch) with ``impl="plain"`` on the card. Every
     block also runs its kernel version on the same input and a copy of its
-    cache. Returns the server, its results and, per block mode, the worst gap
-    between the two relative to the block output's largest entry (and, under
-    "<mode>_cache", the worst over the new cache's leaves)."""
+    cache (first: a moe block's plain version takes its experts,
+    ``PinnedRouting``). Returns the server, its results, per block mode the
+    worst gap between the two relative to the block output's largest entry
+    (and, under "<mode>_cache", the worst over the new cache's leaves), and
+    the share of tokens the plain path's own routing would send elsewhere
+    (None without moe blocks)."""
     gaps = {}
     real = tfm.apply_block
 
@@ -1502,7 +1670,9 @@ def _plain_run(cfg, params, requests, horizon):
 
     def both(kind, cfg, p, h, ctx, cache=None):
         twin = None if cache is None else {k: v.clone() for k, v in cache.items()}
-        hk, ck = real(kind, cfg, p, h, dataclasses.replace(ctx, impl="kernel"), twin)
+        pin.mode = "record"
+        hk, ck, _ = real(kind, cfg, p, h, dataclasses.replace(ctx, impl="kernel"), twin)
+        pin.mode = "pin"
         out = real(kind, cfg, p, h, ctx, cache)
         gaps[ctx.mode] = max(gaps.get(ctx.mode, 0.0), rel(hk, out[0]))
         cg = max(rel(ck[name], leaf) for name, leaf in out[1].items())
@@ -1513,10 +1683,11 @@ def _plain_run(cfg, params, requests, horizon):
                          device="cuda")
     tfm.apply_block = both
     try:
-        results = server.run(requests, log=lambda *a: None)
+        with PinnedRouting() as pin:
+            results = server.run(requests, log=lambda *a: None)
     finally:
         tfm.apply_block = real
-    return server, results, gaps
+    return server, results, gaps, pin.share()
 
 
 def phase_train_only(arch: str, records) -> None:
@@ -2353,7 +2524,7 @@ def phase_ring_tenants(arch: str, records) -> None:
     logits = [bt["prefill_logits"] for bt in server.batches]
     apart = all(not torch.equal(logits[i], logits[j]) for i in range(TENANTS)
                 for j in range(i))
-    _, _, gaps = _plain_run(cfg, registry.params_for("tenant1"), requests[2:4], horizon)
+    _, _, gaps, _ = _plain_run(cfg, registry.params_for("tenant1"), requests[2:4], horizon)
     say("ring_tenants_serve", bundles=json.dumps(names).replace(" ", ""),
         save_s=f"{save_s:.2f}", bundle_bytes=sum(os.path.getsize(os.path.join(root, f))
                                                  for f in os.listdir(root)) // TENANTS,
@@ -2653,6 +2824,135 @@ def phase_ring_elastic(arch: str, records) -> None:
     del sess, ex, be, twin
 
 
+# ---------------------------------------------------------------- phases 6-9
+def _held_gradients(cfg, params, batch, boundary, f32: bool = True) -> None:
+    """The kernel path's loss and gradients against impl="plain" at
+    ``boundary``, held as phase_train holds depths 1 and 2. Where a moe
+    block lies above the lowest hot layer, that layer's gradient passes
+    through the block's router softmax over nearly uniform probabilities,
+    whose backward (p (dp - <dp, p>)) cancels: in bf16 the two paths'
+    roundings then part as mbert-squad's do below its top layer (PERF.md
+    section 6). There, as phase_train_qa holds mbert's depth 2, the whole hot
+    region in bf16 is a witness, and held are the backward kernels alone in
+    bf16 and, with ``f32`` (where the model's f32 copy fits), the whole hot
+    region in f32 at DEEP_F32_RMS_RTOL."""
+    hot = kvcache.layer_kinds(cfg)[boundary * cfg.layers_per_repeat:]
+    if "moe" not in hot[1:]:
+        _grad_check(cfg, params, batch, boundary)
+        return
+    _grad_check(cfg, params, batch, boundary, gate=False)
+    _grad_check(cfg, params, batch, boundary, backward_only=True)
+    if f32:
+        params32 = tree_map(lambda t: t.float(), params)
+        _grad_check(dataclasses.replace(cfg, dtype="float32"), params32, batch, boundary,
+                    rtol=DEEP_F32_RMS_RTOL)
+        del params32
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _slice_train(cfg, params, records, depths, grad_depths=(1, 2)) -> None:
+    """The kernel path's loss and gradients against impl="plain" on one batch
+    of 4 x 512 at ``grad_depths`` (:func:`_held_gradients`), then
+    PjitBackend's steps at ``depths`` (TRAIN_INTERVAL each), graphed against
+    eager (:func:`_pjit_walk`): every step ``torch.equal``, the launches at
+    (L, d, L, d - 1)."""
+    tc = TrainConfig(batch_size=TRAIN_B, seq_len=TRAIN_S, seed=SEED)
+    batch = to_device(data_source(cfg, tc).next(), "cuda")
+    for depth in grad_depths:
+        _held_gradients(cfg, params, batch, depth_to_boundary(cfg, depth))
+    del batch
+    ops.reset_launches()
+    launches, times = _pjit_walk(cfg, tc, params, depths, "slice_pjit")
+    _path_kernels_ran(ops.LAUNCHES, f"{cfg.name}'s graphed steps")
+    count_launches(records, f"{cfg.name}_pjit_graph", launches)
+    say("slice_pjit_time", arch=cfg.name, layers=cfg.n_layers, batch=TRAIN_B, seq_len=TRAIN_S,
+        **{f"depth{d}_{k}": json.dumps([round(x, 3) for x in v]).replace(" ", "")
+           for d, t in times.items() for k, v in t.items()}, card=repr(CARD))
+
+
+def _one_step(cfg, params, records) -> None:
+    """One eager ``make_train_step`` at depth 1 (the top pattern repeat hot)
+    on a batch of 4 x 512, after its loss and gradients are held against
+    impl="plain" in bf16 (:func:`_held_gradients`; its f32 copy would not
+    fit): the launches at (L, d, L, d - 1), the frozen layers' adapters
+    bit-identical, the top adapter moved, moe_aux and moe_z reported."""
+    tc = TrainConfig(batch_size=TRAIN_B, seq_len=TRAIN_S, seed=SEED)
+    batch = to_device(data_source(cfg, tc).next(), "cuda")
+    boundary = depth_to_boundary(cfg, 1)
+    _held_gradients(cfg, params, batch, boundary, f32=False)
+    L, n_frozen = cfg.n_layers, boundary * cfg.layers_per_repeat
+    d = L - n_frozen
+    opt = adamw.init(training.full_trainable(params, cfg))
+    clone = lambda tree: {k: t.clone() for k, t in tree.items()}
+    frozen = [clone(params["blocks"][i]["adapter"]) for i in range(n_frozen)]
+    top = clone(params["blocks"][-1]["adapter"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    params, opt, metrics = training.make_train_step(cfg, tc, boundary)(params, opt, batch)
+    loss = metrics["loss"].item()
+    wall = 1e3 * (time.perf_counter() - t0)
+    got = dict(ops.LAUNCHES)
+    want = {"adapter_fused": L, "adapter_fused_bwd": d, "flash_attention": L,
+            "flash_attention_bwd": d - 1, "mamba_scan": 0, "rwkv_scan": 0}
+    say("slice_step", arch=cfg.name, layers=L, depth=d, boundary=boundary, loss=f"{loss:.5f}",
+        **{k: f"{metrics[k].item():.4g}" for k in ("moe_aux", "moe_z", "grad_norm")},
+        step_ms=f"{wall:.2f}", peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
+        launches=json.dumps(got).replace(" ", ""), card=repr(CARD))
+    if got != want or not math.isfinite(loss):
+        raise AssertionError(f"{cfg.name} step: launches {got} != {want} or loss {loss}")
+    if not all(torch.equal(params["blocks"][i]["adapter"][k], t)
+               for i, tree in enumerate(frozen) for k, t in tree.items()):
+        raise AssertionError(f"{cfg.name} step: a frozen adapter moved")
+    if all(torch.equal(params["blocks"][-1]["adapter"][k], t) for k, t in top.items()):
+        raise AssertionError(f"{cfg.name} step: the top adapter did not move")
+    count_launches(records, f"{cfg.name}_train", got)
+
+
+def phase_starcoder2(records) -> None:
+    """starcoder2-7b at its published width and depth: served (blocks held
+    to their plain versions in bf16 and f32), then the gradients at depths 1
+    and 2 and six graphed steps at depths 1, 2, 32."""
+    arch = "starcoder2-7b"
+    params = phase_serve(arch, records, cpu_witness=False)
+    cfg = served_config(arch)
+    _slice_train(cfg, params, records, (1, 2, cfg.n_layers))
+
+
+def phase_olmoe(records) -> None:
+    """olmoe-1b-7b at its published width and depth, served and trained as
+    starcoder2-7b, then as the ring (phase_ring's checks): RingTrainer and
+    the fused RingExecutor, 4 stages of 4 layers at 3, 2, 0 frozen stages."""
+    arch = "olmoe-1b-7b"
+    params = phase_serve(arch, records, cpu_witness=False)
+    cfg = served_config(arch)
+    _slice_train(cfg, params, records, (1, 2, cfg.n_layers))
+    gc.collect()
+    torch.cuda.empty_cache()
+    tc = TrainConfig(learning_rate=RING_LR, batch_size=1, seq_len=TRAIN_S,
+                     n_microbatches=RING_M, n_stages=RING_S, seed=SEED)
+    _ring_walk(cfg, tc, params, records, OLMOE_RING_DEPTHS, None, "ring")
+
+
+def phase_moonshot(records) -> None:
+    """moonshot-v1-16b-a3b at its published width, 4 of its 48 layers:
+    served, then the gradients at depth 1 and two graphed steps at depth 4."""
+    arch = "moonshot-v1-16b-a3b"
+    params = phase_serve(arch, records, cpu_witness=False, layers=MOONSHOT_LAYERS)
+    cfg = served_config(arch, MOONSHOT_LAYERS)
+    _slice_train(cfg, params, records, (cfg.n_layers,), grad_depths=(1,))
+
+
+def phase_llama4(records) -> None:
+    """llama4-maverick at its published width, one repeat (a dense and a moe
+    layer, 128 experts top 1), bf16 only: served, then one step at depth 1."""
+    arch = "llama4-maverick-400b-a17b"
+    params = phase_serve(arch, records, cpu_witness=False, layers=LLAMA4_LAYERS, f32=False)
+    _one_step(served_config(arch, LLAMA4_LAYERS), params, records)
+
+
 def freed() -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -2706,6 +3006,11 @@ def main() -> None:
     phase_serve("rwkv6-7b", records, cpu_witness=False)
     freed()                                             # rwkv6-7b before hymba-1.5b
     phase_serve("hymba-1.5b", records, cpu_witness=False)
+    for phase in (phase_starcoder2, phase_olmoe, phase_moonshot, phase_llama4):
+        freed()                                         # the last arch before the next
+        t0 = time.perf_counter()
+        phase(records)
+        say(phase.__name__.removeprefix("phase_"), seconds=f"{time.perf_counter() - t0:.1f}")
     say("total", seconds=f"{time.perf_counter() - start:.1f}")
     print(json.dumps({"kernels": list(records.values())}), flush=True)
     print(CARD, flush=True)

@@ -86,6 +86,7 @@ CACHE_STAT_KEYS = ("cache_hits", "cache_misses", "cache_hit_rate",
 
 def _validate_ring(cfg: ModelConfig, n_stages: int) -> None:
     """The ring's preconditions."""
+    pl._check_ring(cfg)
     if cfg.head_out is not None:
         raise ValueError(
             f"ring backends train with the LM objective, but this config has a task head "

@@ -122,8 +122,9 @@ class LoggingCallback(Callback):
     ``[elastic S=n]`` after a round that moved an elastic ring's layout),
     ``r`` counting from the run's first round ever (a resumed run goes on
     counting; ``?`` where the checkpoint does not say); a one-device step as
-    ``step s boundary b loss x accuracy a grad_norm g``, ``s`` the step's
-    index, and a QA step as ``step s boundary b loss x em e f1 f`` (the
+    ``step s boundary b loss x accuracy a grad_norm g`` (and ``moe_aux x
+    moe_z z`` for a model with moe blocks), ``s`` the step's index, and a QA
+    step as ``step s boundary b loss x em e f1 f`` (the
     reference's ``acc/f1=`` shows its F1 there)."""
 
     def __init__(self, log=print, every: int = 1):
@@ -151,9 +152,10 @@ class LoggingCallback(Callback):
             self.log(f"step {d['step'] - 1} boundary {d['boundary']} loss {d['loss']:.4f} "
                      f"em {d['em']:.4f} f1 {d['f1']:.4f}")
         else:
+            moe = "".join(f" {k} {d[k]:.4g}" for k in ("moe_aux", "moe_z") if k in d)
             self.log(f"step {d['step'] - 1} boundary {d['boundary']} loss {d['loss']:.4f} "
                      f"accuracy {d.get('accuracy', float('nan')):.4f} "
-                     f"grad_norm {d.get('grad_norm', float('nan')):.4g}")
+                     f"grad_norm {d.get('grad_norm', float('nan')):.4g}{moe}")
 
     def on_round(self, session, m: RoundMetrics) -> None:
         self._n += 1

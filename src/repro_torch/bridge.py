@@ -91,9 +91,9 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device=None) -> Dict
     entry's ``count`` layers. Hymba's top-level ``meta`` leaf comes along.
     """
     kinds = {k for k, _ in cfg.pattern}
-    if not kinds <= {"dense", "rwkv", "hymba"} or cfg.enc_dec or cfg.frontend:
+    if not kinds <= {"dense", "moe", "rwkv", "hymba"} or cfg.enc_dec or cfg.frontend:
         raise NotImplementedError(
-            f"{cfg.name}: the port carries dense, rwkv and hymba decoders only")
+            f"{cfg.name}: the port carries dense, moe, rwkv and hymba decoders only")
     device = dev_rule.resolve(device)
     conv = lambda x: to_tensor(x, device)
     out = {

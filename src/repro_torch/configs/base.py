@@ -1,14 +1,15 @@
 """Model configurations for the PyTorch port (a copy of the JAX package's).
 
 The port keeps its own copy of :class:`ModelConfig`, :class:`AdapterConfig`,
-:class:`SSMConfig` and :class:`TrainConfig` so it never imports the JAX package. Field names, defaults and :meth:`ModelConfig.reduced`
+:class:`MoEConfig`, :class:`SSMConfig` and :class:`TrainConfig` so it never
+imports the JAX package. Field names, defaults and :meth:`ModelConfig.reduced`
 are the same as the reference's, so a config built on either side describes the
 same model; ``tests/test_torch_*.py`` hold the two together.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 # dense : GQA self-attention + dense FFN
 # moe   : GQA self-attention + mixture-of-experts FFN
@@ -26,6 +27,19 @@ class AdapterConfig:
     activation: str = "gelu"      # σ(·), tanh-form gelu as in jax.nn.gelu
     # Zero-init of W_up makes a never-trained adapter an exact identity.
     zero_init_up: bool = True
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 64
+    top_k: int = 8
+    d_expert: int = 1024          # per-expert hidden dim
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01   # load-balance loss weight
+    router_z_weight: float = 1e-3
+    # the reference's FSDP switch for the expert weights' sharding; kept so the
+    # two configs compare field for field (one device shards nothing)
+    fsdp_experts: bool = True
 
 
 @dataclass(frozen=True)
@@ -57,7 +71,7 @@ class ModelConfig:
     qkv_bias: bool = False
     sliding_window: Optional[int] = None
     adapter: AdapterConfig = field(default_factory=AdapterConfig)
-    moe: Optional[Any] = None        # the MoE sub-config: its block is not ported
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     enc_dec: bool = False
     n_enc_layers: int = 0
@@ -89,6 +103,8 @@ class ModelConfig:
         for kind, _ in self.pattern:
             if kind not in BLOCK_KINDS:
                 raise ValueError(f"unknown block kind {kind!r}")
+            if kind == "moe" and self.moe is None:
+                raise ValueError(f"{self.name}: moe pattern without MoEConfig")
             if kind in ("rwkv", "hymba") and self.ssm is None:
                 raise ValueError(f"{self.name}: ssm pattern without SSMConfig")
 

@@ -139,8 +139,12 @@ def unstack_entry(stacked: Any, spans: Sequence[Span], *, leading: int = 0) -> A
 
 
 def _check_ring(cfg: ModelConfig) -> None:
+    """A stage applies the pattern's first block kind to every layer (as the
+    reference's ``_apply_stage_layers`` does), so a pattern of several
+    entries (llama4's dense and moe layers) has no ring."""
     if len(cfg.pattern) != 1:
-        raise ValueError(f"{cfg.name}: the ring needs a uniform layer pattern, got {cfg.pattern}")
+        raise ValueError(f"{cfg.name}: the ring needs a uniform layer pattern (every stage "
+                         f"applies one block kind to every layer), got {cfg.pattern}")
 
 
 def stage_stack(params: Dict[str, Any], cfg: ModelConfig, n_stages: int, *,
@@ -178,7 +182,7 @@ def _apply_stage_layers(cfg: ModelConfig, stage: Sequence[Dict[str, Any]], h: to
     """This stage's blocks, in order, on h [mb, seq, D]."""
     kind = cfg.pattern[0][0]
     for layer in stage:
-        h, _ = apply_block(kind, cfg, layer, h, ctx)
+        h, _, _ = apply_block(kind, cfg, layer, h, ctx)
     return h
 
 

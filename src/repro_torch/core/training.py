@@ -17,7 +17,9 @@ as the model's forward takes it.
 Two objectives share one forward, backward and AdamW body: the language
 model's cross-entropy and, for a span head (``cfg.head_out == 2``, the
 paper's mBERT + SQuAD), ``qa_span_loss``. :func:`make_step` is the one place
-that picks the step for a config.
+that picks the step for a config. A model with moe blocks reports the
+forward's ``moe_aux`` and ``moe_z`` among the metrics, detached and not added
+to the loss, as the reference's LM step does.
 """
 from __future__ import annotations
 
@@ -74,6 +76,10 @@ def slice_to_full(params: Dict[str, Any], trainable_sliced: Dict[str, Any], boun
             "head": trainable_sliced["head"]}
 
 
+def has_moe(cfg: ModelConfig) -> bool:
+    return any(kind == "moe" for kind, _ in cfg.pattern)
+
+
 def objective(cfg: ModelConfig, logits: torch.Tensor, batch: Batch):
     """(loss, metrics) of the config's task: the span loss for a QA head
     (batch ``starts``, ``ends`` [B]), else the LM cross-entropy (``labels``
@@ -93,9 +99,12 @@ def loss_and_grads(params: Dict[str, Any], batch: Batch, cfg: ModelConfig, bound
     leaves = [t.detach().requires_grad_(True) for t in leaves]
     tr = tree_unflatten(leaves, spec)
     with torch.enable_grad():
-        logits = tfm.forward(params, batch["tokens"], cfg, boundary=boundary, impl=impl,
-                             hot_adapters=tr["adapters"], head_params=tr["head"])
+        logits, aux = tfm.forward(params, batch["tokens"], cfg, boundary=boundary,
+                                  impl=impl, hot_adapters=tr["adapters"],
+                                  head_params=tr["head"])
         loss, metrics = objective(cfg, logits, batch)
+        if has_moe(cfg):
+            metrics = {**metrics, **aux}
         grads = torch.autograd.grad(loss, leaves)
     metrics = {k: v.detach() for k, v in metrics.items()}
     return loss.detach(), metrics, tree_unflatten(list(grads), spec)
@@ -149,7 +158,7 @@ def make_step(cfg: ModelConfig, tc: TrainConfig, boundary: int) -> Callable:
 def make_eval_step(cfg: ModelConfig) -> Callable:
     @torch.no_grad()
     def eval_step(params, batch: Batch) -> Dict[str, torch.Tensor]:
-        logits = tfm.forward(params, batch["tokens"], cfg)
+        logits, _ = tfm.forward(params, batch["tokens"], cfg)
         return cross_entropy(logits, batch["labels"], batch.get("mask"))[1]
 
     return eval_step

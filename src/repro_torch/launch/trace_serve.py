@@ -44,14 +44,23 @@ def wall_ms(fn, device: torch.device) -> float:
     return 1e3 * (time.perf_counter() - t0)
 
 
-def traced(fn, device: torch.device, label: str, unprofiled_ms: float) -> None:
-    """Profile ``fn``; ``unprofiled_ms`` is its wall time measured before any profiling."""
+def kernels(events):
+    """The device's kernels among profiler events: not the device-side spans
+    of named ranges (``record_function``), which cover the gaps between
+    their kernels."""
+    return [e for e in events if e.device_type.name == "CUDA"
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def traced(fn, device: torch.device, label: str, unprofiled_ms: float):
+    """Profile ``fn``; ``unprofiled_ms`` is its wall time measured before any
+    profiling. Returns the profile."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         traced_wall_ms = wall_ms(fn, device)
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    events = kernels(prof.key_averages())
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
     launches = sum(e.count for e in events)
-    ranges = [e.time_range for e in prof.events() if e.device_type.name == "CUDA"]
+    ranges = [e.time_range for e in kernels(prof.events())]
     span_ms = (max(r.end for r in ranges) - min(r.start for r in ranges)) / 1e3 if ranges else 0.0
     print(f"[{label}] wall_ms={unprofiled_ms:.3f} traced_wall_ms={traced_wall_ms:.3f} "
           f"device_ms={device_ms:.3f} device_span_ms={span_ms:.3f} "
@@ -65,6 +74,7 @@ def traced(fn, device: torch.device, label: str, unprofiled_ms: float) -> None:
         if any(name in e.key for name in PORT_KERNELS):
             print(f"[{label}] port kernel {e.self_device_time_total / 1e3:9.3f} ms  "
                   f"x{e.count:<5d} {e.key[:90]}")
+    return prof
 
 
 def main(argv=None) -> None:

@@ -17,7 +17,10 @@ launches the capture recorded), then the traced step's device time summed
 over kernels, the traced device span (first device event to last) and its
 gap to that sum, the device's idle share of the unprofiled wall time, the
 kernels that took the most device time and the port's own kernels (forward
-and backward). Both backends share the frozen weights; each step moves the
+and backward); a model with moe blocks also prints the step's ``moe_aux``
+and ``moe_z``, and for the eager step where its device time goes
+(:func:`moe_split`: the experts, the dispatch, the routing, the shared
+expert, the port's kernels, the rest). Both backends share the frozen weights; each step moves the
 adapters and the head, which a step's time does not depend on.
 
 ``--mode ring`` traces the RingAda ring round instead: ``--stages`` stages of
@@ -43,6 +46,7 @@ one, two and every stage's layers), on the same batch:
     unprofiled round and one traced round; it prints the memory resident
     before, the round's peak and the peak of one owner iteration's ring
     forward and backward alone, and the kernel launches per owner iteration;
+    for a moe model, the round's device time by part (:func:`moe_split`);
 
 then the traced round as above.
 
@@ -70,11 +74,37 @@ from repro_torch.core.executor import RingExecutor
 from repro_torch.core.ring import RingTrainer
 from repro_torch.core.unfreeze import UnfreezeSchedule, depth_to_boundary
 from repro_torch.data.pipeline import to_device
-from repro_torch.launch.trace_serve import traced, wall_ms
+from repro_torch.launch.trace_serve import PORT_KERNELS, kernels, traced, wall_ms
 from repro_torch.launch.train import RING_LR, data_source, ring_data_source
 from repro_torch.models import params as prm
 
 SEED = 0
+# the parts of a moe block's device time: its named ranges (models/blocks.py
+# moe_ffn) and the backward nodes of their operations
+MOE_PARTS = {"experts": ("moe_experts", "BmmBackward0"),
+             "dispatch": ("moe_dispatch", "_RowGatherBackward"),
+             "routing": ("moe_route",), "shared_expert": ("moe_shared",)}
+
+
+def moe_split(prof, label: str) -> None:
+    """An eager profiled run's device ms by part: the experts' batched
+    products (forward and backward), the dispatch and combine gathers (both
+    directions), the routing (router, softmax, top-k, slots, aux; its
+    backward falls in "other") and the shared expert's forward, the port's
+    kernels, and the rest (attention's projections, norms, the head, the
+    loss, AdamW, and the backward of everything not named)."""
+    averages = prof.key_averages()
+    # a host-side range's device time sums the kernels launched inside it
+    host = {e.key: e for e in averages if e.device_type.name == "CPU"}
+    device_kernels = kernels(averages)
+    device = sum(e.self_device_time_total for e in device_kernels) / 1e3
+    ms = {part: sum(host[k].device_time_total for k in keys if k in host) / 1e3
+          for part, keys in MOE_PARTS.items()}
+    ms["port_kernels"] = sum(e.self_device_time_total for e in device_kernels
+                             if any(n in e.key for n in PORT_KERNELS)) / 1e3
+    ms["other"] = device - sum(ms.values())
+    print(f"[{label}] moe split: " + " ".join(f"{k}_ms={v:.3f}" for k, v in ms.items())
+          + f" device_ms={device:.3f}")
 
 
 def _event_ms(run) -> float:
@@ -174,7 +204,9 @@ def trace_ring(cfg, args, device) -> None:
               f"fwd_bwd_peak_gib={fwd_bwd / 2**30:.3f} "
               f"launches_per_iteration={json.dumps(launches).replace(' ', '')} "
               f"device={torch.cuda.get_device_name(device)}")
-        traced(run, device, f"ring depth {depth}", unprofiled)
+        prof = traced(run, device, f"ring depth {depth}", unprofiled)
+        if training.has_moe(cfg):
+            moe_split(prof, f"ring depth {depth}")
 
 
 def trace_pjit(cfg, args, device) -> None:
@@ -208,19 +240,24 @@ def trace_pjit(cfg, args, device) -> None:
                 training.loss_and_grads(params, to_device(batch, device), cfg, boundary)
                 extra = f"fwd_bwd_peak_gib={torch.cuda.max_memory_allocated(device) / 2**30:.3f}"
             label = "graphed" if graphs else "eager"
-            print(f"[trace] arch={cfg.name} step={label} depth={depth} boundary={boundary} "
+            moe = "".join(f"{k}={float(v):.4g} " for k, v in run()["extras"].items()
+                          if k in ("moe_aux", "moe_z")) if training.has_moe(cfg) else ""
+            print(f"[trace] arch={cfg.name} step={label} depth={depth} boundary={boundary} {moe}"
                   f"batch={args.batch_size} seq_len={args.seq_len} "
                   f"resident_gib={resident / 2**30:.3f} step_peak_gib={peak / 2**30:.3f} "
                   f"wall_ms={unprofiled:.3f} event_ms={event_ms:.3f} {extra} "
                   f"device={torch.cuda.get_device_name(device)}")
-            traced(run, device, f"train {label} depth {depth}", unprofiled)
+            prof = traced(run, device, f"train {label} depth {depth}", unprofiled)
+            if training.has_moe(cfg) and not graphs:
+                moe_split(prof, f"train {label} depth {depth}")
             del be, run
             torch.cuda.empty_cache()
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen2.5-3b", help="a dense port architecture")
+    ap.add_argument("--arch", default="qwen2.5-3b",
+                    help="a port architecture with attention blocks (dense or moe)")
     ap.add_argument("--mode", choices=["pjit", "ring"], default="pjit",
                     help="pjit: the single-device step; ring: the ring round")
     ap.add_argument("--trainer", choices=["fused", "reference"], default="fused",

@@ -1,6 +1,10 @@
-"""Forward computation of the dense, RWKV-6 and Hymba blocks, for serving.
+"""Forward computation of the dense, MoE, RWKV-6 and Hymba blocks.
 
-    new_h, new_cache = apply_block(kind, cfg, params, h, ctx, cache)
+    new_h, new_cache, aux = apply_block(kind, cfg, params, h, ctx, cache)
+
+``aux`` holds a block's auxiliary losses: a moe block's ``moe_aux`` (the
+load-balance loss) and ``moe_z`` (the router z-loss), f32 scalars; the other
+kinds have none (an empty dict, where the reference adds zeros).
 
 ``ctx`` is a :class:`BlockCtx`: mode "seq" (a full sequence, no cache),
 "prefill" (a full prompt that also fills the cache) or "step" (one new token
@@ -28,6 +32,16 @@ sequence (S > 1); one step (S = 1) is the plain single-step recurrence, as it
 is jnp in the reference. ``impl="plain"`` computes what the reference's jnp
 path computes, :func:`_wkv_chunk` over chunks.
 
+MoE (:func:`moe_ffn`): attention as in a dense block, then the reference's
+capacity-bounded dispatch by sort with one token group, and its shared
+expert. The expert products are batched matrix products, as they are jnp
+in the reference. Top-k ties go to the lower expert index, as ``lax.top_k``
+breaks them (:func:`moe_topk`). Dispatch and combine are gathers in both
+directions (:class:`_RowGather`): every kept assignment owns its slot, so no
+row is summed by atomics and a round is bit for bit repeatable; the
+capacity C comes from the shapes on the host, so a step captures as a CUDA
+graph.
+
 Every block ends in the fused adapter kernel.
 """
 from __future__ import annotations
@@ -38,6 +52,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.adapter import apply_adapter
@@ -397,13 +412,141 @@ def mamba_mix(cfg: ModelConfig, p, x: torch.Tensor,
     return y, new_cache
 
 
+# ---------------------------------------------------------------------------
+# Mixture of experts: capacity-bounded dispatch by sort (one token group)
+# ---------------------------------------------------------------------------
+
+
+def moe_capacity(cfg: ModelConfig, n_tokens: int) -> int:
+    """Slots per expert for a call of ``n_tokens`` tokens: the reference's
+    C = max(8, ceil(ceil(T k / E cf) / 8) 8), from the shapes alone."""
+    m = cfg.moe
+    C = int(math.ceil(n_tokens * m.top_k / m.n_experts * m.capacity_factor))
+    return max(8, -(-C // 8) * 8)
+
+
+def moe_topk(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(gates, experts), each [T, k]: the k largest probabilities of each row
+    and their experts, ties to the lower index (``lax.top_k``'s rule, which
+    ``torch.topk`` does not promise), by a stable descending sort."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[:, :k], idx[:, :k]
+
+
+def moe_slots(eidx: torch.Tensor, n_experts: int, capacity: int):
+    """The dispatch maps of the T k assignments (token-major) of ``eidx`` [T, k].
+
+    Returns (slot [T k], src [E C], keep [T k]): an assignment's rank counts
+    the earlier assignments to its expert (a stable sort, as the reference's:
+    no [T, E] cumsum); it lands in slot ``e C + rank`` if its rank is below C,
+    else in the dummy slot E C (dropped). ``src`` names each slot's assignment,
+    or the sentinel T k for an empty slot. Every map is a permutation or a
+    gather, so each kept slot is written once.
+    """
+    E, C = n_experts, capacity
+    n = eidx.numel()
+    flat_e = eidx.reshape(n)
+    sorted_e, order = torch.sort(flat_e, stable=True)
+    experts = torch.arange(E, device=eidx.device, dtype=flat_e.dtype)
+    start = torch.searchsorted(sorted_e, experts)
+    count = torch.searchsorted(sorted_e, experts, right=True) - start
+    ar = torch.arange(n, device=eidx.device)
+    ranks = torch.empty_like(ar).scatter_(0, order, ar - start[sorted_e])
+    keep = ranks < C
+    slot = torch.where(keep, flat_e * C + ranks, E * C)
+    r = torch.arange(C, device=eidx.device)
+    pos = torch.clamp(start[:, None] + r, max=n - 1)
+    src = torch.where(r < count[:, None], order[pos], n).reshape(E * C)
+    return slot, src, keep
+
+
+def _pad_row(x: torch.Tensor) -> torch.Tensor:
+    return torch.cat([x, x.new_zeros((1,) + tuple(x.shape[1:]))])
+
+
+class _RowGather(torch.autograd.Function):
+    """``out[i] = x_pad[index[i]]`` (x with a zero row appended), whose
+    backward gathers the output's gradient by ``back`` and sums each run of
+    ``group`` rows: dispatch and combine are each other's transposes, so both
+    directions are gathers and no row is accumulated by atomics."""
+
+    @staticmethod
+    def forward(ctx, x, index, back, group: int):
+        ctx.save_for_backward(back)
+        ctx.rows, ctx.group = x.shape[0], group
+        return _pad_row(x).index_select(0, index)
+
+    @staticmethod
+    def backward(ctx, g):
+        (back,) = ctx.saved_tensors
+        gx = _pad_row(g).index_select(0, back)
+        if ctx.group > 1:
+            gx = gx.reshape(ctx.rows, ctx.group, -1).sum(1)
+        return gx, None, None, None
+
+
+def moe_ffn(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x [B, S, D] -> (routed + shared expert [B, S, D], {"moe_aux", "moe_z"}).
+
+    The router in the model's dtype, then f32 softmax; top-k gates
+    renormalised; each kept assignment's token copied to its expert slot
+    ([E, C, D]), the experts' gated FFNs as batched products, each slot's
+    output gathered back and weighted by its gate (in the model's dtype), the
+    k choices summed. The gates depend on x through the softmax, so the input
+    gradient flows through them and through the experts.
+    """
+    m = cfg.moe
+    B, S, D = x.shape
+    T, E, k = B * S, m.n_experts, m.top_k
+    C = moe_capacity(cfg, T)
+    xt = x.reshape(T, D)
+    # the named ranges attribute a profiled run's device time
+    # (launch/trace_train.py); no cost outside the profiler
+    with record_function("moe_route"):
+        logits = (xt @ p["router"].to(xt.dtype)).float()                 # [T, E]
+        probs = torch.softmax(logits, dim=-1)
+        gates, eidx = moe_topk(probs, k)
+        gates = gates / gates.sum(dim=-1, keepdim=True)
+        slot, src, keep = moe_slots(eidx, E, C)
+    with record_function("moe_dispatch"):
+        xe = _RowGather.apply(xt, torch.div(src, k, rounding_mode="floor"), slot, k)
+    with record_function("moe_experts"):
+        xe = xe.reshape(E, C, D)
+        hg = torch.bmm(xe, p["we_gate"])
+        hu = torch.bmm(xe, p["we_up"])
+        ye = torch.bmm(_ffn_act(cfg, hg) * hu, p["we_down"]).reshape(E * C, D)
+    with record_function("moe_dispatch"):
+        weight = gates.reshape(T * k, 1).to(ye.dtype) * keep[:, None]
+        routed = (_RowGather.apply(ye, slot, src, 1) * weight).reshape(T, k, D).sum(dim=1)
+    with record_function("moe_shared"):
+        shared = (_ffn_act(cfg, xt @ p["ws_gate"]) * (xt @ p["ws_up"])) @ p["ws_down"]
+    out = (routed + shared).reshape(B, S, D)
+
+    with record_function("moe_route"):
+        # load balance: each expert's share of assignments times its mean probability
+        me = (eidx[..., None] == torch.arange(E, device=x.device)).float().mean(dim=(0, 1))
+        pe = probs.mean(dim=0)
+        zl = torch.logsumexp(logits, dim=-1).square().mean()
+        aux = {"moe_aux": E * torch.sum(me * pe) * m.router_aux_weight,
+               "moe_z": zl * m.router_z_weight}
+    return out, aux
+
+
 def apply_block(kind: str, cfg: ModelConfig, p: Dict, h: torch.Tensor, ctx: BlockCtx,
                 cache: Optional[Dict[str, torch.Tensor]] = None,
-                ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    if kind == "dense":
+                ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]],
+                           Dict[str, torch.Tensor]]:
+    aux: Dict[str, torch.Tensor] = {}
+    if kind in ("dense", "moe"):
         a, new_cache = attention(cfg, p["attn"], norm(cfg, p["ln1"], h), ctx, cache)
         h = h + a
-        h = h + ffn(cfg, p["ffn"], norm(cfg, p["ln2"], h))
+        hn = norm(cfg, p["ln2"], h)
+        if kind == "moe":
+            f, aux = moe_ffn(cfg, p["moe"], hn)
+        else:
+            f = ffn(cfg, p["ffn"], hn)
+        h = h + f
     elif kind == "rwkv":
         t, new_cache = rwkv_time_mix(cfg, p["rwkv"], norm(cfg, p["ln1"], h), cache,
                                      impl=ctx.impl)
@@ -430,4 +573,4 @@ def apply_block(kind: str, cfg: ModelConfig, p: Dict, h: torch.Tensor, ctx: Bloc
         raise NotImplementedError(f"block kind {kind!r} is not ported yet ({_LATER})")
     # the paper's serial adapter, after the FFN / channel-mix sublayer
     h = apply_adapter(p["adapter"], h, activation=cfg.adapter.activation, impl=ctx.impl)
-    return h, new_cache
+    return h, new_cache, aux

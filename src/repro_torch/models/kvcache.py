@@ -2,7 +2,7 @@
 
 Layout: one entry per layer,
 
-  dense : {"k", "v"}, each [B, Ck, K, hd]
+  dense : {"k", "v"}, each [B, Ck, K, hd] (a moe layer's too)
   rwkv  : {"state": [B, H, hd, hd] f32, "px_tm": [B, D], "px_cm": [B, D]}
   hymba : dense + {"ssm": [B, di, N] f32, "conv": [B, W-1, di]}
 
@@ -52,7 +52,7 @@ def write_slot(cfg: ModelConfig, pos: torch.Tensor, seq_len: int) -> torch.Tenso
 def _layer_entry(cfg: ModelConfig, kind: str, batch: int, ck: int, dtype: torch.dtype,
                  device) -> Dict[str, torch.Tensor]:
     zeros = lambda *shape, dt=dtype: torch.zeros(shape, dtype=dt, device=device)
-    if kind in ("dense", "hymba"):
+    if kind in ("dense", "moe", "hymba"):
         shape = (batch, ck, cfg.n_kv_heads, cfg.head_dim)
         entry = {"k": zeros(*shape), "v": zeros(*shape)}
         if kind == "hymba":

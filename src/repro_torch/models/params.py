@@ -7,7 +7,8 @@ instead of the reference's stacked ``[repeats, count, ...]`` leaves:
     {"embed": {"tok", "pos" (learned positions, rope=False)}, "final_norm": {"scale"},
      "head": {"w"}, "blocks": [ one block's tree for each layer ]}
 
-a dense block is ``{"ln1", "attn", "ln2", "ffn", "adapter"}``, an rwkv block
+a dense block is ``{"ln1", "attn", "ln2", "ffn", "adapter"}``, a moe block
+``{"ln1", "attn", "ln2", "moe", "adapter"}``, an rwkv block
 ``{"ln1", "ln2", "rwkv", "adapter"}``, a hymba block ``{"ln1", "attn", "ssm",
 "norm_attn", "norm_ssm", "ln2", "ffn", "adapter"}``; a model with hymba blocks
 also has the top-level ``"meta"`` leaf, its 128 learned meta tokens [128, D].
@@ -28,6 +29,7 @@ from repro_torch.configs.base import ModelConfig
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
+_SLICED_INIT = 2 ** 30           # entries of a leaf above which it is drawn slice by slice
 
 
 @dataclass(frozen=True)
@@ -84,6 +86,22 @@ def ffn_defs(cfg: ModelConfig) -> Dict[str, PD]:
     return d
 
 
+def moe_defs(cfg: ModelConfig) -> Dict[str, PD]:
+    """The router, the E experts' gated FFNs stacked on a leading expert
+    axis, and the one shared expert the reference adds to every moe block."""
+    m = cfg.moe
+    D, E, F = cfg.d_model, m.n_experts, m.d_expert
+    return {
+        "router": PD((D, E), scale=0.02),
+        "we_gate": PD((E, D, F)),
+        "we_up": PD((E, D, F)),
+        "we_down": PD((E, F, D)),
+        "ws_gate": PD((D, F)),
+        "ws_up": PD((D, F)),
+        "ws_down": PD((F, D)),
+    }
+
+
 def rwkv_defs(cfg: ModelConfig, ramp: Tuple[int, int] = (0, 1)) -> Dict[str, PD]:
     """RWKV-6 (Finch): data-dependent token shift + decay via LoRA."""
     D = cfg.d_model
@@ -137,6 +155,10 @@ def block_defs(cfg: ModelConfig, kind: str, ramp: Tuple[int, int] = (0, 1)) -> D
         return {"ln1": norm_defs(cfg), "attn": attn_defs(cfg),
                 "ln2": norm_defs(cfg), "ffn": ffn_defs(cfg),
                 "adapter": adapter_defs(cfg)}
+    if kind == "moe":
+        return {"ln1": norm_defs(cfg), "attn": attn_defs(cfg),
+                "ln2": norm_defs(cfg), "moe": moe_defs(cfg),
+                "adapter": adapter_defs(cfg)}
     if kind == "rwkv":
         return {"ln1": norm_defs(cfg), "ln2": norm_defs(cfg),
                 "rwkv": rwkv_defs(cfg, ramp), "adapter": adapter_defs(cfg)}
@@ -149,7 +171,7 @@ def block_defs(cfg: ModelConfig, kind: str, ramp: Tuple[int, int] = (0, 1)) -> D
                 "adapter": adapter_defs(cfg)}
     raise NotImplementedError(
         f"block kind {kind!r} is not ported yet (Queue 1 slice 'other "
-        f"block kinds' of ROADMAP.md); the port runs dense, rwkv and hymba blocks")
+        f"block kinds' of ROADMAP.md); the port runs dense, moe, rwkv and hymba blocks")
 
 
 def param_defs(cfg: ModelConfig) -> Dict[str, Any]:
@@ -194,6 +216,14 @@ def _init_leaf(pd: PD, dtype: torch.dtype, gen: torch.Generator,
     # the reference's fan-in is the second-to-last dim (of the unstacked shape)
     fan_in = pd.shape[-2] if len(pd.shape) >= 2 else pd.shape[-1]
     scale = pd.scale if pd.scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
+    if math.prod(pd.shape) > _SLICED_INIT:
+        # a stack of expert matrices (llama4's are 5.4 G entries): one slice of
+        # the leading axis at a time, so the f32 draw never holds the whole leaf
+        out = torch.empty(pd.shape, dtype=dt, device=device)
+        for i in range(pd.shape[0]):
+            x = torch.randn(pd.shape[1:], generator=gen, dtype=torch.float32, device=device)
+            out[i] = x * scale
+        return out
     x = torch.randn(pd.shape, generator=gen, dtype=torch.float32, device=device)
     return (x * scale).to(dt)
 

@@ -1,12 +1,14 @@
-"""Decoder (dense, RWKV-6 and Hymba blocks): embed, blocks, head; the training
-forward with RingAda's unfreeze boundary, prefill and decode.
+"""Decoder (dense, MoE, RWKV-6 and Hymba blocks): embed, blocks, head; the
+training forward with RingAda's unfreeze boundary, prefill and decode.
 
 Parameters follow ``models/params.py`` (one dict per layer). The functions
 mirror the reference's ``models/transformer.py``: ``forward`` runs a full
 sequence, with the static unfreeze ``boundary`` (frozen repeats from the
 bottom) when training, ``prefill`` runs a prompt and fills the cache (KV by
 gathers, recurrent state by the scan), and ``decode_step`` adds one token per
-row.
+row. ``forward`` returns ``(logits, aux)`` as the reference's does: ``aux``
+sums the moe blocks' ``moe_aux`` and ``moe_z`` over the layers (zeros for a
+model without moe blocks); prefill and decode drop them.
 
 A model with hymba blocks puts its ``n_meta`` = 128 learned meta tokens
 before every prompt: positions run over the ``n_meta + S`` tokens, the meta
@@ -24,11 +26,14 @@ from repro_torch.models import kvcache
 from repro_torch.models.blocks import BlockCtx, apply_block, norm
 
 
+AUX_KEYS = ("moe_aux", "moe_z")
+
+
 def _check(cfg: ModelConfig) -> None:
-    if any(kind not in ("dense", "rwkv", "hymba") for kind, _ in cfg.pattern) \
+    if any(kind not in ("dense", "moe", "rwkv", "hymba") for kind, _ in cfg.pattern) \
             or cfg.enc_dec or cfg.frontend:
         raise NotImplementedError(
-            f"{cfg.name}: only dense, rwkv and hymba decoders are ported yet "
+            f"{cfg.name}: only dense, moe, rwkv and hymba decoders are ported yet "
             f"(ROADMAP.md Queue 1, 'The other block kinds')")
 
 
@@ -70,7 +75,8 @@ def head(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tensor:
 def _run(cfg: ModelConfig, params, h: torch.Tensor, ctx: BlockCtx, caches=None):
     new_caches = []
     for i, (kind, layer) in enumerate(zip(kvcache.layer_kinds(cfg), params["blocks"])):
-        h, nc = apply_block(kind, cfg, layer, h, ctx, None if caches is None else caches[i])
+        h, nc, _ = apply_block(kind, cfg, layer, h, ctx,
+                               None if caches is None else caches[i])
         new_caches.append(nc)
     return h, new_caches
 
@@ -78,8 +84,9 @@ def _run(cfg: ModelConfig, params, h: torch.Tensor, ctx: BlockCtx, caches=None):
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *, boundary: int = 0,
             hot_adapters: Optional[List[Dict[str, torch.Tensor]]] = None,
             head_params: Optional[Dict[str, torch.Tensor]] = None,
-            impl: str = "kernel") -> torch.Tensor:
-    """Logits [B, S, V] of a full sequence.
+            impl: str = "kernel") -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(logits [B, S, V], aux) of a full sequence; ``aux`` is the f32 sums of
+    the blocks' ``moe_aux`` and ``moe_z``.
 
     ``boundary`` counts frozen repeats from the bottom. Their layers run under
     ``torch.no_grad()`` and h is detached after them: RingAda's early-stop
@@ -98,18 +105,26 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *, boundary: int = 0
     if hot_adapters is not None and len(hot_adapters) != len(blocks) - n_frozen:
         raise ValueError(f"{len(hot_adapters)} hot adapters for {len(blocks) - n_frozen} "
                          f"layers above boundary {boundary}")
-    with torch.no_grad():
+    aux = {k: torch.zeros((), dtype=torch.float32, device=h.device) for k in AUX_KEYS}
+
+    def add(block_aux):
+        for k, v in block_aux.items():
+            aux[k] = aux[k] + v
+
+    with torch.no_grad():                 # the frozen layers' aux carry no gradient
         for i in range(n_frozen):
-            h, _ = apply_block(kinds[i], cfg, blocks[i], h, ctx)
+            h, _, block_aux = apply_block(kinds[i], cfg, blocks[i], h, ctx)
+            add(block_aux)
     # === RingAda early-stop point: no gradients flow below this line ===
     h = h.detach()
     for i in range(n_frozen, len(blocks)):
         layer = blocks[i]
         if hot_adapters is not None:
             layer = {**layer, "adapter": hot_adapters[i - n_frozen]}
-        h, _ = apply_block(kinds[i], cfg, layer, h, ctx)
+        h, _, block_aux = apply_block(kinds[i], cfg, layer, h, ctx)
+        add(block_aux)
     hp = params if head_params is None else {**params, "head": head_params}
-    return head(cfg, hp, h[:, n_meta(cfg):])
+    return head(cfg, hp, h[:, n_meta(cfg):]), aux
 
 
 def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, *,

@@ -57,6 +57,15 @@ def tenant_stack(tree: Any, n_tenants: int) -> Any:
     return tree_map(lambda x: torch.stack([x] * n_tenants), tree)
 
 
+# An unmasked leaf of more entries than this (a head over a vocabulary of
+# 150 k and more: llama4-maverick's is [5120, 202240]) is updated a slice of
+# rows at a time, each slice holding at most _SLICE entries: the update's f32
+# temporaries, about eight copies of the leaf at once, would otherwise exceed
+# what the card has beside the model. Elementwise, so the slices give the
+# whole leaf's bits.
+_SLICED_LEAF, _SLICE = 2 ** 28, 2 ** 26
+
+
 @torch.no_grad()
 def leaf_update(g: torch.Tensor, m: torch.Tensor, v: torch.Tensor, p: torch.Tensor, *,
                 lr, tc: TrainConfig, mask: MaskLike = None,
@@ -68,6 +77,19 @@ def leaf_update(g: torch.Tensor, m: torch.Tensor, v: torch.Tensor, p: torch.Tens
     nor the parameter move. ``bias_correction=(bc1, bc2)`` is the
     bias-corrected form; ``None`` the raw form.
     """
+    if mask is None and p.numel() > _SLICED_LEAF:
+        rows = max(1, _SLICE // (p.numel() // p.shape[0]))
+        out = (torch.empty_like(m), torch.empty_like(v), torch.empty_like(p))
+        for i in range(0, p.shape[0], rows):
+            part = _leaf_update(g[i:i + rows], m[i:i + rows], v[i:i + rows], p[i:i + rows],
+                                lr, tc, None, bias_correction)
+            for o, t in zip(out, part):
+                o[i:i + rows] = t
+        return out
+    return _leaf_update(g, m, v, p, lr, tc, mask, bias_correction)
+
+
+def _leaf_update(g, m, v, p, lr, tc, mask, bias_correction):
     gf = g.float()
     m_new = tc.beta1 * m + (1 - tc.beta1) * gf
     v_new = tc.beta2 * v + (1 - tc.beta2) * gf * gf

@@ -851,8 +851,9 @@ def test_flash_attention_mbert_mha_on_card(dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch,vocab,seq", [("stablelm-3b", None, 64),
                                             ("stablelm-3b", 50304, 1024),
-                                            ("mbert-squad", None, 64)],
-                         ids=["lm", "lm_chunked_ce", "qa"])
+                                            ("mbert-squad", None, 64),
+                                            ("olmoe-1b-7b", None, 64)],
+                         ids=["lm", "lm_chunked_ce", "qa", "moe"])
 def test_pjit_graph_equals_eager_step_on_card(arch, vocab, seq):
     """``PjitBackend``'s graphed steps against the eager backend's, from the
     same weights on the same batches, with ``torch.equal``: the metrics and
@@ -862,7 +863,9 @@ def test_pjit_graph_equals_eager_step_on_card(arch, vocab, seq):
     reads the loaded values, the tensors keep their addresses). Reduced
     configs of 4 layers in bf16: an LM, the LM at stablelm-3b's vocab with
     1024 tokens a row (the cross-entropy in checkpointed chunks of 512, whose
-    recompute the graph captures), and mbert-squad's QA step. A capture
+    recompute the graph captures), mbert-squad's QA step, and olmoe's moe
+    layers (the dispatch's sorts and gathers in the graph; moe_aux and
+    moe_z among the metrics). A capture
     records the step's launches (L, d, L, d - 1) and a replay launches none
     from Python; one build a boundary."""
     if not torch.cuda.is_available():
@@ -918,3 +921,132 @@ def test_pjit_graph_equals_eager_step_on_card(arch, vocab, seq):
     assert [t.data_ptr() for t in graphed.state_tensors()] == ptrs
     assert graphed.compile_count == eager.compile_count == 3
     assert [k[0] for k in graphed._graphs] == [1]     # the higher boundaries' graphs dropped
+
+
+SLICE_WIDTHS = [4608, 5120]          # starcoder2-7b's and llama4-maverick's d_model
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [4, 512, 2048])
+@pytest.mark.parametrize("D", SLICE_WIDTHS)
+def test_adapter_fused_slice_widths_on_card(D, T):
+    """The bf16 adapter and its backward at starcoder2-7b's and llama4's
+    widths against their plain versions, through ops' autograd Function (one
+    launch of each): decode's cluster at T 4 (288 and 320 columns a block),
+    the tile path's cluster of 16 blocks of 320 columns at a ring
+    microbatch's 512 rows and a step's 2048 (at D 4608 block 14 owns 128
+    columns and block 15 none)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.kernels import adapter_fused as af
+
+    dt = torch.bfloat16
+    route = af.route(T, D, 64, dt)
+    if T > af.SMALL_T:
+        assert route.kernel == "tile" and (route.plan.cluster, route.plan.dc) == (16, 320)
+    else:
+        assert route.kernel == "cluster" and route.plan.dc == -(-D // 16)
+    assert af.bwd_route(T, D, 64, dt).kernel == "tile"
+    gen = torch.Generator(device="cuda").manual_seed(D + T)
+    rnd = lambda *s, std=1.0: (std * torch.randn(s, generator=gen, device="cuda")).to(dt)
+    h, g = rnd(T, D), rnd(T, D)
+    wd, wu = rnd(D, 64, std=0.05), rnd(64, D, std=0.05)
+    grads = {}
+    for impl in ("kernel", "plain"):
+        leaves = [t.clone().requires_grad_(True) for t in (h, wd, wu)]
+        ops.reset_launches()
+        out = ops.adapter_fused(*leaves, impl=impl)
+        grads[impl] = (out.detach(),) + torch.autograd.grad(out, leaves, g)
+        if impl == "kernel":
+            assert ops.LAUNCHES["adapter_fused"] == 1 and ops.LAUNCHES["adapter_fused_bwd"] == 1
+    got, want = grads["kernel"], grads["plain"]
+    _assert_adapter_close(got[0], h, wd, wu, "gelu", want[0])
+    for name, a, b in zip(("dh", "dw_down", "dw_up"), got[1:], want[1:]):
+        _assert_grad_close(a, b, "bfloat16", name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [4, 1])
+def test_flash_attention_gqa9_on_card(B):
+    """starcoder2-7b's attention, 36 query heads over 4 KV heads of 128 (a
+    GQA group of 9), causal over 512 tokens, forward and backward in bf16
+    against the plain versions: at a step's 4 rows the dK/dV blocks take the
+    group in 3 parts, at a ring microbatch's 1 row in 9 (132 SMs), the first
+    splits that are not powers of two."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch import device as dev_rule
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    H, K, hd, S = 36, 4, 128, 512
+    sms = dev_rule.sm_count(torch.device("cuda"))
+    parts = fa.bwd_parts(B, S, K, H // K, sms)
+    if sms == 132:
+        assert parts == {4: 3, 1: 9}[B]
+    gen = torch.Generator(device="cuda").manual_seed(36 + B)
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)
+    q, k, v, dout = rnd(B, S, H, hd), rnd(B, S, K, hd), rnd(B, S, K, hd), rnd(B, S, H, hd)
+    out, lse = fa.flash_attention(q, k, v, lse=True)
+    want = ops.flash_attention(q, k, v, impl="plain")
+    torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=ATOL["bfloat16"][1])
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout)
+    for name, a, b in zip(("dq", "dk", "dv"), got,
+                          ref.flash_attention_bwd(q, k, v, out, lse, dout)):
+        _assert_grad_close(a, b, "bfloat16", f"{name}, {parts} parts")
+    again = fa.flash_attention_bwd(q, k, v, out, lse, dout)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))   # the parts' sum in order
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_moe_dispatch_graph_replay_equals_eager_on_card(dtype):
+    """olmoe-1b-7b's moe FFN at its published widths (d_model 2048, 64
+    experts top 8, d_expert 1024) on a ring microbatch's 512 tokens (C = 80):
+    the forward, moe_aux, moe_z and the input gradient captured in one CUDA
+    graph and replayed on new inputs equal the eager call's, bit for bit, and
+    eager calls repeat bit for bit (every kept slot written once, no
+    atomics), with ties in the bf16 router's logits broken to the lower
+    expert as on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: CUDA graphs have no CPU mode")
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import blocks
+    from repro_torch.models import params as prm
+
+    cfg = dataclasses.replace(get_config("olmoe-1b-7b"), dtype=dtype)
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    p = {name: prm._init_leaf(pd, dt, gen, torch.device("cuda"))
+         for name, pd in prm.moe_defs(cfg).items()}
+    assert blocks.moe_capacity(cfg, 512) == 80
+
+    def run(x):
+        x = x.detach().requires_grad_(True)
+        out, aux = blocks.moe_ffn(cfg, p, x)
+        (gx,) = torch.autograd.grad(out.float().square().sum(), x)
+        return out.detach(), aux["moe_aux"].detach(), aux["moe_z"].detach(), gx
+
+    xs = [torch.randn(1, 512, cfg.d_model, generator=gen, device="cuda").to(dt)
+          for _ in range(3)]
+    static = xs[0].clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run(static)                                   # warm-up on the capture stream
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            captured = run(static)
+    torch.cuda.current_stream().wait_stream(side)
+    for x in xs[1:]:
+        static.copy_(x)
+        graph.replay()
+        eager, again = run(x), run(x)
+        for a, b, c in zip(captured, eager, again):
+            assert torch.equal(a, b) and torch.equal(b, c)
+    # a router of zeros ties every probability: the lower experts win
+    zero = {**p, "router": torch.zeros_like(p["router"])}
+    probs = torch.softmax((xs[0].reshape(512, -1) @ zero["router"]).float(), -1)
+    assert blocks.moe_topk(probs, 8)[1].eq(torch.arange(8, device="cuda")).all()

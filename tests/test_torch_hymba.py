@@ -365,7 +365,7 @@ def test_hymba_block_matches_jax(dtype, mode, impl):
                                write_slots=torch.from_numpy(slot), impl=impl)
     jh, jnc, _ = jax.jit(lambda p, x, c: jax_blocks.apply_block("hymba", jcfg, p, x, jctx, c))(
         jp, xj, jc)
-    th, tnc = blocks.apply_block("hymba", tcfg, tp, xt, tctx, tc)
+    th, tnc, _ = blocks.apply_block("hymba", tcfg, tp, xt, tctx, tc)
     assert th.dtype == xt.dtype
     _close_rel(th, jh, BLOCK_RTOL[dtype])
     if mode == "step":
@@ -389,7 +389,7 @@ def test_forward_logits_match_jax(dtype):
         jcfg32, _, jparams32, _ = _models("float32")
         want_f32 = jforward(jcfg32, jparams32)
     for impl in ("kernel", "plain"):
-        got = tfm.forward(port, torch.from_numpy(toks).long(), tcfg, impl=impl)
+        got, _ = tfm.forward(port, torch.from_numpy(toks).long(), tcfg, impl=impl)
         assert got.shape == (2, 40, tcfg.padded_vocab) and got.dtype == getattr(torch, dtype)
         _logits_close(got, want, dtype, want_f32)
 

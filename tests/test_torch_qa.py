@@ -250,7 +250,7 @@ def test_forward_span_logits_match_jax(dtype, kv):
     rms = lambda x: float(np.sqrt(np.mean(np.square(x))))
     for boundary in (0, 1):
         want, _ = jax_tfm.forward(jp, jnp.asarray(tokens), jcfg, boundary=boundary, impl="jnp")
-        got = tfm.forward(tp, torch.from_numpy(tokens).long(), tcfg, boundary=boundary)
+        got, _ = tfm.forward(tp, torch.from_numpy(tokens).long(), tcfg, boundary=boundary)
         assert got.shape == (B, S, 2) and got.dtype == getattr(torch, dtype)
         if dtype == "float32":
             _close(got, want, RTOL_LOGITS, f"logits at boundary {boundary}")

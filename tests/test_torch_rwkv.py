@@ -367,7 +367,7 @@ def test_rwkv_mixes_and_block_match_jax(dtype, mode, impl):
     tctx = blocks.BlockCtx(cfg=tcfg, mode=mode, positions=torch.from_numpy(pos.copy()),
                            impl=impl)
     jh, jbc, _ = jax_blocks.apply_block("rwkv", jcfg, jp, xj, jctx, jc)
-    th, tbc = blocks.apply_block("rwkv", tcfg, tp, xt, tctx, tc)
+    th, tbc, _ = blocks.apply_block("rwkv", tcfg, tp, xt, tctx, tc)
     _close_out(th, jh, dtype)
     if mode == "step":
         _close_rel(tbc["state"], jbc["state"], STATE_RTOL[dtype])
@@ -381,8 +381,8 @@ def test_kernel_and_plain_forms_agree_on_ragged_lengths():
     _, tcfg, _, port = _models("float32", seed=5)
     toks = torch.from_numpy(np.random.default_rng(5).integers(0, 512, (1, 445)))
     assert blocks._chunk_of(445, 32) == 5
-    a = tfm.forward(port, toks, tcfg)
-    b = tfm.forward(port, toks, tcfg, impl="plain")
+    a, _ = tfm.forward(port, toks, tcfg)
+    b, _ = tfm.forward(port, toks, tcfg, impl="plain")
     torch.testing.assert_close(a, b, rtol=0, atol=ATOL["float32"])
 
 

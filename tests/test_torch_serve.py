@@ -141,7 +141,7 @@ def test_forward_last_logits_equal_prefill():
     _, tcfg = _configs("float32")
     port = prm.materialize(tcfg, seed=1, device="cpu")
     toks = torch.from_numpy(np.random.default_rng(1).integers(0, 512, (2, 40)))
-    full = tfm.forward(port, toks, tcfg)
+    full, _ = tfm.forward(port, toks, tcfg)
     last, _ = tfm.prefill(port, toks, tcfg, seq_len=48)
     torch.testing.assert_close(full[:, -1], last, rtol=0, atol=1e-5)
 

@@ -124,7 +124,7 @@ def test_forward_with_boundary_matches_jax(arch, boundary):
     batch = _batch(tcfg)
     want, _ = jax_tfm.forward(jp, jnp.asarray(batch["tokens"]), jcfg, boundary=boundary,
                               impl="jnp")
-    got = tfm.forward(tp, _port_batch(batch)["tokens"], tcfg, boundary=boundary)
+    got, _ = tfm.forward(tp, _port_batch(batch)["tokens"], tcfg, boundary=boundary)
     _close(got, want, RTOL_LOGITS, f"logits at boundary {boundary}")
 
 
