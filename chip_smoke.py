@@ -52,7 +52,18 @@ run with a non-zero exit and no result line:
      4; attention and its backward at starcoder2's GQA group of 9 (36 over 4
      heads of 128; ``bwd_parts`` 3 at 4 x 512, 9 at 1 x 512), olmoe's MHA
      (16 heads of 128) and llama4's group of 5 (40 over 8), beside SDPA and
-     torch.autograd through SDPA;
+     torch.autograd through SDPA; and the backward kernels that training
+     rwkv6-7b and hymba-1.5b adds (``training_scan_cases``), each held to its
+     plain backward at SCAN_RTOL or the backward gates and timed with its
+     bound: ``rwkv_scan_bwd`` at rwkv6-7b's training shape (N 256, S 512, hd
+     64) from a zero and a random start state, ``mamba_scan_bwd`` at
+     hymba-1.5b's [4, 640, 1600, 16] and from a random state at S 573, each
+     also untimed at ragged lengths, strong decays and every head dim or
+     state size, and attention's backward with sinks at hymba-1.5b's
+     training shape (4 x 640, 25 over 5 heads of 64, window 1024, 128 sinks)
+     and where the window bites (S 573, window 128, 100 sinks ending inside a
+     tile), bf16 and f32, beside torch.autograd through SDPA with the same
+     boolean mask;
   3. qwen2.5-3b at its published width (36 layers, d_model 2048, vocab 152064
      padded), random weights from a seed with non-zero adapters, served by
      ``BatchServer`` (4 slots, 8 requests of 64-512 prompt tokens, 32 new tokens
@@ -209,6 +220,13 @@ run with a non-zero exit and no result line:
      ``impl="plain"`` in bf16 and f32, and each block and its new cache are
      held to their kernel version on the same input, and the f32 prefill
      logits of the two paths to each other, as in phase 3 (no CPU witness);
+     then trained on the same weights (``phase_rwkv6``): the loss and
+     gradients of the kernel path held to ``impl="plain"`` at depths 1 and
+     2 (the whole hot region in bf16, as the dense archs'), then six
+     ``PjitBackend`` steps at depths 1, 2, 32, graphed against eager, every
+     step ``torch.equal``, the launches at L of ``adapter_fused`` and
+     ``rwkv_scan``, d of ``adapter_fused_bwd`` and d - 1 of
+     ``rwkv_scan_bwd``, with each step's wall and event ms and peak;
   5. hymba-1.5b at its published width (32 layers, d_model 1600, 25 query over
      5 KV heads of 64, SSM state 16, window 1024, 128 meta tokens that are
      also the attention sinks, vocab 32001 padded to 32256), random weights
@@ -218,7 +236,11 @@ run with a non-zero exit and no result line:
      per batch (prefill) and ``adapter_fused`` once per layer per step. The
      first batch is served again with ``impl="plain"`` in bf16 and f32, and
      each block and its new cache (k, v, ssm, conv) are held to their kernel
-     version on the same input, as in phase 4;
+     version on the same input, as in phase 4; then trained as rwkv6-7b
+     (``phase_hymba``; the 128 meta tokens stay frozen), the launches at L
+     of ``adapter_fused``, ``flash_attention`` and ``mamba_scan``, d of
+     ``adapter_fused_bwd`` and d - 1 of ``flash_attention_bwd`` (with the
+     sinks) and ``mamba_scan_bwd``;
   6. starcoder2-7b at its published width and depth (32 layers, d_model
      4608, 36 query over 4 KV heads of 128, window 4096, a plain GELU MLP,
      vocab 49152), random weights from the seed with non-zero adapters,
@@ -307,7 +329,9 @@ from repro_torch.data.pipeline import to_device  # noqa: E402
 from repro_torch.kernels import adapter_fused as af  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import mamba_scan as mamba_kernel  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import rwkv_scan as rwkv_kernel  # noqa: E402
 from repro_torch.launch.kernel_times import cold_ms, cuda_ms, graph_ms  # noqa: E402
 from repro_torch.launch.serve import AdapterRegistry, BatchServer, Request  # noqa: E402
 from repro_torch.launch.train import RING_LR, data_source, ring_data_source  # noqa: E402
@@ -456,6 +480,10 @@ SOURCES = {
                           "src/repro/kernels/adapter_fused.py:55"),
     "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:86"),
+    "rwkv_scan_bwd": ("src/repro_torch/kernels/csrc/rwkv_scan.cu",
+                      "src/repro/kernels/rwkv_scan.py:86"),
+    "mamba_scan_bwd": ("src/repro_torch/kernels/csrc/mamba_scan.cu",
+                       "src/repro/kernels/mamba_scan.py:76"),
 }
 # Each kernel's time at its record's shape, the adapter's at decode (T = 4,
 # bf16, by D), its bf16 tile path's at prefill and its bf16 backward's at the
@@ -894,19 +922,21 @@ def autograd_graph_ms(forward, inputs, grad_out, iters: int = 20, replays: int =
     return start.elapsed_time(end) / (iters * replays)
 
 
-def attention_bwd_case(S, window, dtype, gen, record=None, heads=(16, 2, 128), B=4):
-    """The attention backward kernels on B rows of S tokens (causal) against
-    the plain backward on the same inputs (the kernel forward's o and lse);
-    the library yardstick is torch.autograd through SDPA, the backward alone,
-    timed in a CUDA graph as the kernel is and eagerly."""
+def attention_bwd_case(S, window, dtype, gen, record=None, heads=(16, 2, 128), B=4, n_sink=0):
+    """The attention backward kernels on B rows of S tokens (causal; with a
+    window, the first ``n_sink`` keys passing it) against the plain backward
+    on the same inputs (the kernel forward's o and lse); the library
+    yardstick is torch.autograd through SDPA with the same mask, the
+    backward alone, timed in a CUDA graph as the kernel is and eagerly."""
     H, K, hd = heads
     rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(dtype)
     q, k, v, dout = rnd(B, S, H, hd), rnd(B, S, K, hd), rnd(B, S, K, hd), rnd(B, S, H, hd)
-    out, lse = fa.flash_attention(q, k, v, window=window, lse=True)
-    if not torch.equal(out, fa.flash_attention(q, k, v, window=window)):
+    kw = dict(window=window, n_sink=n_sink)
+    out, lse = fa.flash_attention(q, k, v, lse=True, **kw)
+    if not torch.equal(out, fa.flash_attention(q, k, v, **kw)):
         raise AssertionError("the forward with lse is not the served forward")
-    kernel = lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout, window=window)
-    plain = lambda: ref.flash_attention_bwd(q, k, v, out, lse, dout, window=window)
+    kernel = lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    plain = lambda: ref.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
@@ -915,7 +945,7 @@ def attention_bwd_case(S, window, dtype, gen, record=None, heads=(16, 2, 128), B
     i = torch.arange(S, device="cuda")
     seen = i[None, :] <= i[:, None]
     if window is not None:
-        seen &= i[:, None] - i[None, :] < window
+        seen &= (i[:, None] - i[None, :] < window) | (i[None, :] < n_sink)
     # yardstick only: torch.autograd through SDPA, the backward alone (never used by the port)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
     mask = dict(is_causal=True) if window is None else dict(attn_mask=seen)
@@ -936,7 +966,7 @@ def attention_bwd_case(S, window, dtype, gen, record=None, heads=(16, 2, 128), B
     dt = str(dtype).removeprefix("torch.")
     parts = fa.bwd_parts(B, S, K, H // K, dev_rule.sm_count(q.device)) \
         if dtype == torch.bfloat16 else 1
-    say("flash_attention_bwd", B=B, H=H, K=K, hd=hd, S=S, window=window, dtype=dt,
+    say("flash_attention_bwd", B=B, H=H, K=K, hd=hd, S=S, window=window, n_sink=n_sink, dtype=dt,
         kernel="tensor_cores" if dtype == torch.bfloat16 else "scalar", parts=parts,
         max_abs_err=f"{err:.3g}", rtol=BWD_RTOL[dtype], ms=f"{ms:.4f}",
         eager_ms=f"{eager_ms:.4f}", plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
@@ -953,8 +983,156 @@ def attention_bwd_case(S, window, dtype, gen, record=None, heads=(16, 2, 128), B
                       library_ms=library_ms, library_eager_ms=library_eager_ms,
                       library_timer="CUDA graph (torch.autograd.grad through SDPA)", parts=parts,
                       shape=f"q,dO[{B},{S},{H},{hd}] kv[{B},{S},{K},{hd}] causal {dt}"
-                            + (f" window {window}" if window else ""))
+                            + (f" window {window}" if window else "")
+                            + (f" n_sink {n_sink}" if n_sink else ""))
     return ms
+
+
+def rwkv_bwd_case(N, S, hd, gen, state=False, record=None, strong=False, timed=True,
+                  f64=False):
+    """The wkv backward kernel (dr, dk, dv, dlw, du, dstate0) against the
+    plain backward on the same inputs, at rwkv_case's served scale (r, k, v
+    of std 8, the decay prior's decays or, ``strong``, down to -20 a step, u
+    of std 0.5, a start state of std 100 or zero) and a unit cotangent. With
+    ``f64`` the kernel and the f32 plain backward are also each measured
+    against the plain backward in f64 (reported, not gated)."""
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    r, k, v = 8 * rnd(N, S, hd), 8 * rnd(N, S, hd), 8 * rnd(N, S, hd)
+    top = 3.0 if strong else -0.5
+    lw = -torch.exp(-6.0 + (top + 6.0) * torch.rand(N, S, hd, generator=gen, device="cuda"))
+    u = 0.5 * rnd(N, 1, hd)
+    s0 = 100 * rnd(N, hd, hd) if state else torch.zeros(N, hd, hd, device="cuda")
+    dout = rnd(N, S, hd)
+    kernel = lambda: rwkv_kernel.rwkv_scan_bwd(r, k, v, lw, u, s0, dout)
+    plain = lambda: ref.rwkv_scan_bwd(r, k, v, lw, u, s0, dout)
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    rel = lambda xs, ys: [(a.double() - b.double()).abs().max().item()
+                          / max(b.abs().max().item(), 1e-30) for a, b in zip(xs, ys)]
+    errs = rel(got, want)
+    names = ("dr", "dk", "dv", "dlw", "du", "dstate0")
+    extra = {}
+    if f64:
+        want64 = ref.rwkv_scan_bwd(*(t.double() for t in (r, k, v, lw, u, s0, dout)))
+        for label, xs in (("kernel_vs_f64", got), ("plain_vs_f64", want)):
+            extra[label] = json.dumps({n: float(f"{e:.3g}")
+                                       for n, e in zip(names, rel(xs, want64))}).replace(" ", "")
+        del want64
+    # r, k, v, lw, dout read once, u and the start state read once; dr, dk,
+    # dv, dlw written once, du and dstate0 written once. Per step and
+    # sequence 12 hd^2 fp32 flops: the forward sweep's S_{t-1} dout_t (2) and
+    # state update (3), the backward sweep's G_t v_t (2), G_t^T k_t (2) and
+    # G update (3)
+    nbytes = 4 * (9 * N * S * hd + 2 * N * hd + 2 * N * hd * hd)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 12 * N * S * hd * hd / FP32_FLOPS
+    bound_ms = 1e3 * max(t_ops, t_bytes)
+    ms = eager_ms = plain_ms = float("nan")
+    if timed:
+        ms, eager_ms, plain_ms = in_turns(plain, kernel)
+    say("rwkv_scan_bwd", N=N, S=S, hd=hd, state0="random" if state else "zero",
+        decays="strong" if strong else "prior", rtol=SCAN_RTOL,
+        rel_errs=json.dumps({n: float(f"{e:.3g}") for n, e in zip(names, errs)}).replace(" ", ""),
+        **extra,
+        ms=f"{ms:.4f}", eager_ms=f"{eager_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        bound_ms=f"{bound_ms:.5f}", bound_by="operations" if t_ops > t_bytes else "bytes",
+        mbytes=f"{nbytes / 1e6:.1f}", share_of_bound=f"{bound_ms / ms:.3f}", card=repr(CARD))
+    if not max(errs) <= SCAN_RTOL:
+        raise AssertionError(f"rwkv_scan_bwd disagrees with its plain version: {errs} of the "
+                             f"largest entries (rtol {SCAN_RTOL})")
+    if record is not None:
+        record.update(max_abs_err=max((a - b).abs().max().item() for a, b in zip(got, want)),
+                      max_rel_err=max(errs), bound_ms=bound_ms,
+                      bound_by="operations" if t_ops > t_bytes else "bytes", library_ms=None,
+                      shape=f"r/k/v/lw/dout[{N},{S},{hd}] f32"
+                      + (" state0 random" if state else "") + (" strong decays" if strong else ""),
+                      rel_errs={n: e for n, e in zip(names, errs)})
+        if timed:
+            record.update(ms=ms, eager_ms=eager_ms, plain_ms=plain_ms)
+
+
+def mamba_bwd_case(B, S, D, N, gen, record=None, state=False, timed=True):
+    """The selective scan's backward kernel (dlog_a, db, dc, dstate0) against
+    the plain backward on the same inputs, at mamba_case's served scale, from
+    the forward kernel's checkpoints, and a unit cotangent dy."""
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    dt = F.softplus(rnd(B, S, D))[..., None]
+    log_a = (dt * -torch.arange(1, N + 1, device="cuda", dtype=torch.float32)).contiguous()
+    b = (dt * rnd(B, S, 1, N) * rnd(B, S, D, 1)).contiguous()
+    c = rnd(B, S, N)
+    s0 = 3 * rnd(B, D, N) if state else None
+    dy = rnd(B, S, D)
+    _, _, ckpt = mamba_kernel.mamba_scan(log_a, b, c, s0, checkpoints=True)
+    kernel = lambda: mamba_kernel.mamba_scan_bwd(log_a, b, c, ckpt, dy)
+    plain = lambda: ref.mamba_scan_bwd(log_a, b, c, s0, dy)
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    errs = [(a - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
+            for a, w in zip(got, want)]
+    names = ("dlog_a", "db", "dc", "dstate0")
+    # log_a, b, dy, c and the checkpoints read once; dlog_a, db, dc and
+    # dstate0 written once; about ten fp32 flops a (b, t, d, n): the state
+    # recomputed (exp, fma), g (fma), dlog_a (two products), the carry, and
+    # s_t dy_t with its sum
+    n_ck = -(-S // mamba_kernel.CHUNK)
+    nbytes = 4 * (4 * B * S * D * N + B * S * D + 2 * B * S * N + B * n_ck * D * N + B * D * N)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 10 * B * S * D * N / FP32_FLOPS
+    bound_ms = 1e3 * max(t_ops, t_bytes)
+    ms = eager_ms = plain_ms = float("nan")
+    if timed:
+        ms, eager_ms, plain_ms = in_turns(plain, kernel)
+    say("mamba_scan_bwd", B=B, S=S, D=D, N=N, state0="random" if state else "none",
+        rtol=SCAN_RTOL,
+        rel_errs=json.dumps({n: float(f"{e:.3g}") for n, e in zip(names, errs)}).replace(" ", ""),
+        ms=f"{ms:.4f}", eager_ms=f"{eager_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        bound_ms=f"{bound_ms:.5f}", bound_by="operations" if t_ops > t_bytes else "bytes",
+        mbytes=f"{nbytes / 1e6:.1f}", share_of_bound=f"{bound_ms / ms:.3f}", card=repr(CARD))
+    if not max(errs) <= SCAN_RTOL:
+        raise AssertionError(f"mamba_scan_bwd disagrees with its plain version: {errs} of the "
+                             f"largest entries (rtol {SCAN_RTOL})")
+    if record is not None:
+        record.update(max_abs_err=max((a - w).abs().max().item() for a, w in zip(got, want)),
+                      max_rel_err=max(errs), ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                      bound_ms=bound_ms, bound_by="operations" if t_ops > t_bytes else "bytes",
+                      library_ms=None, shape=f"log_a/b[{B},{S},{D},{N}] f32"
+                      + (" state0 random" if state else ""))
+
+
+def training_scan_cases(records, gen) -> None:
+    """The backward kernels that training rwkv6-7b and hymba-1.5b adds, each
+    held to its plain backward and timed with its bound: the wkv scan's at
+    rwkv6-7b's training shape (N 256 = 4 rows x 64 heads, S 512, hd 64) from
+    a zero and from a random start state, then untimed at ragged S, strong
+    decays and every head dim, and at S 4096 with strong decays (dlw's Phi
+    walk keeps every later step's f32 rounding, which no decay damps: its
+    error against the plain backward in f32 and in f64 is recorded); the
+    selective scan's at hymba-1.5b's (4 x 640
+    tokens with the meta tokens, 1600 channels, state 16), and from a random
+    start state at the served prefill's 573, then untimed edges; attention's
+    with 128 sinks at hymba-1.5b's training shape (25 over 5 heads of 64, 4 x
+    640, window 1024, which every key is within: the sinks change nothing
+    there), bf16 and f32, and where the window bites (S 573, window 128, 100
+    sinks ending inside a 64-key tile), each beside torch.autograd through
+    SDPA with the same boolean mask."""
+    rwkv_bwd_case(256, 512, 64, gen, record=records["rwkv_scan_bwd"])
+    rwkv_bwd_case(256, 512, 64, gen, state=True,
+                  record=records["rwkv_scan_bwd"].setdefault("state0_random", {}))
+    for N, S, hd, strong in ((64, 37, 64, True), (16, 7, 32, False), (8, 33, 16, True),
+                             (8, 1, 8, False), (256, 130, 64, True)):
+        rwkv_bwd_case(N, S, hd, gen, state=True, strong=strong, timed=False)
+    rwkv_bwd_case(8, 4096, 64, gen, state=True, strong=True, timed=False, f64=True,
+                  record=records["rwkv_scan_bwd"].setdefault("S4096_strong", {}))
+    mamba_bwd_case(4, 640, 1600, 16, gen, record=records["mamba_scan_bwd"])
+    mamba_bwd_case(4, 573, 1600, 16, gen, state=True,
+                   record=records["mamba_scan_bwd"].setdefault("S573_state0_random", {}))
+    for B, S, D, N in ((2, 37, 256, 8), (3, 9, 40, 32), (1, 1, 24, 4), (2, 17, 10, 2)):
+        mamba_bwd_case(B, S, D, N, gen, state=True, timed=False)
+    sinks = records["flash_attention_bwd"].setdefault("hymba_sinks", {})
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype)[6:]
+        attention_bwd_case(640, 1024, dtype, gen, sinks.setdefault(f"S640_w1024_n128_{dt}", {}),
+                           heads=(25, 5, 64), n_sink=128)
+        attention_bwd_case(573, 128, dtype, gen, sinks.setdefault(f"S573_w128_n100_{dt}", {}),
+                           heads=(25, 5, 64), n_sink=100)
 
 
 def phase_kernels(records) -> None:
@@ -1025,7 +1203,9 @@ def phase_kernels(records) -> None:
         ms = attention_case(2048, 1024, dtype, gen, n_sink=128, **hymba)
         sinks[str(dtype).removeprefix("torch.")] = {
             "ms": ms, "no_sink_ms": attention_case(2048, 1024, dtype, gen, **hymba)}
-        attention_case(573, 1024, dtype, gen, n_sink=128, **hymba)     # served prefill
+        attention_case(573, 1024, dtype, gen, n_sink=128, **hymba,     # served prefill
+                       record=records["flash_attention"].setdefault("hymba_S573_w1024_n128", {})
+                       .setdefault(str(dtype)[6:], {}))
         attention_case(300, 128, dtype, gen, n_sink=100, **hymba)      # sinks in a part tile
     records["flash_attention"]["sinks_S2048_w1024_n128"] = sinks
     records["adapter_fused"]["decode_T4_bf16"] = {
@@ -1109,6 +1289,7 @@ def slice_kernel_cases(records, gen) -> None:
             attention_bwd_case(512, None, bf16, gen,
                                records["flash_attention_bwd"].setdefault(key, {}),
                                heads=heads, B=B)
+    training_scan_cases(records, gen)
 
 
 # ---------------------------------------------------------------- phases 3 and 4
@@ -1169,7 +1350,8 @@ def phase_serve(arch: str, records, cpu_witness: bool, layers=None, f32: bool = 
             "flash_attention": per_prefill if kinds & {"dense", "moe", "hymba"} else 0,
             "mamba_scan": per_prefill if "hymba" in kinds else 0,
             "rwkv_scan": per_prefill if "rwkv" in kinds else 0,
-            "adapter_fused_bwd": 0, "flash_attention_bwd": 0}
+            "adapter_fused_bwd": 0, "flash_attention_bwd": 0, "mamba_scan_bwd": 0,
+            "rwkv_scan_bwd": 0}
     if launches != want:
         raise AssertionError(f"launch counters {launches} != expected {want}")
     count_launches(records, cfg.name, launches)
@@ -1284,7 +1466,8 @@ def _grad_check(cfg, params, batch, boundary, *, backward_only=False, gate=True,
     pin = PinnedRouting()
     with pin:
         lk, _, gk = training.loss_and_grads(params, batch, cfg, boundary, impl="kernel")
-    real = tfm.apply_block, af.adapter_fused_bwd, fa.flash_attention_bwd
+    real = (tfm.apply_block, af.adapter_fused_bwd, fa.flash_attention_bwd,
+            rwkv_kernel.rwkv_scan_bwd, mamba_kernel.mamba_scan_bwd)
 
     def trunk_on_kernels(kind, cfg, p, h, ctx, cache=None):
         if not torch.is_grad_enabled():
@@ -1294,6 +1477,11 @@ def _grad_check(cfg, params, batch, boundary, *, backward_only=False, gate=True,
     if backward_only:
         af.adapter_fused_bwd, fa.flash_attention_bwd = (ref.adapter_fused_bwd_terms,
                                                         ref.flash_attention_bwd)
+        # the plain scan backwards under the kernels' signatures (mamba's
+        # checkpoints hold its start state, their first)
+        rwkv_kernel.rwkv_scan_bwd = ref.rwkv_scan_bwd
+        mamba_kernel.mamba_scan_bwd = lambda log_a, b, c, ckpt, dy: \
+            ref.mamba_scan_bwd(log_a, b, c, ckpt[:, 0], dy)
     else:
         tfm.apply_block = trunk_on_kernels
     try:
@@ -1302,7 +1490,8 @@ def _grad_check(cfg, params, batch, boundary, *, backward_only=False, gate=True,
             lp, _, gp = training.loss_and_grads(params, batch, cfg, boundary,
                                                 impl="kernel" if backward_only else "plain")
     finally:
-        tfm.apply_block, af.adapter_fused_bwd, fa.flash_attention_bwd = real
+        (tfm.apply_block, af.adapter_fused_bwd, fa.flash_attention_bwd,
+         rwkv_kernel.rwkv_scan_bwd, mamba_kernel.mamba_scan_bwd) = real
     rms = lambda x: x.float().square().mean().sqrt().item()
     leaves = {"head": (gk["head"]["w"], gp["head"]["w"])}
     for i, (a, b) in enumerate(zip(gk["adapters"], gp["adapters"])):
@@ -1394,7 +1583,8 @@ def phase_train(arch: str, params, records) -> None:
             peak = torch.cuda.max_memory_allocated()
             want = {"adapter_fused": cfg.n_layers, "adapter_fused_bwd": d,
                     "flash_attention": cfg.n_layers, "flash_attention_bwd": d - 1,
-                    "mamba_scan": 0, "rwkv_scan": 0}
+                    "mamba_scan": 0, "mamba_scan_bwd": 0,
+                    "rwkv_scan": 0, "rwkv_scan_bwd": 0}
             say("train_step", step=s, depth=d, boundary=boundary, loss=f"{loss:.5f}",
                 grad_norm=f"{metrics['grad_norm'].item():.4g}", step_ms=f"{1e3 * wall:.2f}",
                 peak_gib=f"{peak / 2**30:.3f}", launches=json.dumps(got).replace(" ", ""),
@@ -1431,6 +1621,20 @@ def phase_train(arch: str, params, records) -> None:
     if not shallow < deep:
         raise AssertionError(f"{cfg.name}: the forward and backward at depth {depths[0]} peak "
                              f"at {shallow:.3f} GiB, not below depth {depths[-1]}'s {deep:.3f}")
+
+
+def step_launches(cfg, d: int) -> dict:
+    """A single-device step's launches at d hot layers: L of the adapter and
+    of each sequence kernel of the model's block kinds, d of the adapter's
+    backward and d - 1 of each other backward (the lowest hot block's input
+    needs no gradient, so its attention and scans run as served)."""
+    kinds = {kind for kind, _ in cfg.pattern}
+    L = cfg.n_layers
+    want = {"adapter_fused": L, "adapter_fused_bwd": d}
+    for name, used in (("flash_attention", bool(kinds & {"dense", "moe", "hymba"})),
+                       ("rwkv_scan", "rwkv" in kinds), ("mamba_scan", "hymba" in kinds)):
+        want[name], want[f"{name}_bwd"] = L * used, (d - 1) * used
+    return want
 
 
 def _own_copy(params):
@@ -1493,8 +1697,7 @@ def _pjit_walk(cfg, tc, params, depths, label, resume_at=None):
             rec[name] = dict(out=out, ms=ms, wall=1e3 * (time.perf_counter() - t0),
                              peak=torch.cuda.max_memory_allocated() / 2**30,
                              launched={k: n - before[k] for k, n in ops.LAUNCHES.items()})
-        want = {"adapter_fused": L, "adapter_fused_bwd": d, "flash_attention": L,
-                "flash_attention_bwd": d - 1, "rwkv_scan": 0, "mamba_scan": 0}
+        want = step_launches(cfg, d)
         cap = graphed.capture_launches[graphed.last_key]
         from_python = rec["graphed"]["launched"]
         g, e = rec["graphed"]["out"], rec["eager"]["out"]
@@ -1943,7 +2146,8 @@ def _ring_walk(cfg, tc, params, records, depths, spans, label: str) -> None:
         peak = torch.cuda.max_memory_allocated() / 2**30
         want = {"adapter_fused": L * RING_M, "flash_attention": L * RING_M,
                 "adapter_fused_bwd": (L - b) * RING_M,
-                "flash_attention_bwd": (L - b - 1) * RING_M, "mamba_scan": 0, "rwkv_scan": 0}
+                "flash_attention_bwd": (L - b - 1) * RING_M, "mamba_scan": 0,
+                "mamba_scan_bwd": 0, "rwkv_scan": 0, "rwkv_scan_bwd": 0}
         ticks = ring_pl.pipeline_tick_counts(RING_S, RING_M, boundary, spans=trainer.spans)
         first = rec["iterations"][0]
         say("ring_round", ring=label, round=r, boundary=boundary, depth=L - b, frozen_stages=F,
@@ -2079,7 +2283,7 @@ def phase_ring_cache(arch: str, records) -> None:
         want_graph = exd.capture_launches[(boundary, "direct")] if mode == "capture" else {
             "adapter_fused": phase_b, "flash_attention": phase_b, "adapter_fused_bwd": phase_b,
             "flash_attention_bwd": (L - b - 1) * RING_M * RING_S, "mamba_scan": 0,
-            "rwkv_scan": 0}
+            "mamba_scan_bwd": 0, "rwkv_scan": 0, "rwkv_scan_bwd": 0}
         built = r % per_depth in (0, 2)                 # the first capture, the first hit
         want_counted = {k: 2 * n for k, n in graph.items()} if built else \
             {k: 0 for k in graph}
@@ -2163,10 +2367,13 @@ def phase_ring_cache(arch: str, records) -> None:
     count_launches(records, f"{cfg.name}_ring_cached", launches)
 
 
-def _path_kernels_ran(counts, what: str) -> None:
-    """Fail unless every kernel of the training path launched in ``counts``."""
-    idle = [k for k in ("adapter_fused", "flash_attention", "adapter_fused_bwd",
-                        "flash_attention_bwd") if counts.get(k, 0) == 0]
+def _path_kernels_ran(counts, what: str, cfg=None) -> None:
+    """Fail unless every kernel of the training path launched in ``counts``:
+    with ``cfg``, those of its block kinds (:func:`step_launches`), else the
+    adapter's and attention's."""
+    path = [k for k, n in step_launches(cfg, 2).items() if n] if cfg is not None else [
+        "adapter_fused", "flash_attention", "adapter_fused_bwd", "flash_attention_bwd"]
+    idle = [k for k in path if counts.get(k, 0) == 0]
     if idle:
         raise AssertionError(f"{what}: {idle} never launched ({counts})")
 
@@ -2434,7 +2641,8 @@ def phase_ring_tenants(arch: str, records) -> None:
                   "flash_attention": TENANTS * L * per_round,
                   "adapter_fused_bwd": TENANTS * (L - b) * per_round,
                   "flash_attention_bwd": TENANTS * (L - b - 1) * per_round,
-                  "mamba_scan": 0, "rwkv_scan": 0}
+                  "mamba_scan": 0, "mamba_scan_bwd": 0,
+                  "rwkv_scan": 0, "rwkv_scan_bwd": 0}
     ledger = jx.measured_tick_ledger(boundary)
     if graph != want_graph or ledger["phase_a_round_ticks"] != TENANTS * per_round + F - 1:
         raise AssertionError(f"the joint graph holds {graph}, expected {want_graph}; "
@@ -2520,7 +2728,8 @@ def phase_ring_tenants(arch: str, records) -> None:
     results = server.run(requests, log=lambda *a: None)
     served = dict(ops.LAUNCHES)
     want = {"adapter_fused": L * TENANT_NEW * TENANTS, "flash_attention": L * TENANTS,
-            "adapter_fused_bwd": 0, "flash_attention_bwd": 0, "mamba_scan": 0, "rwkv_scan": 0}
+            "adapter_fused_bwd": 0, "flash_attention_bwd": 0, "mamba_scan": 0,
+            "mamba_scan_bwd": 0, "rwkv_scan": 0, "rwkv_scan_bwd": 0}
     logits = [bt["prefill_logits"] for bt in server.batches]
     apart = all(not torch.equal(logits[i], logits[j]) for i in range(TENANTS)
                 for j in range(i))
@@ -2631,7 +2840,8 @@ def _elastic_launches(cfg, S, boundary, mode, T=1):
     L, b, per = cfg.n_layers, boundary * cfg.layers_per_repeat, RING_M * S * T
     fwd = (L if mode != "cached" else L - b) * per
     return {"adapter_fused": fwd, "flash_attention": fwd, "adapter_fused_bwd": (L - b) * per,
-            "flash_attention_bwd": (L - b - 1) * per, "mamba_scan": 0, "rwkv_scan": 0}
+            "flash_attention_bwd": (L - b - 1) * per, "mamba_scan": 0, "mamba_scan_bwd": 0,
+            "rwkv_scan": 0, "rwkv_scan_bwd": 0}
 
 
 def phase_ring_elastic(arch: str, records) -> None:
@@ -2864,7 +3074,7 @@ def _slice_train(cfg, params, records, depths, grad_depths=(1, 2)) -> None:
     del batch
     ops.reset_launches()
     launches, times = _pjit_walk(cfg, tc, params, depths, "slice_pjit")
-    _path_kernels_ran(ops.LAUNCHES, f"{cfg.name}'s graphed steps")
+    _path_kernels_ran(ops.LAUNCHES, f"{cfg.name}'s graphed steps", cfg)
     count_launches(records, f"{cfg.name}_pjit_graph", launches)
     say("slice_pjit_time", arch=cfg.name, layers=cfg.n_layers, batch=TRAIN_B, seq_len=TRAIN_S,
         **{f"depth{d}_{k}": json.dumps([round(x, 3) for x in v]).replace(" ", "")
@@ -2895,8 +3105,7 @@ def _one_step(cfg, params, records) -> None:
     loss = metrics["loss"].item()
     wall = 1e3 * (time.perf_counter() - t0)
     got = dict(ops.LAUNCHES)
-    want = {"adapter_fused": L, "adapter_fused_bwd": d, "flash_attention": L,
-            "flash_attention_bwd": d - 1, "mamba_scan": 0, "rwkv_scan": 0}
+    want = step_launches(cfg, d)
     say("slice_step", arch=cfg.name, layers=L, depth=d, boundary=boundary, loss=f"{loss:.5f}",
         **{k: f"{metrics[k].item():.4g}" for k in ("moe_aux", "moe_z", "grad_norm")},
         step_ms=f"{wall:.2f}", peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
@@ -2909,6 +3118,27 @@ def _one_step(cfg, params, records) -> None:
     if all(torch.equal(params["blocks"][-1]["adapter"][k], t) for k, t in top.items()):
         raise AssertionError(f"{cfg.name} step: the top adapter did not move")
     count_launches(records, f"{cfg.name}_train", got)
+
+
+def phase_rwkv6(records) -> None:
+    """rwkv6-7b at its published width and depth: served (blocks held to
+    their plain versions in bf16 and f32), then its gradients at depths 1
+    and 2 (:func:`_held_gradients`) and six graphed steps at depths 1, 2, 32
+    against eager, the scans' backward kernel in each."""
+    arch = "rwkv6-7b"
+    params = phase_serve(arch, records, cpu_witness=False)
+    cfg = served_config(arch)
+    _slice_train(cfg, params, records, (1, 2, cfg.n_layers))
+
+
+def phase_hymba(records) -> None:
+    """hymba-1.5b at its published width and depth, served and trained as
+    rwkv6-7b: the selective scan's backward kernel and attention's with its
+    128 sinks in each hot layer above the lowest."""
+    arch = "hymba-1.5b"
+    params = phase_serve(arch, records, cpu_witness=False)
+    cfg = served_config(arch)
+    _slice_train(cfg, params, records, (1, 2, cfg.n_layers))
 
 
 def phase_starcoder2(records) -> None:
@@ -3002,11 +3232,8 @@ def main() -> None:
     t0 = time.perf_counter()
     phase_ring_elastic("stablelm-3b", records)
     say("ring_elastic", seconds=f"{time.perf_counter() - t0:.1f}")
-    freed()                                             # stablelm-3b before rwkv6-7b
-    phase_serve("rwkv6-7b", records, cpu_witness=False)
-    freed()                                             # rwkv6-7b before hymba-1.5b
-    phase_serve("hymba-1.5b", records, cpu_witness=False)
-    for phase in (phase_starcoder2, phase_olmoe, phase_moonshot, phase_llama4):
+    for phase in (phase_rwkv6, phase_hymba, phase_starcoder2, phase_olmoe, phase_moonshot,
+                  phase_llama4):
         freed()                                         # the last arch before the next
         t0 = time.perf_counter()
         phase(records)

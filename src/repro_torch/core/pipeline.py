@@ -141,10 +141,21 @@ def unstack_entry(stacked: Any, spans: Sequence[Span], *, leading: int = 0) -> A
 def _check_ring(cfg: ModelConfig) -> None:
     """A stage applies the pattern's first block kind to every layer (as the
     reference's ``_apply_stage_layers`` does), so a pattern of several
-    entries (llama4's dense and moe layers) has no ring."""
+    entries (llama4's dense and moe layers) has no ring. Nor do the
+    recurrent kinds (rwkv, hymba): the reference's ring stops on them with a
+    TypeError under ``shard_map`` (the scan's zero start state is not varying
+    over the stage axis: ``models/blocks.py`` ``rwkv_time_mix``'s and
+    ``mamba_mix``'s ``lax.scan``), so a port of it would have no oracle."""
     if len(cfg.pattern) != 1:
         raise ValueError(f"{cfg.name}: the ring needs a uniform layer pattern (every stage "
                          f"applies one block kind to every layer), got {cfg.pattern}")
+    recurrent = sorted({kind for kind, _ in cfg.pattern} & {"rwkv", "hymba"})
+    if recurrent:
+        raise ValueError(
+            f"{cfg.name}: the ring does not take {recurrent[0]} blocks: the reference's ring "
+            f"stops on them with a TypeError (the lax.scan carry's varying manual axes do not "
+            f"match under shard_map: the scan's zero start state is not varying over 'stage', "
+            f"in rwkv_time_mix and mamba_mix), so it has no oracle; train them with --mode pjit")
 
 
 def stage_stack(params: Dict[str, Any], cfg: ModelConfig, n_stages: int, *,

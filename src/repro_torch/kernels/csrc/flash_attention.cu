@@ -1,8 +1,9 @@
 // Flash attention: causal (end-aligned), optional sliding window with
 // attention sinks, GQA. Two forward kernels, bf16 on the tensor cores and f32
 // on the CUDA cores, each of which can also write the row logsumexp for
-// training; and the backward for training (no sinks), at the end, again bf16
-// on the tensor cores and f32 on the CUDA cores. Head dims 64, 80 and 128.
+// training; and the backward for training, at the end, again bf16 on the
+// tensor cores and f32 on the CUDA cores, sinks included. Head dims 64, 80
+// and 128.
 //
 // Replaces: the Pallas TPU kernel src/repro/kernels/flash_attention.py
 //           (flash_attention / _kernel, pallas_call at line 86). In the port it
@@ -651,26 +652,25 @@ using Launch = int (*)(const void*, const void*, const void*, void*, float*, int
                        cudaStream_t);
 
 // the instantiation for (hd, sinks, lse) of a launcher family (the row
-// logsumexp is written for training, which takes no sinks). The tensor-core
+// logsumexp is written for training). The tensor-core
 // kernel runs 2 m-tiles per warp at hd 128 (each K/V fragment feeds two
 // products; 246-255 registers) and at hd 80 (faster than 1 at stablelm-3b's
 // prefill), and 1 at hd 64, where two made the served hymba prefill slower
 // (more registers, fewer blocks per SM).
 template <int HD, int MT>
 Launch pick_tc(bool sinks, bool lse) {
-  return lse ? &launch_tc<HD, MT, false, true>
-             : (sinks ? &launch_tc<HD, MT, true, false> : &launch_tc<HD, MT, false, false>);
+  if (lse) return sinks ? &launch_tc<HD, MT, true, true> : &launch_tc<HD, MT, false, true>;
+  return sinks ? &launch_tc<HD, MT, true, false> : &launch_tc<HD, MT, false, false>;
 }
 
 template <int HD>
 Launch pick_scalar(bool sinks, bool lse) {
-  return lse ? &launch_scalar<HD, false, true>
-             : (sinks ? &launch_scalar<HD, true, false> : &launch_scalar<HD, false, false>);
+  if (lse) return sinks ? &launch_scalar<HD, true, true> : &launch_scalar<HD, false, true>;
+  return sinks ? &launch_scalar<HD, true, false> : &launch_scalar<HD, false, false>;
 }
 
 template <bool TC>
 Launch pick(int hd, bool sinks, bool lse) {
-  if (lse && sinks) return nullptr;
   if (hd == 64) return TC ? pick_tc<64, 1>(sinks, lse) : pick_scalar<64>(sinks, lse);
   if (hd == 80) return TC ? pick_tc<80, 2>(sinks, lse) : pick_scalar<80>(sinks, lse);
   if (hd == 128) return TC ? pick_tc<128, 2>(sinks, lse) : pick_scalar<128>(sinks, lse);
@@ -696,14 +696,24 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, int 
 // ---------------------------------------------------------------- backward
 //
 // The FlashAttention-2 backward in the forward's mask (causal end-aligned,
-// optional window; no sinks). Inputs contiguous: q, o, dO [B, Sq, H, hd]; k, v
-// [B, Sk, K, hd]; lse and delta fp32 [B, H, Sq]. P is recomputed per tile from
+// optional window, the first n_sink keys passing the window test). Inputs
+// contiguous: q, o, dO [B, Sq, H, hd]; k, v [B, Sk, K, hd]; lse and delta fp32
+// [B, H, Sq]. P is recomputed per tile from
 // the forward's row logsumexp, P = exp(scale q.k - lse), 0 where masked (a row
 // that sees no key has lse = -inf and every key masked, so it gives 0, never
 // NaN);
 //   dV = P^T dO (P rounded to the input type, as the forward's PV took it),
 //   dP = dO V^T,  dS = P (dP - delta),  delta = rowsum(dO o),
 //   dQ = scale dS K,  dK = scale dS^T Q.
+// With sinks, a dK/dV block whose keys include one below n_sink walks every
+// later query tile (the window no longer bounds them), and a dQ block visits
+// the tiles below n_sink first and then jumps to its window's first tile, as
+// the forward does; tiles that the window or the sinks cut are masked pair by
+// pair. The kernels take SINKS as a template parameter, as the forward does,
+// so that the paths without sinks (every other model's training) carry no
+// sink test: their bounds and pair test are the window's alone and n_sink is
+// not read. The launcher picks the sink instantiation where a window and
+// n_sink > 0 are given.
 // What bounds it on the H100: operations (five products of 2 hd flops per kept
 // (query, key) pair and head, against q, k, v, o, dO read once and dq, dk, dv
 // written once: at S 512, hd 128 about 600 flops a byte). No atomics: every sum
@@ -801,12 +811,12 @@ __device__ __forceinline__ void bwd_load(float* dst, const float* src, int heads
 // One [BQB, BKB] tile: thread (rg, cl) forms S and dP for rows 2 rg, 2 rg + 1
 // and keys cl + 8 c (c < 4), then writes P into ps, where ps is not null,
 // and dS into dss, both [BQB][BKB + 1].
-template <int HD>
+template <int HD, bool SINKS>
 __device__ __forceinline__ void bwd_tile(const float* qs, const float* dos, const float* ks,
                                          const float* vs, const float* lse_s,
                                          const float* delta_s, float* ps, float* dss, int q0,
                                          int k0, int Sq, int Sk, float scale, int causal,
-                                         int window) {
+                                         int window, int n_sink) {
   constexpr int LD = HD + 1;
   constexpr int PLD = BKB + 1;
   const int rg = threadIdx.x / 8;
@@ -848,7 +858,7 @@ __device__ __forceinline__ void bwd_tile(const float* qs, const float* dos, cons
     for (int c = 0; c < 4; ++c) {
       const int kj = k0 + cl + 8 * c;
       const bool ok = q0 + row < Sq && kj < Sk && (!causal || kj <= qpos) &&
-                      (window <= 0 || qpos - kj < window);
+                      (window <= 0 || qpos - kj < window || (SINKS && kj < n_sink));
       const float p = ok ? expf(s[r][c] * scale - l) : 0.0f;
       if (ps != nullptr) ps[row * PLD + cl + 8 * c] = p;
       dss[row * PLD + cl + 8 * c] = p * (dp[r][c] - dl);
@@ -862,13 +872,13 @@ template <int HD> __device__ __forceinline__ bool has_dim(int dl, int e) {
   return HD % 32 == 0 || dl + 32 * e < HD;
 }
 
-template <int HD>
+template <int HD, bool SINKS>
 __global__ void __launch_bounds__(BWD_THREADS)
 attention_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           const float* __restrict__ v, const float* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ delta,
                           float* __restrict__ dk, float* __restrict__ dv, int H, int Sq, int Sk,
-                          int group, float scale, int causal, int window) {
+                          int group, float scale, int causal, int window, int n_sink) {
   constexpr int LD = HD + 1;
   constexpr int PLD = BKB + 1;
   constexpr int NE = (HD + 31) / 32;  // dims per thread: dl + 32 e
@@ -895,8 +905,10 @@ attention_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__
   const int off = Sk - Sq;
   int q_begin = causal ? max(0, k0 - off) : 0;
   q_begin = (q_begin / BQB) * BQB;
+  // every later query sees a sink key; the window bounds the others
   int q_end = Sq;
-  if (window > 0) q_end = min(Sq, max(0, k0 + BKB - 1 + window - off));
+  if (window > 0 && (!SINKS || k0 >= n_sink))
+    q_end = min(Sq, max(0, k0 + BKB - 1 + window - off));
 
   const int kr = threadIdx.x / 32;  // keys 4 kr .. 4 kr + 3
   const int dl = threadIdx.x % 32;
@@ -918,8 +930,8 @@ attention_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__
         delta_s[r] = in ? delta[(static_cast<long long>(b) * H + h) * Sq + q0 + r] : 0.0f;
       }
       __syncthreads();
-      bwd_tile<HD>(qs, dos, ks, vs, lse_s, delta_s, ps, dss, q0, k0, Sq, Sk, scale, causal,
-                      window);
+      bwd_tile<HD, SINKS>(qs, dos, ks, vs, lse_s, delta_s, ps, dss, q0, k0, Sq, Sk, scale,
+                          causal, window, n_sink);
       __syncthreads();
 #pragma unroll 4
       for (int i = 0; i < BQB; ++i) {
@@ -957,13 +969,13 @@ attention_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__
   }
 }
 
-template <int HD>
+template <int HD, bool SINKS>
 __global__ void __launch_bounds__(BWD_THREADS)
 attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const float* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ delta,
                         float* __restrict__ dq, int H, int Sq, int Sk, int group, float scale,
-                        int causal, int window) {
+                        int causal, int window, int n_sink) {
   constexpr int LD = HD + 1;
   constexpr int PLD = BKB + 1;
   constexpr int NE = (HD + 31) / 32;
@@ -999,6 +1011,8 @@ attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k
   int k_begin = 0;
   if (window > 0) k_begin = max(0, q0 + off - window + 1);
   k_begin = (k_begin / BKB) * BKB;
+  // with sinks (and a window): the tiles below sink_end first, then from k_begin on
+  const int sink_end = SINKS && window > 0 && n_sink > 0 ? ((n_sink + BKB - 1) / BKB) * BKB : 0;
 
   const int qr = threadIdx.x / 32;  // rows 8 qr .. 8 qr + 7
   const int dl = threadIdx.x % 32;
@@ -1008,13 +1022,14 @@ attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k
 #pragma unroll
     for (int e = 0; e < NE; ++e) adq[r][e] = 0.0f;
 
-  for (int k0 = k_begin; k0 < k_end; k0 += BKB) {
+  for (int k0 = SINKS && sink_end > 0 ? 0 : k_begin; k0 < k_end;
+       k0 = SINKS && k0 + BKB >= sink_end && k0 + BKB < k_begin ? k_begin : k0 + BKB) {
     __syncthreads();  // the previous tile is no longer read
     bwd_load<HD>(ks, kb, K, kvh, k0, BKB, Sk);
     bwd_load<HD>(vs, vb, K, kvh, k0, BKB, Sk);
     __syncthreads();
-    bwd_tile<HD>(qs, dos, ks, vs, lse_s, delta_s, nullptr, dss, q0, k0, Sq, Sk, scale,
-                    causal, window);
+    bwd_tile<HD, SINKS>(qs, dos, ks, vs, lse_s, delta_s, nullptr, dss, q0, k0, Sq, Sk, scale,
+                        causal, window, n_sink);
     __syncthreads();
 #pragma unroll 4
     for (int jj = 0; jj < BKB; ++jj) {
@@ -1118,13 +1133,15 @@ __device__ __forceinline__ void split_frags(uint32_t (&a)[2][NC / 16][4],
 }
 
 // (query, key) kept by the mask, at end-aligned positions (off = Sk - Sq)
+template <bool SINKS>
 __device__ __forceinline__ bool kept(int qi, int kj, int Sq, int Sk, int off, int causal,
-                                     int window) {
+                                     int window, int n_sink) {
   const int qpos = qi + off;
-  return qi < Sq && kj < Sk && (!causal || kj <= qpos) && (window <= 0 || qpos - kj < window);
+  return qi < Sq && kj < Sk && (!causal || kj <= qpos) &&
+         (window <= 0 || qpos - kj < window || (SINKS && kj < n_sink));
 }
 
-template <int HD>
+template <int HD, bool SINKS>
 __global__ void __launch_bounds__(THREADS)
 attention_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
                              const __nv_bfloat16* __restrict__ k,
@@ -1133,7 +1150,7 @@ attention_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
                              const float* __restrict__ lse, const float* __restrict__ delta,
                              __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
                              float* __restrict__ work, int H, int Sq, int Sk, int group,
-                             int parts, float scale, int causal, int window) {
+                             int parts, float scale, int causal, int window, int n_sink) {
   static_assert(BT == BK && THREADS == 128, "4 warps of 16 rows, 64-row tiles");
   constexpr int TILE = BT * tile_ld<HD>();
   constexpr int ND = HD / 8;
@@ -1171,8 +1188,10 @@ attention_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
   // the query tiles that see a key of this tile, for each query head of the part
   int q_begin = causal ? max(0, k0 - off) : 0;
   q_begin = (q_begin / BT) * BT;
+  // every later query sees a sink key; the window bounds the others
   int q_end = Sq;
-  if (window > 0) q_end = min(Sq, max(0, k0 + BT - 1 + window - off));
+  if (window > 0 && (!SINKS || k0 >= n_sink))
+    q_end = min(Sq, max(0, k0 + BT - 1 + window - off));
   const int n_q = q_end > q_begin ? (q_end - q_begin + BT - 1) / BT : 0;
   const int steps = heads * n_q;
 
@@ -1228,7 +1247,9 @@ attention_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
         for (int e = 0; e < 4; ++e) {
           const int col = c0 + 8 * n + 2 * t + (e & 1);
           float p = fast_exp2(fmaf(s[n][e], scale_log2, -ls[col]));
-          if (masked && !kept(q0 + col, kw + g + 8 * (e >> 1), Sq, Sk, off, causal, window))
+          if (masked &&
+              !kept<SINKS>(q0 + col, kw + g + 8 * (e >> 1), Sq, Sk, off, causal, window,
+                           n_sink))
             p = 0.0f;
           s[n][e] = p;
           dp[n][e] = p * (dp[n][e] - dl[col]);
@@ -1291,7 +1312,7 @@ attention_bwd_sum_kernel(const float* __restrict__ work, __nv_bfloat16* __restri
 
 // dQ, and first the block's rows of delta = rowsum(dO o): in registers for
 // dS here, and to device memory for the dK/dV kernel launched after this one
-template <int HD>
+template <int HD, bool SINKS>
 __global__ void __launch_bounds__(THREADS)
 attention_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
@@ -1300,7 +1321,7 @@ attention_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ dout,
                            const float* __restrict__ lse, float* __restrict__ delta,
                            __nv_bfloat16* __restrict__ dq, int H, int Sq, int Sk, int group,
-                           float scale, int causal, int window) {
+                           float scale, int causal, int window, int n_sink) {
   constexpr int TILE = BT * tile_ld<HD>();
   constexpr int ND = HD / 8;
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -1337,9 +1358,16 @@ attention_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
   int k_begin = 0;
   if (window > 0) k_begin = max(0, q0 + off - window + 1);
   k_begin = (k_begin / BT) * BT;
-  if (k_begin < k_end) {
-    load_tile_async<HD>(ks, kp, kld, k_begin, Sk);
-    load_tile_async<HD>(vs, vp, kld, k_begin, Sk);
+  // with sinks (and a window): the tiles below sink_end first, then from
+  // k_begin on, as the forward visits them
+  const int sink_end = SINKS && window > 0 && n_sink > 0 ? ((n_sink + BT - 1) / BT) * BT : 0;
+  auto next = [&](int k0) {
+    return SINKS && k0 + BT >= sink_end && k0 + BT < k_begin ? k_begin : k0 + BT;
+  };
+  const int first = SINKS && sink_end > 0 ? 0 : k_begin;
+  if (first < k_end) {
+    load_tile_async<HD>(ks, kp, kld, first, Sk);
+    load_tile_async<HD>(vs, vp, kld, first, Sk);
   }
   cp_async_commit();  // Q, dO and the first K and V
 
@@ -1387,12 +1415,13 @@ attention_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
     for (int e = 0; e < 4; ++e) adq[n][e] = 0.0f;
 
   int buf = 0;
-  for (int k0 = k_begin; k0 < k_end; k0 += BT) {
+  for (int k0 = first; k0 < k_end; k0 = next(k0)) {
     cp_async_wait<0>();  // this K and V tile (and, the first time, Q and dO)
     __syncthreads();     // ... for every thread; and the other buffer is no longer read
-    if (k0 + BT < k_end) {
-      load_tile_async<HD>(ks + (buf ^ 1) * TILE, kp, kld, k0 + BT, Sk);
-      load_tile_async<HD>(vs + (buf ^ 1) * TILE, vp, kld, k0 + BT, Sk);
+    const int kn = next(k0);
+    if (kn < k_end) {
+      load_tile_async<HD>(ks + (buf ^ 1) * TILE, kp, kld, kn, Sk);
+      load_tile_async<HD>(vs + (buf ^ 1) * TILE, vp, kld, kn, Sk);
     }
     cp_async_commit();
     const __nv_bfloat16* kt = ks + buf * TILE;
@@ -1413,8 +1442,8 @@ attention_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1;
         float p = fast_exp2(fmaf(s[n][e], scale_log2, -lr[r]));
-        if (masked && !kept(qw + g + 8 * r, k0 + 8 * n + 2 * t + (e & 1), Sq, Sk, off, causal,
-                            window))
+        if (masked && !kept<SINKS>(qw + g + 8 * r, k0 + 8 * n + 2 * t + (e & 1), Sq, Sk, off,
+                                   causal, window, n_sink))
           p = 0.0f;
         dp[n][e] = p * (dp[n][e] - dr[r]);
       }
@@ -1452,14 +1481,14 @@ int launch_delta(const float* o, const float* dout, float* delta, int B, int H, 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HD>
+template <int HD, bool SINKS>
 int launch_bwd_scalar(const void* q, const void* k, const void* v, const void* o,
                       const void* dout, const float* lse, float* delta, void* dq, void* dk,
                       void* dv, int B, int H, int K, int Sq, int Sk, int causal, int window,
-                      cudaStream_t stream) {
+                      int n_sink, cudaStream_t stream) {
   constexpr int smem = bwd_smem_bytes<HD>();
-  auto dkdv = attention_bwd_dkdv_kernel<HD>;
-  auto dqk = attention_bwd_dq_kernel<HD>;
+  auto dkdv = attention_bwd_dkdv_kernel<HD, SINKS>;
+  auto dqk = attention_bwd_dq_kernel<HD, SINKS>;
   static std::atomic<unsigned long long> done_dkdv{0}, done_dq{0};
   cudaError_t err = smem_limit_once(done_dkdv, dkdv, smem);
   if (err == cudaSuccess) err = smem_limit_once(done_dq, dqk, smem);
@@ -1473,25 +1502,25 @@ int launch_bwd_scalar(const void* q, const void* k, const void* v, const void* o
   const float scale = softmax_scale<HD>();
   dkdv<<<dim3((Sk + BKB - 1) / BKB, K, B), BWD_THREADS, smem, stream>>>(
       qt, kt, vt, dot, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), H, Sq, Sk,
-      H / K, scale, causal, window);
+      H / K, scale, causal, window, n_sink);
   err = cudaGetLastError();
   if (err != cudaSuccess || Sq <= 0) return static_cast<int>(err);
   dqk<<<dim3((Sq + BQB - 1) / BQB, H, B), BWD_THREADS, smem, stream>>>(
       qt, kt, vt, dot, lse, delta, static_cast<float*>(dq), H, Sq, Sk, H / K, scale, causal,
-      window);
+      window, n_sink);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HD>
+template <int HD, bool SINKS>
 int launch_bwd_tc(const void* q, const void* k, const void* v, const void* o, const void* dout,
                   const float* lse, float* delta, void* dq, void* dk, void* dv, float* work,
                   int B, int H, int K, int Sq, int Sk, int parts, int causal, int window,
-                  cudaStream_t stream) {
+                  int n_sink, cudaStream_t stream) {
   constexpr int tiles = 6 * BT * tile_ld<HD>() * static_cast<int>(sizeof(__nv_bfloat16));
   constexpr int smem_dkdv = tiles + 4 * BT * static_cast<int>(sizeof(float));
   constexpr int smem_dq = tiles + BT * static_cast<int>(sizeof(float));
-  auto dkdv = attention_bwd_dkdv_tc_kernel<HD>;
-  auto dqk = attention_bwd_dq_tc_kernel<HD>;
+  auto dkdv = attention_bwd_dkdv_tc_kernel<HD, SINKS>;
+  auto dqk = attention_bwd_dq_tc_kernel<HD, SINKS>;
   static std::atomic<unsigned long long> done_dkdv{0}, done_dq{0};
   cudaError_t err = smem_limit_once(done_dkdv, dkdv, smem_dkdv);
   if (err == cudaSuccess) err = smem_limit_once(done_dq, dqk, smem_dq);
@@ -1506,13 +1535,13 @@ int launch_bwd_tc(const void* q, const void* k, const void* v, const void* o, co
   if (Sq > 0) {
     dqk<<<dim3(H, B, (Sq + BT - 1) / BT), THREADS, smem_dq, stream>>>(
         qt, kt, vt, static_cast<const bf*>(o), dot, lse, delta, static_cast<bf*>(dq), H, Sq, Sk,
-        H / K, scale, causal, window);
+        H / K, scale, causal, window, n_sink);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   dkdv<<<dim3(K * parts, B, (Sk + BT - 1) / BT), THREADS, smem_dkdv, stream>>>(
       qt, kt, vt, dot, lse, delta, static_cast<bf*>(dk), static_cast<bf*>(dv), work, H, Sq, Sk,
-      H / K, parts, scale, causal, window);
+      H / K, parts, scale, causal, window, n_sink);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (parts > 1) {
@@ -1525,6 +1554,24 @@ int launch_bwd_tc(const void* q, const void* k, const void* v, const void* o, co
   return static_cast<int>(err);
 }
 
+// the instantiation for (bf16, sinks) at head dim HD
+template <int HD>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
+               const float* lse, float* delta, void* dq, void* dk, void* dv, float* work,
+               int B, int H, int K, int Sq, int Sk, int parts, bool bf16, int causal,
+               int window, int n_sink, cudaStream_t s) {
+  const bool sinks = window > 0 && n_sink > 0;
+  if (bf16)
+    return sinks ? launch_bwd_tc<HD, true>(q, k, v, o, dout, lse, delta, dq, dk, dv, work, B,
+                                           H, K, Sq, Sk, parts, causal, window, n_sink, s)
+                 : launch_bwd_tc<HD, false>(q, k, v, o, dout, lse, delta, dq, dk, dv, work, B,
+                                            H, K, Sq, Sk, parts, causal, window, n_sink, s);
+  return sinks ? launch_bwd_scalar<HD, true>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, K,
+                                             Sq, Sk, causal, window, n_sink, s)
+               : launch_bwd_scalar<HD, false>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, K,
+                                              Sq, Sk, causal, window, n_sink, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1534,7 +1581,7 @@ extern "C" {
 // 128 with unit stride. window <= 0 means no window; with a window, keys below
 // n_sink (>= 0) are seen by every query the causal mask lets see them. lse:
 // null (serving), or fp32 [B, H, Sq] contiguous for each row's logsumexp of
-// the scaled scores (-inf where the row sees no key; no sinks with it).
+// the scaled scores (-inf where the row sees no key).
 // Returns the cudaError_t of the launch.
 
 // float32 q, k, v, o: the scalar kernel
@@ -1560,19 +1607,20 @@ int flash_attention_tc_launch(const void* q, const void* k, const void* v, void*
                       vh, ob, os, oh, causal, window, n_sink, stream);
 }
 
-// The backward of the attention above (no sinks): q, o, dout [B, Sq, H, hd],
-// k, v [B, Sk, K, hd], lse fp32 [B, H, Sq] (the forward's), all contiguous
-// (bf16: 16-byte aligned); delta fp32 [B, H, Sq] scratch; dq, dk, dv written,
-// of q's dtype. bf16: 1 = bfloat16 (the tensor-core kernels), 0 = float32 (the
-// scalar ones). hd 64, 80 or 128. parts: the slices of each GQA group that
-// the bf16 dK/dV kernel's blocks take (dividing H / K; 1 for float32); above 1
-// work is fp32 [2, parts, B, Sk, K, hd] scratch for their partial sums.
+// The backward of the attention above (window and n_sink as there): q, o,
+// dout [B, Sq, H, hd], k, v [B, Sk, K, hd], lse fp32 [B, H, Sq] (the
+// forward's), all contiguous (bf16: 16-byte aligned); delta fp32 [B, H, Sq]
+// scratch; dq, dk, dv written, of q's dtype. bf16: 1 = bfloat16 (the
+// tensor-core kernels), 0 = float32 (the scalar ones). hd 64, 80 or 128.
+// parts: the slices of each GQA group that the bf16 dK/dV kernel's blocks take
+// (dividing H / K; 1 for float32); above 1 work is fp32 [2, parts, B, Sk, K,
+// hd] scratch for their partial sums.
 // Returns the cudaError_t of the launches.
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v, const void* o,
                                const void* dout, const void* lse, void* delta, void* dq,
                                void* dk, void* dv, void* work, int B, int H, int K, int Sq,
-                               int Sk, int hd, int bf16, int causal, int window, int parts,
-                               void* stream) {
+                               int Sk, int hd, int bf16, int causal, int window, int n_sink,
+                               int parts, void* stream) {
   if (B <= 0 || Sk <= 0) return 0;
   if (K <= 0 || H % K != 0 || Sq < 0 || parts < 1 || (H / K) % parts != 0 ||
       (parts > 1 && (!bf16 || work == nullptr)))
@@ -1581,27 +1629,15 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v, cons
   float* dl = static_cast<float*>(delta);
   float* w = static_cast<float*>(work);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    if (hd == 64)
-      return launch_bwd_tc<64>(q, k, v, o, dout, l, dl, dq, dk, dv, w, B, H, K, Sq, Sk, parts,
-                               causal, window, s);
-    if (hd == 80)
-      return launch_bwd_tc<80>(q, k, v, o, dout, l, dl, dq, dk, dv, w, B, H, K, Sq, Sk, parts,
-                               causal, window, s);
-    if (hd == 128)
-      return launch_bwd_tc<128>(q, k, v, o, dout, l, dl, dq, dk, dv, w, B, H, K, Sq, Sk, parts,
-                                causal, window, s);
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   if (hd == 64)
-    return launch_bwd_scalar<64>(q, k, v, o, dout, l, dl, dq, dk, dv, B, H, K, Sq, Sk, causal,
-                                 window, s);
+    return launch_bwd<64>(q, k, v, o, dout, l, dl, dq, dk, dv, w, B, H, K, Sq, Sk, parts, bf16,
+                          causal, window, n_sink, s);
   if (hd == 80)
-    return launch_bwd_scalar<80>(q, k, v, o, dout, l, dl, dq, dk, dv, B, H, K, Sq, Sk, causal,
-                                 window, s);
+    return launch_bwd<80>(q, k, v, o, dout, l, dl, dq, dk, dv, w, B, H, K, Sq, Sk, parts, bf16,
+                          causal, window, n_sink, s);
   if (hd == 128)
-    return launch_bwd_scalar<128>(q, k, v, o, dout, l, dl, dq, dk, dv, B, H, K, Sq, Sk, causal,
-                                  window, s);
+    return launch_bwd<128>(q, k, v, o, dout, l, dl, dq, dk, dv, w, B, H, K, Sq, Sk, parts, bf16,
+                           causal, window, n_sink, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -70,6 +70,46 @@
 // lw = 0 add nothing and decay nothing) and any N; hd is a template parameter
 // (8, 16, 32, 64). Below hd 16 the v rows pad to one 16-row tile with zero v,
 // and the producer lanes past hd own no channel.
+//
+// The backward (training, rwkv_scan_bwd_kernel): dr, dk, dv, dlw, du and
+// dstate0 from r, k, v, lw, u, state0 and dout. Training never differentiates
+// the final state, so its cotangent is zero. With G_t the cotangent of S_t
+// (G_{S-1} = 0):
+//
+//   dr_t = S_{t-1} dout_t + u o k_t (v_t . dout_t)
+//   dk_t = G_t v_t + u o r_t (v_t . dout_t),  dv_t = G_t^T k_t + (r_t . u o k_t) dout_t
+//   dlw_t = e^{lw_t} o rowsum(G_t o S_{t-1}),  du = sum_t r_t o k_t (v_t . dout_t)
+//   G_{t-1} = r_t dout_t^T + e^{lw_t} o G_t,   dstate0 = G_{-1}.
+//
+// dlw is the hard one: it needs S_{t-1} and G_t at the same step, while the
+// states run forward and G backward. Walking the state backward by dividing
+// by e^{lw} fails (the decay underflows to exactly 0), and keeping every
+// state is N S hd^2 floats (2.1 GB at rwkv6-7b's training shape). The kernel
+// needs neither: with Phi_t = rowsum(G_t o S_t), S_t - k_t v_t^T = e^{lw_t} o
+// S_{t-1} gives dlw_t = Phi_t - K_t, and G_{t-1}'s definition gives
+// Phi_{t-1} = dlw_t + R_t, where K_t = k_t o (G_t v_t) and R_t = r_t o
+// (S_{t-1} dout_t) are the state parts of dk and dr. So Phi walks backward
+// from Phi_{S-1} = 0 beside G, one number a row (in fp64: a running sum),
+// and every input of it is an hd vector a step. Two sweeps of one block per
+// sequence:
+//   1. forward: the state in registers (from state0), dr's state part
+//      S_{t-1} dout_t written to dr (global, read back by the same block);
+//   2. backward: G in registers (from 0), G_t v_t and G_t^T k_t, then per
+//      row the Phi walk, dlw, dk, dr, du; G_{-1} is dstate0.
+// The walk has no decay to damp it: each step's fp32 rounding of K_t and R_t
+// stays in Phi. How far dlw's error grows with S is measured on the card
+// (chip_smoke.py's S 4096 case with strong decays, PERF.md section 6).
+// Thread (i, jg) holds row i, columns 8 jg .. 8 jg + 7 of the state or of G
+// (hd^2 / 8 threads; 512 at hd 64). A chunk of CK = 16 steps of r, k, v,
+// e^{lw}, dout (and dr's state part) is staged in shared memory. The sums
+// over columns (row sums) go through shared memory per chunk, each row's in
+// column-group order; the sums over rows (G^T k) over the warp's lanes by a
+// reduce-scatter of the 8 columns and, at hd 64, the two halves of the rows
+// in shared memory. Every sum runs in a fixed order and nothing is atomic, so
+// the gradients are the same bit for bit call after call. fp32 FMAs; the
+// states recomputed as fmaf(e^{lw}, S, k v), the plain version's order. The
+// per-step latency bounds it (two sweeps of S dependent steps a block), far
+// from the bytes and flops it moves: tensor-core chunks are later work.
 #include <atomic>
 #include <cstdint>
 
@@ -452,6 +492,182 @@ rwkv_scan_kernel(const float* __restrict__ r, const float* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------- backward
+
+constexpr int CK = 16;   // steps a backward chunk stages in shared memory
+
+template <int HD> struct BwdPlan {
+  static constexpr int JG = HD / 8;                      // column groups of 8
+  static constexpr int THREADS = HD * JG < 32 ? 32 : HD * JG;
+  static constexpr int W = HD < 32 ? HD : 32;            // a warp's lanes over one column group
+  static constexpr int PARTS = HD / W;                   // row slices of a column sum
+  // R, K, V, E (e^{lw}), DO, DR (dr's state part): [CK][HD] each; row partials
+  // [CK][JG][HD]; column partials [CK][PARTS][HD]; v.dout and r.(u o k) [CK]; u [HD]
+  static constexpr int SMEM_FLOATS = 6 * CK * HD + CK * JG * HD + CK * PARTS * HD + 2 * CK + HD;
+  static constexpr int SMEM = 4 * SMEM_FLOATS;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(BwdPlan<HD>::THREADS)
+rwkv_scan_bwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ lw,
+                     const float* __restrict__ u, const float* __restrict__ s0,
+                     const float* __restrict__ dout, float* dr, float* __restrict__ dk, float* __restrict__ dv,
+                     float* __restrict__ dlw, float* __restrict__ du,
+                     float* __restrict__ ds0, int S) {
+  using P = BwdPlan<HD>;
+  constexpr int JG = P::JG, T = P::THREADS, W = P::W;
+  extern __shared__ __align__(16) float smem[];
+  float* R = smem;                             // [CK][HD]
+  float* K = R + CK * HD;
+  float* V = K + CK * HD;
+  float* E = V + CK * HD;                      // e^{lw}
+  float* DO = E + CK * HD;
+  float* DR = DO + CK * HD;                    // dr's state part (sweep 2)
+  float* rp = DR + CK * HD;                    // [CK][JG][HD]
+  float* cp = rp + CK * JG * HD;               // [CK][PARTS][HD]
+  float* vdo = cp + CK * P::PARTS * HD;        // [CK]
+  float* ruk = vdo + CK;                       // [CK]
+  float* U = ruk + CK;                         // [HD]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int i = tid % HD, jg = tid / HD;
+  const bool live = jg < JG;                   // hd 8: lanes 8.. of the one warp own nothing
+  const int j0 = live ? 8 * jg : 0;
+  const long n = blockIdx.x;
+  const long seq = n * static_cast<long>(S) * HD;
+  const int n_chunks = (S + CK - 1) / CK;
+  for (int x = tid; x < HD; x += T) U[x] = u[n * HD + x];
+
+  // a chunk's [CK][HD] rows of `src` into `dst`, zero past S
+  auto stage = [&](float* dst, const float* src, int t0, int steps, bool exp_of) {
+    for (int x = tid; x < CK * HD; x += T) {
+      const int q = x / HD;
+      const float val = q < steps ? src[seq + static_cast<long>(t0) * HD + x] : 0.0f;
+      dst[x] = exp_of ? expf(val) : val;
+    }
+  };
+
+  // ---- sweep 1, forward: S_{t-1} dout_t into dr
+  float st[8];
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) st[jj] = live ? s0[(n * HD + i) * HD + j0 + jj] : 0.0f;
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    const int t0 = ch * CK, steps = min(CK, S - t0);
+    stage(K, k, t0, steps, false);
+    stage(V, v, t0, steps, false);
+    stage(E, lw, t0, steps, true);
+    stage(DO, dout, t0, steps, false);
+    __syncthreads();
+    for (int q = 0; q < steps; ++q) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) acc = fmaf(st[jj], DO[q * HD + j0 + jj], acc);
+      if (live) rp[(q * JG + jg) * HD + i] = acc;
+      const float e = E[q * HD + i], kq = K[q * HD + i];
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) st[jj] = fmaf(e, st[jj], kq * V[q * HD + j0 + jj]);
+    }
+    __syncthreads();
+    for (int x = tid; x < steps * HD; x += T) {
+      const int q = x / HD, ii = x - q * HD;
+      float sum = rp[q * JG * HD + ii];
+      for (int g = 1; g < JG; ++g) sum += rp[(q * JG + g) * HD + ii];
+      dr[seq + static_cast<long>(t0) * HD + x] = sum;
+    }
+    // the next chunk's staging writes none of rp, and its rp writes come after its sync
+  }
+
+  // ---- G_{S-1} = 0, Phi_{S-1} = 0
+  float G[8];
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) G[jj] = 0.0f;
+  double phi = 0.0;                            // the row threads' (tid < HD) running Phi
+  float du_acc = 0.0f;
+  __syncthreads();                             // dr's state part is visible to the block
+
+  // ---- sweep 2, backward
+  for (int ch = n_chunks - 1; ch >= 0; --ch) {
+    const int t0 = ch * CK, steps = min(CK, S - t0);
+    stage(R, r, t0, steps, false);
+    stage(K, k, t0, steps, false);
+    stage(V, v, t0, steps, false);
+    stage(E, lw, t0, steps, true);
+    stage(DO, dout, t0, steps, false);
+    stage(DR, dr, t0, steps, false);
+    __syncthreads();
+    // the bonus's dot products, a warp a step
+    for (int q = warp; q < steps; q += T / 32) {
+      float a = 0.0f, b = 0.0f;
+      for (int x = lane; x < HD; x += 32) {
+        a = fmaf(V[q * HD + x], DO[q * HD + x], a);
+        b = fmaf(R[q * HD + x] * U[x], K[q * HD + x], b);
+      }
+#pragma unroll
+      for (int x = 16; x > 0; x >>= 1) {
+        a += __shfl_xor_sync(0xffffffffu, a, x);
+        b += __shfl_xor_sync(0xffffffffu, b, x);
+      }
+      if (lane == 0) {
+        vdo[q] = a;
+        ruk[q] = b;
+      }
+    }
+    for (int q = steps - 1; q >= 0; --q) {
+      // G holds G_t: its row sums against v_t, its column sums against k_t
+      const float kq = K[q * HD + i];
+      float acc = 0.0f, col[8];
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        acc = fmaf(G[jj], V[q * HD + j0 + jj], acc);
+        col[jj] = G[jj] * kq;
+      }
+      if (live) rp[(q * JG + jg) * HD + i] = acc;
+      reduce_scatter<W / 2, 4>(col, lane);
+      reduce_scatter<W / 4, 2>(col, lane);
+      reduce_scatter<W / 8, 1>(col, lane);
+#pragma unroll
+      for (int x = W / 16; x > 0; x >>= 1) col[0] += __shfl_xor_sync(0xffffffffu, col[0], x);
+      if (live && lane % (W / 8) == 0) {
+        const int c = (lane % W) / (W / 8);     // the column this lane's sum is of
+        cp[(q * P::PARTS + i / W) * HD + j0 + c] = col[0];
+      }
+      // G_{t-1} = r_t dout_t^T + e^{lw_t} o G_t
+      const float rq = R[q * HD + i], e = E[q * HD + i];
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) G[jj] = fmaf(e, G[jj], rq * DO[q * HD + j0 + jj]);
+    }
+    __syncthreads();
+    if (tid < HD) {                            // row i = tid: the Phi walk, dlw, dk, dr, du
+      const float ui = U[tid];
+      for (int q = steps - 1; q >= 0; --q) {
+        const int x = q * HD + tid;
+        float gv = rp[q * JG * HD + tid];
+        for (int g = 1; g < JG; ++g) gv += rp[(q * JG + g) * HD + tid];
+        const float rq = R[x], kq = K[x], vd = vdo[q];
+        const double dlw_t = phi - static_cast<double>(kq * gv);
+        phi = dlw_t + static_cast<double>(rq * DR[x]);
+        const long at = seq + static_cast<long>(t0) * HD + x;
+        dlw[at] = static_cast<float>(dlw_t);
+        dk[at] = fmaf(ui * rq, vd, gv);
+        dr[at] = fmaf(ui * kq, vd, DR[x]);
+        du_acc = fmaf(rq * kq, vd, du_acc);
+      }
+    }
+    for (int x = tid; x < steps * HD; x += T) {
+      const int q = x / HD, j = x - q * HD;
+      float sum = cp[q * P::PARTS * HD + j];
+      for (int p = 1; p < P::PARTS; ++p) sum += cp[(q * P::PARTS + p) * HD + j];
+      dv[seq + static_cast<long>(t0) * HD + x] = fmaf(ruk[q], DO[x], sum);
+    }
+    __syncthreads();                           // the staged chunk is read; the next overwrites it
+  }
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj)
+    if (live) ds0[(n * HD + i) * HD + j0 + jj] = G[jj];
+  if (tid < HD) du[n * HD + tid] = du_acc;
+}
+
 // Raises the kernel's dynamic shared-memory limit once per device; `done` is
 // the instantiation's bit set of devices already raised.
 template <typename K>
@@ -482,6 +698,23 @@ int launch(const void* r, const void* k, const void* v, const void* lw, const vo
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int HD>
+int launch_bwd(const void* r, const void* k, const void* v, const void* lw, const void* u,
+               const void* s0, const void* dout, void* dr, void* dk, void* dv, void* dlw,
+               void* du, void* ds0, int N, int S, cudaStream_t stream) {
+  using P = BwdPlan<HD>;
+  auto kernel = rwkv_scan_bwd_kernel<HD>;
+  static std::atomic<unsigned long long> done{0};
+  cudaError_t err = smem_limit_once(done, kernel, P::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  kernel<<<N, P::THREADS, P::SMEM, stream>>>(
+      f(r), f(k), f(v), f(lw), f(u), f(s0), f(dout), static_cast<float*>(dr),
+      static_cast<float*>(dk), static_cast<float*>(dv), static_cast<float*>(dlw),
+      static_cast<float*>(du), static_cast<float*>(ds0), S);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -501,6 +734,25 @@ int rwkv_scan_launch(const void* r, const void* k, const void* v, const void* lw
     case 64: return launch<64>(r, k, v, lw, u, state0, out, state_out, N, S, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The backward: r, k, v, lw, u, state0 as above; dout [N, S, hd] (the final
+// state's cotangent is zero). Writes dr, dk, dv, dlw [N, S, hd], du [N, 1, hd]
+// and dstate0 [N, hd, hd]. All fp32, contiguous, on one device. Returns the
+// cudaError_t of the launch.
+int rwkv_scan_bwd_launch(const void* r, const void* k, const void* v, const void* lw,
+                         const void* u, const void* state0, const void* dout, void* dr,
+                         void* dk, void* dv, void* dlw, void* du, void* dstate0, int N, int S,
+                         int hd, void* stream) {
+  if (N <= 0 || S <= 0) return 0;
+  using Bwd = int (*)(const void*, const void*, const void*, const void*, const void*,
+                      const void*, const void*, void*, void*, void*, void*, void*, void*, int,
+                      int, cudaStream_t);
+  const Bwd fn = hd == 8 ? &launch_bwd<8> : hd == 16 ? &launch_bwd<16>
+                 : hd == 32 ? &launch_bwd<32> : hd == 64 ? &launch_bwd<64> : nullptr;
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return fn(r, k, v, lw, u, state0, dout, dr, dk, dv, dlw, du, dstate0, N, S,
+            static_cast<cudaStream_t>(stream));
 }
 
 const char* cuda_error_string(int err) {

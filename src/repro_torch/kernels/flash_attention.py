@@ -4,7 +4,7 @@ The port of the reference's Pallas ``kernels/flash_attention.py``, in the
 model's layout: q [B, Sq, H, hd], k and v [B, Sk, K, hd], query head n reading
 KV head n // (H // K). bf16 runs the tensor-core kernel, f32 the scalar one
 (:func:`kernel_for`); with ``lse=True`` it also returns each row's logsumexp
-for :func:`flash_attention_bwd`, the backward (training; no sinks): bf16 on
+for :func:`flash_attention_bwd`, the backward (training; sinks included): bf16 on
 the tensor cores, its dK/dV blocks splitting the GQA group where the card
 would otherwise sit idle (:func:`bwd_parts`), f32 the scalar kernels. It takes
 CUDA tensors only; ``kernels.ops.flash_attention`` is the public entry, which
@@ -47,7 +47,7 @@ def _bwd_launcher():
         if lib.flash_attention_bwd_tile() != BWD_TILE:
             raise RuntimeError(f"csrc/flash_attention.cu's BT is "
                                f"{lib.flash_attention_bwd_tile()}, BWD_TILE {BWD_TILE}")
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -86,7 +86,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Causal (end-aligned), optionally windowed GQA attention; returns [B, Sq, H, hd].
 
     With a window, the first ``n_sink`` keys (attention sinks) pass the window
-    test. ``lse=True`` (training, no sinks) also returns each row's logsumexp
+    test. ``lse=True`` (training) also returns each row's logsumexp
     of the scaled scores, fp32 [B, H, Sq] (-inf where a row sees no key).
     """
     if q.device.type != "cuda":
@@ -99,8 +99,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"window must be positive, got {window}")
     if n_sink < 0:
         raise ValueError(f"n_sink must be >= 0, got {n_sink}")
-    if lse and n_sink and window is not None:
-        raise ValueError("the row logsumexp (training) is not written with attention sinks")
     B, Sq, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
@@ -142,9 +140,10 @@ def _dense16(t: torch.Tensor) -> torch.Tensor:
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
                         lse: torch.Tensor, dout: torch.Tensor, *, causal: bool = True,
-                        window: Optional[int] = None,
+                        window: Optional[int] = None, n_sink: int = 0,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) of :func:`flash_attention` (no sinks) from its output
+    """(dq, dk, dv) of :func:`flash_attention` (with a window, the first
+    ``n_sink`` keys passing its test, as there) from its output
     ``out``, its row logsumexp ``lse`` [B, H, Sq] fp32 and the cotangent
     ``dout`` [B, Sq, H, hd]; shapes and dtypes as the forward's. Inputs are
     made contiguous (the kernels read the model's layout with fixed strides).
@@ -163,6 +162,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
                          f"{tuple(lse.shape)} {lse.dtype}")
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
+    if n_sink < 0:
+        raise ValueError(f"n_sink must be >= 0, got {n_sink}")
     if q.device.type != "cuda":
         raise ValueError("flash_attention_bwd kernel takes CUDA tensors")
     bf16 = q.dtype == torch.bfloat16
@@ -176,7 +177,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         None if work is None else work.data_ptr(),
-        B, H, K, Sq, Sk, hd, int(bf16), int(causal), window or 0, parts,
+        B, H, K, Sq, Sk, hd, int(bf16), int(causal), window or 0, n_sink, parts,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(NAME, err)
     return dq, dk, dv

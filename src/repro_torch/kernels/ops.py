@@ -9,15 +9,16 @@ exists for holding a kernel against its plain version (the tests and
 ``LAUNCHES`` counts kernel launches, one per call that reached a kernel, so a
 run can show that its path went through the kernels.
 
-Gradients: where an input of ``adapter_fused`` or ``flash_attention`` needs
-one, the call goes through a ``torch.autograd.Function`` whose backward is the
-backward kernel on a CUDA tensor (counted as ``adapter_fused_bwd`` and
-``flash_attention_bwd``) and the plain backward of ``kernels/ref.py`` on a CPU
-tensor or under ``impl="plain"``. Where no input needs one (serving, the
-frozen trunk under ``torch.no_grad``), the call is the forward alone: nothing
-is saved and no row logsumexp is written. The scans (``rwkv_scan``,
-``mamba_scan``) have no backward kernel yet: a call on a CUDA tensor that
-needs a gradient raises.
+Gradients: where an input of a kernel needs one, the call goes through a
+``torch.autograd.Function`` whose backward is the backward kernel on a CUDA
+tensor (counted as ``adapter_fused_bwd``, ``flash_attention_bwd``,
+``rwkv_scan_bwd`` and ``mamba_scan_bwd``) and the plain backward of
+``kernels/ref.py`` on a CPU tensor or under ``impl="plain"``. The scans'
+backwards take no cotangent of the final state (training never
+differentiates it) and raise where one is given. Where no input
+needs one (serving, the frozen trunk under ``torch.no_grad``), the call is
+the forward alone: nothing is saved, no row logsumexp and no scan checkpoint
+is written.
 """
 from __future__ import annotations
 
@@ -34,7 +35,8 @@ from repro_torch.kernels import ref
 IMPLS = ("kernel", "plain")
 LAUNCHES: Dict[str, int] = {"adapter_fused": 0, "adapter_fused_bwd": 0,
                             "flash_attention": 0, "flash_attention_bwd": 0,
-                            "mamba_scan": 0, "rwkv_scan": 0}
+                            "mamba_scan": 0, "mamba_scan_bwd": 0,
+                            "rwkv_scan": 0, "rwkv_scan_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -108,16 +110,17 @@ def adapter_fused(h: torch.Tensor, w_down: torch.Tensor, w_up: torch.Tensor, *,
 
 
 class _FlashAttention(torch.autograd.Function):
-    """flash_attention with its backward (no sinks)."""
+    """flash_attention with its backward (sinks included)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: Optional[int], kernel: bool):
+    def forward(ctx, q, k, v, causal: bool, window: Optional[int], n_sink: int, kernel: bool):
+        kw = dict(causal=causal, window=window, n_sink=n_sink, lse=True)
         if kernel:
-            out, lse = _fa.flash_attention(q, k, v, causal=causal, window=window, lse=True)
+            out, lse = _fa.flash_attention(q, k, v, **kw)
             LAUNCHES["flash_attention"] += 1
         else:
-            out, lse = ref.flash_attention(q, k, v, causal=causal, window=window, lse=True)
-        ctx.causal, ctx.window, ctx.kernel = causal, window, kernel
+            out, lse = ref.flash_attention(q, k, v, **kw)
+        ctx.causal, ctx.window, ctx.n_sink, ctx.kernel = causal, window, n_sink, kernel
         ctx.save_for_backward(q, k, v, out, lse)
         return out
 
@@ -125,10 +128,11 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         bwd = _fa.flash_attention_bwd if ctx.kernel else ref.flash_attention_bwd
-        dq, dk, dv = bwd(q, k, v, out, lse, dout, causal=ctx.causal, window=ctx.window)
+        dq, dk, dv = bwd(q, k, v, out, lse, dout, causal=ctx.causal, window=ctx.window,
+                         n_sink=ctx.n_sink)
         if ctx.kernel:
             LAUNCHES["flash_attention_bwd"] += 1
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -138,11 +142,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     window, the first ``n_sink`` keys pass the window test (attention sinks)."""
     kernel = _use_kernel(q, impl)
     if _needs_grad(q, k, v):
-        if n_sink:
-            raise NotImplementedError(
-                "no backward with attention sinks yet: hymba training is ROADMAP.md "
-                "Queue 1, item 12")
-        return _FlashAttention.apply(q, k, v, causal, window, kernel)
+        return _FlashAttention.apply(q, k, v, causal, window, n_sink, kernel)
     if not kernel:
         return ref.flash_attention(q, k, v, causal=causal, window=window, n_sink=n_sink)
     out = _fa.flash_attention(q, k, v, causal=causal, window=window, n_sink=n_sink)
@@ -150,22 +150,85 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
-# the scans' kernels have no backward: on the card their output would carry no
-# gradient, so a call that needs one is refused
-_NO_SCAN_BWD = ("{} has no backward kernel yet: {} training is ROADMAP.md Queue 1, item 12")
+def _no_state_grad(name: str, dstate: Optional[torch.Tensor]) -> None:
+    if dstate is not None:
+        raise ValueError(f"{name}'s backward takes no gradient of the final state: "
+                         f"nothing in the port differentiates it")
+
+
+def _rwkv_forward(r, k, v, lw, u, state0, kernel: bool):
+    if not kernel:
+        return ref.rwkv_scan(r, k, v, lw, u, state0)
+    out = _rs.rwkv_scan(r, k, v, lw, u, state0)
+    LAUNCHES["rwkv_scan"] += 1
+    return out
+
+
+class _RwkvScan(torch.autograd.Function):
+    """rwkv_scan with its backward: the kernel recomputes the states from the
+    saved inputs, so the forward saves nothing else."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, lw, u, state0, kernel: bool):
+        ctx.set_materialize_grads(False)
+        ctx.kernel = kernel
+        ctx.save_for_backward(r, k, v, lw, u, state0)
+        return _rwkv_forward(r, k, v, lw, u, state0, kernel)
+
+    @staticmethod
+    def backward(ctx, dout, dstate):
+        _no_state_grad("rwkv_scan", dstate)
+        saved = ctx.saved_tensors
+        if dout is None:
+            dout = torch.zeros_like(saved[0])
+        if not ctx.kernel:
+            return (*ref.rwkv_scan_bwd(*saved, dout), None)
+        grads = _rs.rwkv_scan_bwd(*saved, dout.contiguous())
+        LAUNCHES["rwkv_scan_bwd"] += 1
+        return (*grads, None)
 
 
 def rwkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lw: torch.Tensor,
               u: torch.Tensor, state0: torch.Tensor, *,
               impl: str = "kernel") -> Tuple[torch.Tensor, torch.Tensor]:
     """r, k, v, lw [N, S, hd] fp32; u [N, 1, hd]; state0 [N, hd, hd] -> (out, state)."""
-    if not _use_kernel(r, impl):
-        return ref.rwkv_scan(r, k, v, lw, u, state0)
+    kernel = _use_kernel(r, impl)
     if _needs_grad(r, k, v, lw, u, state0):
-        raise NotImplementedError(_NO_SCAN_BWD.format("rwkv_scan", "rwkv"))
-    out = _rs.rwkv_scan(r, k, v, lw, u, state0)
-    LAUNCHES["rwkv_scan"] += 1
-    return out
+        return _RwkvScan.apply(r, k, v, lw, u, state0, kernel)
+    return _rwkv_forward(r, k, v, lw, u, state0, kernel)
+
+
+class _MambaScan(torch.autograd.Function):
+    """mamba_scan with its backward: the kernel's forward also writes the
+    state at every checkpoint (``_ms.CHUNK`` steps apart), from which the
+    backward kernel recomputes the states a chunk at a time; the [B, S, D, N]
+    states are never saved."""
+
+    @staticmethod
+    def forward(ctx, log_a, b, c, state0, kernel: bool):
+        ctx.set_materialize_grads(False)
+        ctx.kernel = kernel
+        if kernel:
+            y, state, ckpt = _ms.mamba_scan(log_a, b, c, state0, checkpoints=True)
+            LAUNCHES["mamba_scan"] += 1
+        else:
+            (y, state), ckpt = ref.mamba_scan(log_a, b, c, state0), None
+        ctx.save_for_backward(log_a, b, c, state0, ckpt)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        _no_state_grad("mamba_scan", dstate)
+        log_a, b, c, state0, ckpt = ctx.saved_tensors
+        if dy is None:
+            dy = log_a.new_zeros(log_a.shape[:3])
+        if not ctx.kernel:
+            grads = ref.mamba_scan_bwd(log_a, b, c, state0, dy)
+        else:
+            grads = _ms.mamba_scan_bwd(log_a, b, c, ckpt, dy.contiguous())
+            LAUNCHES["mamba_scan_bwd"] += 1
+        dla, db, dc, ds0 = grads
+        return dla, db, dc, None if state0 is None else ds0, None
 
 
 def mamba_scan(log_a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
@@ -173,10 +236,11 @@ def mamba_scan(log_a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                impl: str = "kernel") -> Tuple[torch.Tensor, torch.Tensor]:
     """log_a, b [B, S, D, N] fp32; c [B, S, N] -> (y [B, S, D], state [B, D, N]),
     from ``state0`` [B, D, N] fp32, or from a zero state when it is None."""
-    if not _use_kernel(log_a, impl):
-        return ref.mamba_scan(log_a, b, c, state0)
+    kernel = _use_kernel(log_a, impl)
     if _needs_grad(log_a, b, c, *([] if state0 is None else [state0])):
-        raise NotImplementedError(_NO_SCAN_BWD.format("mamba_scan", "hymba"))
+        return _MambaScan.apply(log_a, b, c, state0, kernel)
+    if not kernel:
+        return ref.mamba_scan(log_a, b, c, state0)
     out = _ms.mamba_scan(log_a, b, c, state0)
     LAUNCHES["mamba_scan"] += 1
     return out

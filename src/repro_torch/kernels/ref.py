@@ -96,6 +96,42 @@ def rwkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lw: torch.Tenso
     return torch.stack(outs, dim=1), s
 
 
+def rwkv_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lw: torch.Tensor,
+                  u: torch.Tensor, state0: torch.Tensor, dout: torch.Tensor,
+                  ) -> Tuple[torch.Tensor, ...]:
+    """(dr, dk, dv, dlw, du, dstate0) of :func:`rwkv_scan` for the cotangent
+    ``dout`` [N, S, hd] (the final state's is zero: training never
+    differentiates it), by the reverse-time recurrence. The forward states S_{t-1} are
+    recomputed forward and kept (never found by dividing by e^{lw}, which may
+    be 0); G_t, the cotangent of S_t, walks back:
+
+        dr_t = S_{t-1} dout_t + u o k_t (v_t . dout_t)
+        dk_t = G_t v_t + u o r_t (v_t . dout_t)
+        dv_t = G_t^T k_t + (r_t . u o k_t) dout_t
+        dlw_t = e^{lw_t} o rowsum(G_t o S_{t-1}),   du = sum_t r_t o k_t (v_t . dout_t)
+        G_{t-1} = r_t dout_t^T + e^{lw_t} o G_t,    dstate0 = G_{-1}
+    """
+    S = r.shape[1]
+    w = torch.exp(lw)
+    u0 = u[:, 0]
+    prev = [state0]                                 # prev[t] = S_{t-1}
+    for t in range(S - 1):
+        prev.append(w[:, t, :, None] * prev[-1] + k[:, t, :, None] * v[:, t, None, :])
+    g = torch.zeros_like(state0)
+    dr, dk, dv, dlw = (torch.empty_like(r) for _ in range(4))
+    du = torch.zeros_like(u0)
+    for t in range(S - 1, -1, -1):
+        rt, kt, vt, dt = r[:, t], k[:, t], v[:, t], dout[:, t]
+        vdo = (vt * dt).sum(-1, keepdim=True)
+        dr[:, t] = torch.einsum("nkv,nv->nk", prev[t], dt) + u0 * kt * vdo
+        dk[:, t] = torch.einsum("nkv,nv->nk", g, vt) + u0 * rt * vdo
+        dv[:, t] = torch.einsum("nkv,nk->nv", g, kt) + (rt * u0 * kt).sum(-1, keepdim=True) * dt
+        dlw[:, t] = w[:, t] * (g * prev[t]).sum(-1)
+        du = du + rt * kt * vdo
+        g = rt[:, :, None] * dt[:, None, :] + w[:, t, :, None] * g
+    return dr, dk, dv, dlw, du[:, None], g
+
+
 def mamba_scan(log_a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                state0: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sequential selective-SSM recurrence (the reference's oracle), from
@@ -112,6 +148,36 @@ def mamba_scan(log_a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
         s = torch.exp(log_a[:, t]) * s + b[:, t]
         ys.append(torch.einsum("bdn,bn->bd", s, c[:, t]))
     return torch.stack(ys, dim=1), s
+
+
+def mamba_scan_bwd(log_a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                   state0: Optional[torch.Tensor], dy: torch.Tensor,
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dlog_a, db, dc, dstate0) of :func:`mamba_scan` for the cotangent
+    ``dy`` [B, S, D] (the final state's is zero: training never
+    differentiates it), by the reverse-time recurrence. The states are recomputed forward
+    and kept (never found by dividing by e^{log_a}, which may be 0); g_t, the
+    cotangent of s_t, walks back:
+
+        g_t = dy_t c_t + e^{log_a_{t+1}} g_{t+1}   (g_{S-1} = dy_{S-1} c_{S-1})
+        db_t = g_t,   dlog_a_t = g_t e^{log_a_t} s_{t-1},   dc_t = sum_D s_t dy_t
+        dstate0 = e^{log_a_0} g_0
+    """
+    S = log_a.shape[1]
+    a = torch.exp(log_a)
+    states = [torch.zeros_like(log_a[:, 0]) if state0 is None else state0]
+    for t in range(S):                              # states[t] = s_{t-1}
+        states.append(a[:, t] * states[-1] + b[:, t])
+    carry = torch.zeros_like(states[0])
+    dla, db = torch.empty_like(log_a), torch.empty_like(b)
+    dc = torch.empty_like(c)
+    for t in range(S - 1, -1, -1):
+        g = carry + dy[:, t, :, None] * c[:, t, None, :]
+        db[:, t] = g
+        dla[:, t] = g * a[:, t] * states[t]
+        dc[:, t] = torch.einsum("bdn,bd->bn", states[t + 1], dy[:, t])
+        carry = a[:, t] * g
+    return dla, db, dc, carry
 
 
 def _attention_mask(Sq: int, Sk: int, causal: bool, window: Optional[int], n_sink: int,
@@ -155,10 +221,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
                         lse: torch.Tensor, dout: torch.Tensor, *, causal: bool = True,
-                        window: Optional[int] = None,
+                        window: Optional[int] = None, n_sink: int = 0,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) of :func:`flash_attention` (no sinks), the FlashAttention-2
-    way: P recomputed from the forward's row logsumexp, 0 where masked;
+    """(dq, dk, dv) of :func:`flash_attention` (its mask, the sinks' keys
+    included), the FlashAttention-2 way: P recomputed from the forward's row
+    logsumexp, 0 where masked;
     dV = P^T dO with P cast to v's dtype, as the forward's PV took it;
     dS = P (dO V^T - rowsum(dO o)); dQ = scale dS K; dK = scale dS^T Q.
     fp32 inside, each result rounded once to its input's dtype.
@@ -170,7 +237,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
     qg = q.reshape(B, Sq, K, G, hd).float()
     dog = dout.reshape(B, Sq, K, G, hd).float()
     s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) * scale
-    m = _attention_mask(Sq, Sk, causal, window, 0, q.device)
+    m = _attention_mask(Sq, Sk, causal, window, n_sink, q.device)
     p = torch.where(m, torch.exp(s - lse.reshape(B, K, G, Sq, 1)), 0.0)
     dv = torch.einsum("bkgqs,bqkgh->bskh", p.to(v.dtype).float(), dog)
     dp = torch.einsum("bqkgh,bskh->bkgqs", dog, v.float())

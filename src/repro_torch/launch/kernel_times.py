@@ -1,7 +1,7 @@
 """Times the port's kernels, and its serving loop, so two checkouts can be compared in one run.
 
     PYTHONPATH=<checkout>/src python3 src/repro_torch/launch/kernel_times.py \
-        [--serve ARCH | --plans]
+        [--serve ARCH | --plans | --backward]
 
 Whichever ``repro_torch`` is first on the path is the one timed: run this file
 against two checkouts in turns (A, B, B, A) on one card to compare them. It
@@ -17,9 +17,13 @@ rwkv6-7b's prefill (N 256 = 4 rows x 64 heads of 64, S 512 and 445) and
 ``mamba_scan`` at hymba-1.5b's ([4, 640, 1600, 16]), and the backward kernels
 at the training shapes (the adapter at h, g [2048, 2048] and [2048, 2560] in
 bf16 and f32, and beside it the weight gradients that ``kernels.ops`` forms
-from its output, timed alone, with the fp32 casts of h and g alone; attention at qwen2.5-3b's 4 x 512, 16 over 2 heads of 128, in bf16 and f32,
-at stablelm-3b's 4 x 512, 32 over 32 heads of 80, in bf16 and f32, and hd 64
-with a window of 128), each on the same inputs as its plain version
+from its output, timed alone, with the fp32 casts of h and g alone; attention
+at qwen2.5-3b's 4 x 512, 16 over 2 heads of 128, in bf16 and f32, at
+starcoder2-7b's 4 x 512, 36 over 4 heads of 128, in bf16, at stablelm-3b's
+4 x 512, 32 over 32 heads of 80, in bf16 and f32, and hd 64 with a window of
+128; the scans' at rwkv6-7b's N 256, S 512, hd 64 and hymba-1.5b's [4, 640,
+1600, 16], where the checkout has them; ``--backward`` times these backward
+kernels alone), each on the same inputs as its plain version
 (attention: the kernel forward's o and row logsumexp), each checked against
 its plain version and timed three ways:
 ``ms``, the device time of launches captured in one CUDA graph and replayed;
@@ -213,6 +217,7 @@ def backward(rnd) -> None:
                   flush=True)
     for (H, K, hd), window, dtype in (((16, 2, 128), None, torch.bfloat16),
                                       ((16, 2, 128), None, torch.float32),
+                                      ((36, 4, 128), None, torch.bfloat16),
                                       ((32, 32, 80), None, torch.bfloat16),
                                       ((32, 32, 80), None, torch.float32),
                                       ((16, 2, 64), 128, torch.bfloat16)):
@@ -225,6 +230,29 @@ def backward(rnd) -> None:
               f"{str(dtype)[6:]}",
               lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout, window=window),
               lambda: ref.flash_attention_bwd(q, k, v, out, lse, dout, window=window))
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import rwkv_scan as rs
+
+    if not hasattr(rs, "rwkv_scan_bwd"):
+        return
+    f32 = torch.float32
+    N, S, hd = 256, 512, 64
+    r, k, v = (8 * rnd(N, S, hd, dtype=f32) for _ in range(3))
+    lw = -torch.exp(-6.0 + 5.5 * torch.rand(N, S, hd, device="cuda"))
+    u, s0, dout = 0.5 * rnd(N, 1, hd, dtype=f32), torch.zeros(N, hd, hd, device="cuda"), \
+        rnd(N, S, hd, dtype=f32)
+    _time("rwkv_scan_bwd", f"r/k/v/lw/dout[{N},{S},{hd}] f32",
+          lambda: rs.rwkv_scan_bwd(r, k, v, lw, u, s0, dout),
+          lambda: ref.rwkv_scan_bwd(r, k, v, lw, u, s0, dout))
+    B, S, D, N = 4, 640, 1600, 16
+    dt = torch.nn.functional.softplus(rnd(B, S, D, dtype=f32))[..., None]
+    log_a = (dt * -torch.arange(1, N + 1, device="cuda", dtype=f32)).contiguous()
+    b = (dt * rnd(B, S, 1, N, dtype=f32) * rnd(B, S, D, 1, dtype=f32)).contiguous()
+    c, dy = rnd(B, S, N, dtype=f32), rnd(B, S, D, dtype=f32)
+    _, _, ckpt = ms.mamba_scan(log_a, b, c, checkpoints=True)
+    _time("mamba_scan_bwd", f"log_a/b[{B},{S},{D},{N}] f32",
+          lambda: ms.mamba_scan_bwd(log_a, b, c, ckpt, dy),
+          lambda: ref.mamba_scan_bwd(log_a, b, c, None, dy))
 
 
 def cold_ms(fn, h: torch.Tensor, l2_bytes: float = 50e6) -> float:
@@ -328,6 +356,8 @@ def main(argv=None) -> None:
     ap.add_argument("--runs", type=int, default=5, help="served runs after the warm-up")
     ap.add_argument("--plans", action="store_true",
                     help="time every tile plan of the bf16 prefill path instead")
+    ap.add_argument("--backward", action="store_true",
+                    help="time the backward kernels alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: needs a CUDA card")
@@ -336,6 +366,9 @@ def main(argv=None) -> None:
         serve(args.serve, args.runs)
     elif args.plans:
         plans()
+    elif args.backward:
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        backward(lambda *s, dtype: torch.randn(s, generator=gen, device="cuda").to(dtype))
     else:
         kernels()
     print(card(), flush=True)

@@ -9,7 +9,8 @@ Every mode is a (backend, policy) pair of the session:
     one CUDA graph per boundary) on a batch of the merged synthetic client
     corpora; one loss line a step with its boundary (and EM and F1 for a
     span head: mbert-squad, the default arch, as the reference's CLI).
-    ``--scheme all_hot`` trains every adapter from step 0.
+    ``--scheme all_hot`` trains every adapter from step 0. Every registered
+    arch trains here, rwkv6-7b and hymba-1.5b included.
   * ``--mode ring``: ``--stages`` stages of the model on the device, each
     client with its own corpus, ``--rounds`` rounds (every client the
     initiator once a round, ``--microbatches`` microbatches of
@@ -34,7 +35,8 @@ Every mode is a (backend, policy) pair of the session:
     (repeatable) injects churn before a round, ``--elastic`` lets the ring
     absorb it: a crash shrinks the ring to the survivors (no checkpoint is
     read), a rejoin grows it back, a straggler is repartitioned away (an
-    ``[elastic]`` line each, and ``[elastic S=n]`` on the round).
+    ``[elastic]`` line each, and ``[elastic S=n]`` on the round). The ring
+    refuses rwkv and hymba blocks (``core/pipeline._check_ring``).
 
 The depth grows by one block every ``--unfreeze-interval`` steps (owner
 iterations in ring mode; 40 by default, as the reference's CLI);
@@ -47,6 +49,8 @@ Usage (on a machine with an NVIDIA GPU; ``--device cpu`` runs the plain versions
         --unfreeze-interval 4
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b --reduced \\
         --steps 12 --unfreeze-interval 4
+    PYTHONPATH=src python -m repro_torch.launch.train --mode pjit --arch rwkv6-7b \\
+        --steps 6 --unfreeze-interval 2 --batch-size 4 --seq-len 512
     PYTHONPATH=src python -m repro_torch.launch.train --mode ring --arch stablelm-3b \\
         --reduced --stages 2 --rounds 4 --unfreeze-interval 2 --save ckpt/ring
     PYTHONPATH=src python -m repro_torch.launch.train --mode ring --arch stablelm-3b \\

@@ -42,7 +42,10 @@ row is summed by atomics and a round is bit for bit repeatable; the
 capacity C comes from the shapes on the host, so a step captures as a CUDA
 graph.
 
-Every block ends in the fused adapter kernel.
+Every block ends in the fused adapter kernel. Under autograd (training)
+attention, with its sinks, and both scans go through their backward kernels
+(``kernels/ops.py``); a hot block whose input and weights need no gradient
+(the lowest hot layer) runs them as served.
 """
 from __future__ import annotations
 

@@ -19,7 +19,9 @@ large up term, that ulp exceeds the tolerance of the small output.
 ``rwkv_scan`` and ``mamba_scan`` are held to their plain versions relative
 to the largest entry of each output (1e-4): both sum fp32 products in their
 own order along a serial recurrence, and on the served models the outputs
-reach 1e3 and more, where an absolute tolerance says nothing.
+reach 1e3 and more, where an absolute tolerance says nothing. Their backward
+kernels are held to the plain backwards the same way, each gradient relative
+to its largest entry (1e-4).
 
 The backward kernels (training) are held to the plain backward versions on
 the same inputs relative to each gradient's largest entry: 1e-4 in f32 (fp32
@@ -488,11 +490,12 @@ def test_flash_attention_backward_split_on_card(heads):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_backward_kernels_are_deterministic_on_card(dtype):
-    """Both backward kernels sum in a fixed order (no atomics): the same inputs
-    give the same outputs bit for bit, call after call, at the adapter's
-    widest shape of the card tests, at stablelm-3b's training shape (bf16:
-    the tile path, its partial sums added across the cluster in rank order)
-    and at qwen2.5-3b's attention shape."""
+    """Every backward kernel sums in a fixed order (no atomics): the same
+    inputs give the same outputs bit for bit, call after call, at the
+    adapter's widest shape of the card tests, at stablelm-3b's training shape
+    (bf16: the tile path, its partial sums added across the cluster in rank
+    order), at qwen2.5-3b's attention shape, at hymba-1.5b's attention with
+    sinks, and (f32) for both scans."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     from repro_torch.kernels import adapter_fused as af
@@ -523,6 +526,172 @@ def test_backward_kernels_are_deterministic_on_card(dtype):
     for _ in range(4):
         again = fa.flash_attention_bwd(q, k, v, out, lse, dout)
         assert all(torch.equal(a, b) for a, b in zip(first, again))
+    # attention with sinks at hymba-1.5b's heads (a GQA group of 5 split into
+    # bwd_parts parts in bf16), the window biting and the sinks ending inside a tile
+    q, k, v, dout = rnd(4, 573, 25, 64), rnd(4, 573, 5, 64), rnd(4, 573, 5, 64), \
+        rnd(4, 573, 25, 64)
+    kw = dict(window=128, n_sink=100)
+    out, lse = fa.flash_attention(q, k, v, lse=True, **kw)
+    first = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    for _ in range(4):
+        again = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(first, again)), "sinks"
+    if dt != torch.float32:
+        return
+    # the scans (f32 only): rwkv_scan's at rwkv6-7b's head dim from a start
+    # state, mamba_scan's at hymba-1.5b's width (dc summed over
+    # its 1600 channels across blocks, then in block order)
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import rwkv_scan as rs
+
+    r, kk, vv, do = rnd(64, 200, 64), rnd(64, 200, 64), rnd(64, 200, 64), rnd(64, 200, 64)
+    lw, u = -torch.exp(0.5 * rnd(64, 200, 64) - 1.0), 0.5 * rnd(64, 1, 64)
+    s0 = rnd(64, 64, 64)
+    first = rs.rwkv_scan_bwd(r, kk, vv, lw, u, s0, do)
+    for _ in range(4):
+        again = rs.rwkv_scan_bwd(r, kk, vv, lw, u, s0, do)
+        assert all(torch.equal(a, b) for a, b in zip(first, again)), "rwkv_scan_bwd"
+    la, b, c = -torch.exp(0.5 * rnd(4, 130, 1600, 16) - 1.0), rnd(4, 130, 1600, 16), \
+        rnd(4, 130, 16)
+    _, _, ck = ms.mamba_scan(la, b, c, checkpoints=True)
+    dy = rnd(4, 130, 1600)
+    first = ms.mamba_scan_bwd(la, b, c, ck, dy)
+    for _ in range(4):
+        again = ms.mamba_scan_bwd(la, b, c, ck, dy)
+        assert all(torch.equal(a, b_) for a, b_ in zip(first, again)), "mamba_scan_bwd"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,S,hd,state,strong", [
+    (256, 512, 64, False, False), (256, 512, 64, True, True), (64, 130, 32, True, False),
+    (8, 33, 16, True, True), (8, 1, 8, True, False), (16, 7, 64, False, False),
+    (4, 16, 16, True, False), (8, 37, 8, False, True), (8, 4096, 64, True, True)])
+def test_rwkv_scan_backward_on_card(N, S, hd, state, strong):
+    """The backward kernel against the plain backward on the same inputs:
+    rwkv6-7b's training shape (N 256 = 4 rows x 64 heads, S 512, hd 64) from
+    a zero and a random start state, ragged S around the 16-step chunk,
+    every head dim, decays down to -20 a step (where dlw's Phi walk must not
+    divide by e^{lw}), and S 4096 with strong decays (the Phi walk's f32
+    roundings, undamped by any decay, add up along S); then
+    through ops' autograd Function (one launch each way) against the plain
+    Function. At the served scale: r, k, v of std 8, a state of std 100."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv_scan as rs
+
+    gen = torch.Generator(device="cuda").manual_seed(N + S + hd)
+    rnd = lambda *s, std=1.0: std * torch.randn(s, generator=gen, device="cuda")
+    r, k, v = rnd(N, S, hd, std=8.0), rnd(N, S, hd, std=8.0), rnd(N, S, hd, std=8.0)
+    top = 3.0 if strong else -0.5
+    lw = -torch.exp(-6.0 + (top + 6.0) * torch.rand(N, S, hd, generator=gen, device="cuda"))
+    u = rnd(N, 1, hd, std=0.5)
+    s0 = rnd(N, hd, hd, std=100.0) if state else torch.zeros(N, hd, hd, device="cuda")
+    dout = rnd(N, S, hd)
+    got = rs.rwkv_scan_bwd(r, k, v, lw, u, s0, dout)
+    want = ref.rwkv_scan_bwd(r, k, v, lw, u, s0, dout)
+    for name, a, b in zip(("dr", "dk", "dv", "dlw", "du", "dstate0"), got, want):
+        _assert_grad_close(a, b, "float32", name, {"float32": SCAN_RTOL})
+    grads = {}
+    for impl in ("kernel", "plain"):
+        leaves = [t.clone().requires_grad_(True) for t in (r, k, v, lw, u, s0)]
+        ops.reset_launches()
+        out, _ = ops.rwkv_scan(*leaves, impl=impl)
+        grads[impl] = torch.autograd.grad((out * dout).sum(), leaves)
+        if impl == "kernel":
+            assert ops.LAUNCHES["rwkv_scan"] == 1 and ops.LAUNCHES["rwkv_scan_bwd"] == 1
+    for a, b in zip(grads["kernel"], grads["plain"]):
+        _assert_grad_close(a, b, "float32", "through autograd", {"float32": SCAN_RTOL})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,D,N,state", [
+    (4, 640, 1600, 16, False), (4, 330, 1600, 16, True), (2, 37, 256, 8, False),
+    (3, 9, 40, 32, True), (1, 1, 24, 4, True), (2, 70, 33, 16, False), (2, 17, 10, 2, True)])
+def test_mamba_scan_backward_on_card(B, S, D, N, state):
+    """The backward kernel against the plain backward: hymba-1.5b's training
+    shape (4 x 640 tokens with the meta tokens, 1600 channels, state 16),
+    ragged S around the 16-step checkpoints and D not filling a block, N up
+    to 32, from no start state and a random one; the forward with checkpoints is the served forward
+    bit for bit; then through ops' autograd Function against the plain one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device="cuda").manual_seed(S * N + D)
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    dt = torch.nn.functional.softplus(rnd(B, S, D))[..., None]
+    log_a = (dt * -torch.arange(1, N + 1, device="cuda", dtype=torch.float32)).contiguous()
+    b = (dt * rnd(B, S, 1, N) * rnd(B, S, D, 1)).contiguous()
+    c = rnd(B, S, N)
+    s0 = 3.0 * rnd(B, D, N) if state else None
+    dy = rnd(B, S, D)
+    y, sT, ck = ms.mamba_scan(log_a, b, c, s0, checkpoints=True)
+    y2, sT2 = ms.mamba_scan(log_a, b, c, s0)
+    assert torch.equal(y, y2) and torch.equal(sT, sT2)
+    assert ck.shape == (B, -(-S // ms.CHUNK), D, N)
+    got = ms.mamba_scan_bwd(log_a, b, c, ck, dy)
+    want = ref.mamba_scan_bwd(log_a, b, c, s0, dy)
+    for name, a, w in zip(("dlog_a", "db", "dc", "dstate0"), got, want):
+        _assert_grad_close(a, w, "float32", name, {"float32": SCAN_RTOL})
+    grads = {}
+    for impl in ("kernel", "plain"):
+        leaves = [t.clone().requires_grad_(True) for t in (log_a, b, c)] + \
+            ([] if s0 is None else [s0.clone().requires_grad_(True)])
+        ops.reset_launches()
+        yy, _ = ops.mamba_scan(*leaves[:3], leaves[3] if state else None, impl=impl)
+        grads[impl] = torch.autograd.grad((yy * dy).sum(), leaves)
+        if impl == "kernel":
+            assert ops.LAUNCHES["mamba_scan"] == 1 and ops.LAUNCHES["mamba_scan_bwd"] == 1
+    for a, w in zip(grads["kernel"], grads["plain"]):
+        _assert_grad_close(a, w, "float32", "through autograd", {"float32": SCAN_RTOL})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("heads", HEADS, ids=HEAD_IDS)
+@pytest.mark.parametrize("Sq,Sk,window,n_sink", [(640, 640, 1024, 128), (573, 573, 128, 100),
+                                                 (130, 130, 48, 64), (300, 300, 128, 128),
+                                                 (37, 200, 64, 70), (200, 331, 96, 5)])
+def test_flash_attention_backward_sinks_on_card(Sq, Sk, window, n_sink, heads, dtype):
+    """The backward kernels with attention sinks against the plain backward:
+    hymba-1.5b's training shape (640 tokens with its 128 meta tokens, window
+    1024), the window biting with sinks that end inside a 64-key tile (100
+    sinks at S 573), on a tile edge (64, 128), beyond Sq (Sk > Sq), and a few
+    sinks; the forward's row logsumexp with sinks against the plain one, its
+    output the served output bit for bit; then through ops' autograd
+    Function against the plain Function."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    H, K, hd = heads
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(Sq + Sk + n_sink + H)
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dt)
+    q, k, v, dout = rnd(2, Sq, H, hd), rnd(2, Sk, K, hd), rnd(2, Sk, K, hd), rnd(2, Sq, H, hd)
+    kw = dict(window=window, n_sink=n_sink)
+    out, lse = fa.flash_attention(q, k, v, lse=True, **kw)
+    assert torch.equal(out, fa.flash_attention(q, k, v, **kw))
+    _, want_lse = ref.flash_attention(q, k, v, lse=True, **kw)
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    want = ref.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        _assert_grad_close(a, b, dtype, name)
+    grads = {}
+    for impl in ("kernel", "plain"):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        ops.reset_launches()
+        o = ops.flash_attention(*leaves, impl=impl, **kw)
+        grads[impl] = torch.autograd.grad(o, leaves, dout)
+        if impl == "kernel":
+            assert ops.LAUNCHES["flash_attention"] == 1
+            assert ops.LAUNCHES["flash_attention_bwd"] == 1
+    for name, a, b in zip(("dq", "dk", "dv"), grads["kernel"], grads["plain"]):
+        _assert_grad_close(a, b, dtype, f"{name} through autograd", PIPE_RTOL)
 
 
 @pytest.mark.gpu
@@ -619,7 +788,8 @@ def test_ring_executor_cached_replay_equals_direct_on_card():
     phase_b = (L - b) * M * S
     assert cached.capture_launches[(b, "cached")] == {
         "adapter_fused": phase_b, "flash_attention": phase_b, "adapter_fused_bwd": phase_b,
-        "flash_attention_bwd": (L - b - 1) * M * S, "rwkv_scan": 0, "mamba_scan": 0}
+        "flash_attention_bwd": (L - b - 1) * M * S, "rwkv_scan": 0, "rwkv_scan_bwd": 0,
+        "mamba_scan": 0, "mamba_scan_bwd": 0}
     assert cached.capture_launches[(b, "capture")] == direct.capture_launches[(b, "direct")]
 
 
@@ -852,8 +1022,10 @@ def test_flash_attention_mbert_mha_on_card(dtype):
 @pytest.mark.parametrize("arch,vocab,seq", [("stablelm-3b", None, 64),
                                             ("stablelm-3b", 50304, 1024),
                                             ("mbert-squad", None, 64),
-                                            ("olmoe-1b-7b", None, 64)],
-                         ids=["lm", "lm_chunked_ce", "qa", "moe"])
+                                            ("olmoe-1b-7b", None, 64),
+                                            ("rwkv6-7b", None, 64),
+                                            ("hymba-1.5b", None, 64)],
+                         ids=["lm", "lm_chunked_ce", "qa", "moe", "rwkv", "hymba"])
 def test_pjit_graph_equals_eager_step_on_card(arch, vocab, seq):
     """``PjitBackend``'s graphed steps against the eager backend's, from the
     same weights on the same batches, with ``torch.equal``: the metrics and
@@ -865,9 +1037,11 @@ def test_pjit_graph_equals_eager_step_on_card(arch, vocab, seq):
     1024 tokens a row (the cross-entropy in checkpointed chunks of 512, whose
     recompute the graph captures), mbert-squad's QA step, and olmoe's moe
     layers (the dispatch's sorts and gathers in the graph; moe_aux and
-    moe_z among the metrics). A capture
-    records the step's launches (L, d, L, d - 1) and a replay launches none
-    from Python; one build a boundary."""
+    moe_z among the metrics), rwkv6-7b's and hymba-1.5b's (the scans'
+    backward kernels, attention's with 128 sinks). A capture records the
+    step's launches (L forward of each kernel on the path, d of the
+    adapter's backward, d - 1 of each other backward) and a replay launches
+    none from Python; one build a boundary."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: CUDA graphs and the kernels have no CPU mode")
     import dataclasses
@@ -913,9 +1087,13 @@ def test_pjit_graph_equals_eager_step_on_card(arch, vocab, seq):
                                        strict=True)):
             assert torch.equal(a, b), f"step {s}: leaf {i} {tuple(a.shape)}"
         d = L - got["boundary"]
+        kind = cfg.pattern[0][0]
+        attn, rwkv, ssm = kind != "rwkv", kind == "rwkv", kind == "hymba"
         assert graphed.capture_launches[graphed.last_key] == {
-            "adapter_fused": L, "adapter_fused_bwd": d, "flash_attention": L,
-            "flash_attention_bwd": d - 1, "rwkv_scan": 0, "mamba_scan": 0}
+            "adapter_fused": L, "adapter_fused_bwd": d, "flash_attention": L * attn,
+            "flash_attention_bwd": (d - 1) * attn, "rwkv_scan": L * rwkv,
+            "rwkv_scan_bwd": (d - 1) * rwkv, "mamba_scan": L * ssm,
+            "mamba_scan_bwd": (d - 1) * ssm}
         if s in (1, 3, 4, 5):                   # a replay: nothing launched from Python
             assert not any(replayed.values()), (s, replayed)
     assert [t.data_ptr() for t in graphed.state_tensors()] == ptrs

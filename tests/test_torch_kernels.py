@@ -70,7 +70,8 @@ def test_adapter_fused_flattens_leading_dims_and_counts_no_cpu_launch():
     want = ref.adapter_fused(h.reshape(-1, 64), wd, wu).reshape(h.shape)
     torch.testing.assert_close(out, want, rtol=0, atol=0)
     assert ops.LAUNCHES == {"adapter_fused": 0, "adapter_fused_bwd": 0, "flash_attention": 0,
-                            "flash_attention_bwd": 0, "mamba_scan": 0, "rwkv_scan": 0}
+                            "flash_attention_bwd": 0, "mamba_scan": 0, "mamba_scan_bwd": 0,
+                            "rwkv_scan": 0, "rwkv_scan_bwd": 0}
 
 
 def _heads_first(x):
@@ -302,18 +303,23 @@ def test_adapter_fused_tile_plan_misses_only_what_does_not_fit():
     pytest.param("flash_attention", {"flash_attention_launch", "flash_attention_tc_launch",
                                      "flash_attention_bwd_launch", "flash_attention_bwd_tile"},
                  id="flash_attention"),
-    pytest.param("rwkv_scan", {"rwkv_scan_launch"}, id="rwkv_scan"),
-    pytest.param("mamba_scan", {"mamba_scan_launch"}, id="mamba_scan")])
+    pytest.param("rwkv_scan", {"rwkv_scan_launch", "rwkv_scan_bwd_launch"}, id="rwkv_scan"),
+    pytest.param("mamba_scan", {"mamba_scan_launch", "mamba_scan_bwd_launch",
+                                "mamba_scan_chunk", "mamba_scan_bwd_blocks"},
+                 id="mamba_scan")])
 def test_kernel_sources_export_what_the_launchers_bind(name, entries):
     """Every C entry a launcher binds with ctypes is defined in its CUDA
     source (a missing one fails only at load time, on the card); the
-    backward entries among them, and the bf16 backward's tile size."""
+    backward entries among them, and the sizes the launchers take from the
+    library (the bf16 backward's tile, the scan's checkpoint spacing and
+    its backward's blocks)."""
     import re
     from pathlib import Path
 
     root = Path(torch_af.__file__).parent
     text = (root / f"{name}.py").read_text()
-    bound = set(re.findall(rf"\b({name}\w*_(?:launch|occupancy|bwd_tile))\b", text))
+    bound = set(re.findall(rf"\b({name}\w*_(?:launch|occupancy|bwd_tile|chunk|bwd_blocks))\b",
+                           text))
     src = (root / "csrc" / f"{name}.cu").read_text()
     exported = src[src.index('extern "C" {'):]
     assert bound == entries
@@ -654,36 +660,49 @@ def test_adapter_fused_bwd_tile_split_matches_jax(T, D, m, act):
 
 
 def test_attention_gradient_with_sinks_is_refused_and_serving_saves_nothing():
-    """n_sink > 0 with a gradient raises (hymba training waits); where no input
-    needs a gradient the call is the forward alone, as served."""
+    """n_sink > 0 with a gradient goes through the autograd Function (its
+    backward takes the sinks; the name is kept from when it was refused) and
+    the gradient flows to q, k and v; where no input needs a gradient the
+    call is the forward alone, as served: nothing saved, no graph."""
     q = torch.randn(1, 8, 2, 64, requires_grad=True)
-    k = torch.randn(1, 8, 1, 64)
-    with pytest.raises(NotImplementedError, match="sinks"):
-        ops.flash_attention(q, k, k, window=4, n_sink=2)
+    k = torch.randn(1, 8, 1, 64, requires_grad=True)
+    out = ops.flash_attention(q, k, k, window=4, n_sink=2)
+    assert type(out.grad_fn).__name__ == "_FlashAttentionBackward"
+    dq, dk = torch.autograd.grad(out.sum(), (q, k))
+    assert torch.isfinite(dq).all() and dq.abs().max() > 0 and dk.abs().max() > 0
     with torch.no_grad():
         out = ops.flash_attention(q, k, k, window=4, n_sink=2)
     assert out.grad_fn is None
-    assert ops.adapter_fused(k, torch.zeros(64, 4), torch.zeros(4, 64)).grad_fn is None
+    assert ops.adapter_fused(k.detach(), torch.zeros(64, 4),
+                             torch.zeros(4, 64)).grad_fn is None
     assert ops.flash_attention(q, k, k).grad_fn is not None
 
 
 @pytest.mark.parametrize("scan", ["rwkv_scan", "mamba_scan"])
 def test_scan_kernel_gradient_is_refused(scan):
-    """The scans have no backward kernel: off the CPU (a meta tensor stands for
-    the card's; the refusal comes before any launch) a call that needs a
-    gradient raises, where the plain version on the CPU stays differentiable;
-    with no gradient needed the refusal does not apply."""
+    """The scans' gradients flow through their autograd Functions (the name is
+    kept from when they were refused). Off the CPU (a meta tensor stands for
+    the card's) a call that needs a gradient goes to the kernel, whose
+    launcher takes CUDA tensors only: it raises, never falling back to the
+    plain version; on the CPU the plain forward and backward run, no launch
+    counted, and the gradient is finite; with no gradient needed the call is
+    the forward alone and saves nothing."""
     shapes = {"rwkv_scan": [(2, 4, 8)] * 4 + [(2, 1, 8), (2, 8, 8)],
               "mamba_scan": [(1, 4, 3, 2), (1, 4, 3, 2), (1, 4, 2), (1, 3, 2)]}[scan]
     fn = getattr(ops, scan)
     meta = [torch.zeros(s, device="meta") for s in shapes]
     meta[1].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 12"):
+    with pytest.raises(ValueError, match="CUDA tensors"):
         fn(*meta)
     cpu = [torch.randn(s) * 0.1 for s in shapes]
     cpu[1].requires_grad_(True)
     ops.reset_launches()
     out = fn(*cpu)[0]
-    assert out.grad_fn is not None and ops.LAUNCHES[scan] == 0
+    assert type(out.grad_fn).__name__ in ("_RwkvScanBackward", "_MambaScanBackward")
     out.sum().backward()
     assert cpu[1].grad is not None and torch.isfinite(cpu[1].grad).all()
+    assert cpu[1].grad.abs().max() > 0
+    assert ops.LAUNCHES[scan] == 0 and ops.LAUNCHES[f"{scan}_bwd"] == 0
+    with torch.no_grad():
+        outs = fn(*cpu)
+    assert all(o.grad_fn is None for o in outs)
